@@ -1,0 +1,217 @@
+"""Port differential tests: the batched f32 path (twin of K1, the driver, the
+memory guard) against the JAX reference, plus the kernel wrapper's contract.
+
+Inputs are made with numpy from fixed seeds and handed to both packages.
+Tolerances and why:
+
+* One attempt: f64 rtol 1e-12, f32 rtol 1e-5, relative to each array's
+  largest entry.  The reference step runs op by op (``jax.disable_jit``):
+  under ``jit`` XLA's CPU backend contracts multiply-add pairs into FMA,
+  while the twin (and the CUDA kernel, built with ``-fmad=false``) rounds
+  every operation on its own.
+* One interval in f64 against the jitted interpret-mode kernel: identical
+  step counts, every state array within rtol 1e-7 of its largest entry
+  (after ~100 steps the FMA-contracted roundoff reaches ~5e-9 there).
+* The whole slice in f64: identical step counts, checkpoint values within
+  rtol 1e-9.
+* The whole slice in f32 against the jitted reference: values within
+  rtol 2e-4 / atol 1e-6 (the reference's own pallas-loop against xla
+  tolerance), step counts within 2% per lane at rtol 1e-4 and within 5% at
+  rtol 1e-6.  The FMA contraction changes roundoff, and f32 step counts at
+  rtol 1e-6 (8 ulps) are that sensitive: the reference against itself with
+  contraction off (``XLA_FLAGS=--xla_backend_optimization_level=0``) moves
+  them by up to 5.0% on these inputs, and a 1-ulp change of u0 alone moves
+  the twin's own per-lane step counts by up to 3.9%.
+
+The kernel wrapper's own tests, and those that need the card, are in
+``test_torch_kernels.py``, which imports no JAX.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from odecheckpts_tpu import batched as jb
+from odecheckpts_tpu import harness as jh
+from odecheckpts_tpu import problems as jp
+from odecheckpts_torch import batched as tb
+from odecheckpts_torch import harness as th
+from odecheckpts_torch import interop, kernels
+from odecheckpts_torch import problems as tp
+
+NP = {"f64": np.float64, "f32": np.float32}
+TORCH = {"f64": torch.float64, "f32": torch.float32}
+INPUT_NAMES = ("atol", "rtol", "dt_max", "dt_floor", "tiny_scale")
+
+
+def _ensemble(batch, dtype, seed=0, tols=(1e-4, 1e-6)):
+    rng = np.random.default_rng(seed)
+    u0s = np.array([1.0, 0.0, 0.9]) * (1.0 + 0.05 * rng.standard_normal((batch, 3)))
+    tol = np.tile(np.asarray(tols), batch // len(tols))
+    return u0s.astype(dtype), tol.astype(dtype)
+
+
+def _normwise_close(got, want, rtol):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * np.max(np.abs(want)))
+
+
+def _jax_step(nu, kappa):
+    vf, _, _, params = jp.rigid_body()
+
+    def vfb(args, t):
+        return vf(*args, t=t[0], p=params)
+
+    return jb.make_step_ll(vfb, nu=nu, d=3, error_calibration=kappa)
+
+
+def _start(nu, dtype, batch=16, warm_steps=25):
+    """A mid-solve lanes-last state as numpy arrays: the port's Taylor init,
+    carried to JAX with interop, advanced by the reference's jitted step."""
+    u0s, tols = _ensemble(batch, NP[dtype], tols=(1e-2, 1e-4, 1e-6, 1e-3))
+    save_at = np.linspace(0.0, 10.0, 5).astype(NP[dtype])
+    vf, _, _, params = tp.rigid_body()
+    state, _, inputs = tb.initial_state(
+        vf, torch.tensor(u0s), params, save_at=save_at, dt0=0.1,
+        tols=torch.tensor(tols), num_derivatives=nu,
+    )
+    state = interop.state_to_numpy(state)
+    extra = (np.full((1, batch), save_at[1], NP[dtype]),) + tuple(
+        inputs[k].numpy() for k in INPUT_NAMES)
+    step = jax.jit(_jax_step(nu, 10.0))
+    s = tuple(jnp.asarray(x) for x in state)
+    for _ in range(warm_steps):
+        s = step(s, *(jnp.asarray(x) for x in extra))
+    return tuple(np.asarray(x) for x in s), extra
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("nu", [2, 3, 4])
+def test_one_attempt_matches_jax_make_step_ll(nu, dtype):
+    state, extra = _start(nu, dtype)
+    with jax.disable_jit():
+        want = _jax_step(nu, 10.0)(
+            tuple(jnp.asarray(x) for x in state), *(jnp.asarray(x) for x in extra))
+    vf, _, _, params = tp.rigid_body()
+    step = tb.make_step_ll(vf, params, nu=nu, d=3, error_calibration=10.0,
+                           dtype=TORCH[dtype])
+    got = step(interop.state_to_torch(state), *interop.to_torch(extra))
+    got = interop.state_to_numpy(got)
+    assert int(np.sum(got[0] != state[0])) > 0  # some lanes accepted
+    for g, w in zip(got, want):
+        assert g.dtype == np.asarray(w).dtype
+        _normwise_close(g, w, 1e-12 if dtype == "f64" else 1e-5)
+
+
+def test_one_interval_matches_jax_pallas_interval():
+    nu, batch = 4, 16
+    state, extra = _start(nu, "f64", batch=batch, warm_steps=0)
+    jcall = jb._pallas_interval(_jax_step(nu, 10.0), interpret=True, lanes=batch)
+    want = jcall(tuple(jnp.asarray(x) for x in state), *(jnp.asarray(x) for x in extra))
+    vf, _, _, params = tp.rigid_body()
+    step = tb.make_step_ll(vf, params, nu=nu, d=3, error_calibration=10.0,
+                           dtype=torch.float64)
+    t_next, *rest = interop.to_torch(extra)
+    got = kernels.step_ll_interval(
+        step, interop.state_to_torch(state), t_next, max_attempts=100_000,
+        **dict(zip(INPUT_NAMES, rest)),
+    )
+    got = interop.state_to_numpy(got)
+    assert np.all(got[0] >= extra[0])
+    np.testing.assert_array_equal(got[15], np.asarray(want[15]))
+    for g, w in zip(got, want):
+        _normwise_close(g, w, 1e-7)
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_solve_save_at_batched_matches_jax_pallas_loop(dtype):
+    u0s, tols = _ensemble(8, NP[dtype])
+    save_at = np.linspace(0.0, 10.0, 5).astype(NP[dtype])
+    jvf, _, _, jparams = jp.rigid_body()
+    u_j, uf_j, n_j = jb.solve_save_at_batched(
+        jvf, jnp.asarray(u0s), jparams, save_at=jnp.asarray(save_at), dt0=0.1,
+        tols=jnp.asarray(tols), engine="pallas-loop", interpret=True,
+    )
+    vf = tp.rigid_body()[0]
+    params = interop.to_torch(tuple(jparams))  # the reference's parameters, carried across
+    u_t, uf_t, n_t = tb.solve_save_at_batched(
+        vf, torch.tensor(u0s), params, save_at=save_at, dt0=0.1,
+        tols=torch.tensor(tols), engine="cuda-loop",
+    )
+    assert u_t.shape == (8, 5, 3) and uf_t.shape == (8, 5, 3) and n_t.shape == (8, 5)
+    assert u_t.dtype == TORCH[dtype] and bool(torch.all(torch.isfinite(u_t)))
+    u_j, uf_j, n_j = (np.asarray(x) for x in (u_j, uf_j, n_j))
+    if dtype == "f64":
+        np.testing.assert_array_equal(n_t.numpy(), n_j)
+        np.testing.assert_allclose(u_t.numpy(), u_j, rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(uf_t.numpy(), uf_j, rtol=1e-9, atol=1e-12)
+    else:
+        n_t, n_j = n_t.numpy()[:, -1], n_j[:, -1]
+        loose = tols == np.float32(1e-4)
+        np.testing.assert_allclose(n_t[loose], n_j[loose], rtol=0.02)
+        np.testing.assert_allclose(n_t[~loose], n_j[~loose], rtol=0.05)
+        np.testing.assert_allclose(u_t.numpy(), u_j, rtol=2e-4, atol=1e-6)
+
+
+def test_rmse_absolute_matches_jax():
+    rng = np.random.default_rng(4)
+    truth, got = rng.standard_normal((2, 16, 5, 3))
+    want = float(jh.rmse_absolute(jnp.asarray(truth))(jnp.asarray(got)))
+    assert float(th.rmse_absolute(truth)(got)) == pytest.approx(want, rel=1e-12)
+    assert th.device_sync(got) is got
+
+
+def test_hbm_guard_estimate_is_monotone_and_guard_raises():
+    kw = dict(num_derivatives=4, num_save_at=200, dtype=torch.float64)
+    e1 = tb.estimate_solve_bytes(256, 64, **kw)
+    e2 = tb.estimate_solve_bytes(1024, 64, **kw)
+    e3 = tb.estimate_solve_bytes(1024, 128, **kw)
+    assert e1 < e2 < e3
+    assert e2 == jb.estimate_solve_bytes(1024, 64, num_derivatives=4, num_save_at=200,
+                                         dtype=jnp.float64)
+    with pytest.raises(MemoryError, match="Reduce the batch"):
+        tb.check_hbm_budget(1024, 64, budget=e2 - 1, **kw)
+    tb.check_hbm_budget(1024, 64, budget=e2 + 1, **kw)
+    tb.check_hbm_budget(1024, 64, budget=None, **kw)
+    u0s, tols = _ensemble(8, np.float32)
+    vf, _, _, params = tp.rigid_body()
+    with pytest.raises(MemoryError):
+        tb.solve_save_at_batched(
+            vf, torch.tensor(u0s), params, save_at=np.linspace(0, 10, 5), dt0=0.1,
+            tols=torch.tensor(tols), hbm_budget=1024,
+        )
+
+
+@pytest.mark.parametrize("option", [
+    dict(strategy="filter"), dict(calibration="none"), dict(ode_order=2),
+    dict(correction="ts1"), dict(error_unit="residual"), dict(implementation="dense"),
+    dict(engine="pallas"), dict(num_derivatives=5),
+])
+def test_unported_options_name_their_roadmap_item(option):
+    u0s, tols = _ensemble(8, np.float32)
+    vf, _, _, params = tp.rigid_body()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tb.solve_save_at_batched(
+            vf, torch.tensor(u0s), params, save_at=np.linspace(0, 10, 5), dt0=0.1,
+            tols=torch.tensor(tols), **option,
+        )
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys, pkgutil, importlib, odecheckpts_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') for k in sys.modules), "
+        "sorted(k for k in sys.modules if k.startswith('jax'))\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=False, timeout=120, cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
