@@ -2,14 +2,19 @@
 solvers with fixed memory requirements, for one NVIDIA H100.
 
 The JAX package ``odecheckpts_tpu`` stays the reference; module names here
-mirror it.  Ported so far: the f32 work-precision path of the batched solver
-(``batched.solve_save_at_batched``) with its hand-written CUDA kernel
-(``kernels.step_ll_interval``, source ``csrc/step_ll.cu``) and the generic
-stack it runs between kernel launches.  This package never imports JAX.
+mirror it.  Ported so far: the whole work-precision surface of the batched
+solvers, rtol 1e-1..1e-9: the f32 engine (``batched.solve_save_at_batched``,
+kernels K1 and K3) with the generic stack it runs between kernel launches,
+the df32 engine (``batched_hi.make_hi_solver``, kernels K2 and K4), the
+step-count bucketing and the precision-routed driver
+(``batched_hi.make_routed_solver``).  The kernels are hand-written CUDA
+(``csrc/``, wrappers in ``kernels``).  This package never imports JAX.
 """
 
 from . import (  # noqa: F401
     batched,
+    batched_hi,
+    df32,
     harness,
     interop,
     ivpsolve,

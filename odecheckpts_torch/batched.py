@@ -15,6 +15,10 @@ Ported configuration: isotropic backend, TS0, ``ode_order=1``, fixedpoint,
 dynamic calibration, ``error_unit="qoi"``, any error calibration (kappa),
 ``num_derivatives`` in {2, 3, 4}.  Everything else raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
+
+``engine="cuda"`` runs the per-attempt kernel K3 (``kernels.step_ll_attempt``)
+under a host loop instead; ``make_bucketed_solver`` sorts a mixed-tolerance
+ensemble into buckets.  The df32 engine is ``batched_hi``.
 """
 
 from __future__ import annotations
@@ -56,14 +60,15 @@ def _rowsum(x):
     return acc
 
 
-def _qr_r_cols(cols, m, n, eps):
-    """Householder QR on a column list: ``cols`` is (n, m, B), column c at
-    ``cols[c]``.  Returns the columns transformed (upper triangular in their
-    first min(m, n) rows).  No rescaling and no sign normalization: this is
-    the kernel's QR, not ``linalg.qr_r``."""
+def _qr_r_cols(cols, m, n_reflect, eps):
+    """Householder QR on a column list: ``cols`` is (c, m, B), column c at
+    ``cols[c]``.  The first ``min(n_reflect, m - 1)`` reflections are applied
+    to every later column; with ``n_reflect = c`` the columns come out upper
+    triangular in their first min(m, c) rows.  No rescaling and no sign
+    normalization: this is the kernels' QR, not ``linalg.qr_r``."""
     rows = torch.arange(m, device=cols.device).reshape(m, 1)
     cols = cols.clone()
-    for j in range(min(n, m - 1)):
+    for j in range(min(n_reflect, m - 1)):
         col = cols[j]
         below = (rows >= j).to(cols.dtype)
         is_j = (rows == j).to(cols.dtype)
@@ -132,26 +137,17 @@ def _matmul_ll(a, b, n):
     return out
 
 
-class StepLL:
-    """One lanes-last adaptive attempt of the isotropic TS0 fixedpoint solver
-    with dynamic calibration: the plain-torch twin of the K1 kernel.
+class _StepConstants:
+    """The constants of a lanes-last step, each a Python float rounded to
+    ``dtype`` once, so the twin and the kernel (which receives the same
+    rounded values in its parameter bank, see ``_pack``) do the same
+    arithmetic."""
 
-    Every constant is a Python float, rounded to ``dtype`` once, so the twin
-    and the kernel (which receives the same rounded values, see
-    ``packed_constants``) do the same arithmetic.  Sums over the small row
-    axes run in the reference's order.
-    """
-
-    def __init__(self, vf, params, *, nu, d, error_calibration, control=None,
-                 dtype=torch.float32):
-        if nu not in SUPPORTED_NU:
-            raise NotImplementedError(
-                f"num_derivatives={nu} is not ported yet (the kernel is "
-                f"instantiated for {SUPPORTED_NU}): ROADMAP queue 1 item 4"
-            )
-        self.vf, self.params, self.nu, self.d = vf, params, nu, d
+    def __init__(self, *, nu, d, error_calibration, control, dtype):
+        self.nu, self.d, self.dtype = nu, d, dtype
         self.control = ctrl = control or Control()
         rnd = (lambda x: float(np.float32(x))) if dtype == torch.float32 else float
+        self.rnd = rnd
         a_rows, lq_rows, lq_norms, inv_fact = _constants(nu)
         self.a_rows = [[rnd(c) for c in row] for row in a_rows]
         self.lq_rows = [[rnd(c) for c in row] for row in lq_rows]
@@ -170,12 +166,11 @@ class StepLL:
         self.big = rnd(float(fi.max) ** 0.4)
         self.clip = rnd(1e30)
         self.tiny = float(fi.tiny)
-        self.four_eps = 4.0 * float(fi.eps)
         self._lq = {}
 
-    def packed_constants(self):
-        """The kernel's constant buffer (layout of ``Consts`` in step_ll.cu)."""
-        nmax = max(SUPPORTED_NU) + 1
+    def _pack(self, nmax, extra):
+        """Constant buffer: A and Lq padded to (nmax, nmax), ||Lq[k, :]||,
+        1/(nu-i)! padded to nmax, then the scalars in ``extra``."""
         n = self.nu + 1
         a = np.zeros((nmax, nmax))
         lq = np.zeros((nmax, nmax))
@@ -184,10 +179,7 @@ class StepLL:
         pad = [0.0] * (nmax - n)
         return np.array(
             list(a.ravel()) + list(lq.ravel())
-            + self.lq_norms + pad + self.inv_fact + pad
-            + [self.max_lq, self.a_inf_norm, self.sqrt_d, self.kappa, self.neg_n1,
-               self.n2, self.safety, self.factor_min, self.factor_max, self.big,
-               self.clip],
+            + self.lq_norms + pad + self.inv_fact + pad + list(extra),
             dtype=np.float32,
         )
 
@@ -199,6 +191,54 @@ class StepLL:
             )[:, :, None]
         return self._lq[key]
 
+    def _precond(self, dt):
+        """The (1, B) rows p_i = sqrt(dt) dt^(nu-i) / (nu-i)!."""
+        n = self.nu + 1
+        pows = [None] * n
+        pows[self.nu] = torch.ones_like(dt)
+        for i in reversed(range(self.nu)):
+            pows[i] = pows[i + 1] * dt
+        sq = torch.sqrt(dt)
+        return [sq * pows[i] * self.inv_fact[i] for i in range(n)]
+
+
+class StepLL(_StepConstants):
+    """One lanes-last adaptive attempt of the isotropic TS0 fixedpoint solver
+    with dynamic calibration: the plain-torch twin of the K1 and K3 kernels.
+
+    Every constant is a Python float, rounded to ``dtype`` once (see
+    ``_StepConstants``).  Sums over the small row axes run in the
+    reference's order.
+    """
+
+    def __init__(self, vf, params, *, nu, d, error_calibration, control=None,
+                 dtype=torch.float32):
+        if nu not in SUPPORTED_NU:
+            raise NotImplementedError(
+                f"num_derivatives={nu} is not ported yet (the kernel is "
+                f"instantiated for {SUPPORTED_NU}): ROADMAP queue 1 item 3a"
+            )
+        super().__init__(nu=nu, d=d, error_calibration=error_calibration,
+                         control=control, dtype=dtype)
+        self.vf, self.params = vf, params
+        self.four_eps = 4.0 * float(torch.finfo(dtype).eps)
+        self.device_functor = getattr(vf, "device_functor", None)
+        self.functor_params = params
+
+    def packed_constants(self):
+        """The kernel's constant buffer (layout of ``Consts`` in step_ll.cu)."""
+        return self._pack(max(SUPPORTED_NU) + 1, [
+            self.max_lq, self.a_inf_norm, self.sqrt_d, self.kappa, self.neg_n1,
+            self.n2, self.safety, self.factor_min, self.factor_max, self.big,
+            self.clip,
+        ])
+
+    def state_shapes(self, batch):
+        """Shapes of the 17 state arrays (layout above ``NUM_STATE``)."""
+        n, d, b = self.nu + 1, self.d, batch
+        row, nd, nn = (1, b), (n, d, b), (n, n, b)
+        return [row, nd, nn, nn, nd, nn, row, row, nd, nn, nn, nd, nn, row, row, row, row]
+
     def __call__(self, state, t_next, atol, rtol, dt_max, dt_floor, tiny_scale):
         (t, mean, chol, bwdG, bwd_m, bwd_L, scale, t_prev, mean_prev, chol_prev,
          bwdG_prev, bwd_m_prev, bwd_L_prev, dt_st, errn_prev, nsteps, mle) = state
@@ -206,12 +246,7 @@ class StepLL:
         n = nu + 1
 
         dt = torch.minimum(torch.maximum(dt_st, dt_floor), dt_max)
-        pows = [None] * n
-        pows[nu] = torch.ones_like(dt)
-        for i in reversed(range(nu)):
-            pows[i] = pows[i + 1] * dt
-        sq = torch.sqrt(dt)
-        p = [sq * pows[i] * self.inv_fact[i] for i in range(n)]
+        p = self._precond(dt)
         p_arr = torch.cat(p, dim=0)  # (n, B)
         t_new = t + dt
 
@@ -454,10 +489,19 @@ def check_hbm_budget(batch, d, *, num_derivatives=4, num_save_at=5,
 
 
 _NOT_PORTED = "is not ported yet: ROADMAP queue 1 item 3a"
+ENGINES = ("cuda-loop", "cuda", "torch")
+
+
+def _check_engine(engine):
+    if engine not in ENGINES:
+        raise ValueError(
+            f"engine={engine!r}: the port's engines are {ENGINES} (one kernel "
+            "per interval, one kernel per attempt, the plain-torch twin)"
+        )
 
 
 def _check_config(*, strategy, calibration, ode_order, correction, error_unit,
-                  implementation, engine, num_derivatives):
+                  implementation, num_derivatives, supported_nu=SUPPORTED_NU):
     for name, value, ported in (
         ("strategy", strategy, "fixedpoint"),
         ("calibration", calibration, "dynamic"),
@@ -468,16 +512,27 @@ def _check_config(*, strategy, calibration, ode_order, correction, error_unit,
     ):
         if value != ported:
             raise NotImplementedError(f"{name}={value!r} {_NOT_PORTED}")
-    if engine not in ("cuda-loop", "torch"):
+    if num_derivatives not in supported_nu:
         raise NotImplementedError(
-            f"engine={engine!r}: only 'cuda-loop' and 'torch' exist; the "
-            "per-attempt kernel (K3) is ROADMAP queue 2"
+            f"num_derivatives={num_derivatives} {_NOT_PORTED} (the kernels "
+            f"are instantiated for {supported_nu})"
         )
-    if num_derivatives not in SUPPORTED_NU:
-        raise NotImplementedError(
-            f"num_derivatives={num_derivatives} is not ported yet: "
-            "ROADMAP queue 1 item 4"
-        )
+
+
+def interval_fn(engine, interval_kernel, attempt_kernel, active):
+    """The per-checkpoint-interval call of an engine: the interval kernel
+    (``"cuda-loop"``), the attempt kernel under a host loop (``"cuda"``; one
+    device sync per attempt), or the twin under the same loop (``"torch"``).
+    """
+    if engine == "cuda-loop":
+        return interval_kernel
+    attempt = attempt_kernel if engine == "cuda" else kernels.attempt_plain
+
+    def run(step, state, t_next, *, max_attempts, **inputs):
+        return kernels.attempt_loop(attempt, active, step, state, t_next,
+                                    max_attempts=max_attempts, **inputs)
+
+    return run
 
 
 def initial_state(vf, u0s, params, *, save_at, dt0, tols, num_derivatives=4,
@@ -555,18 +610,20 @@ def solve_save_at_batched(
 
     ``u0s``: (B, d) tensor; ``tols``: (B,) relative tolerances on the same
     device; ``save_at``: the T checkpoint times.  ``engine="cuda-loop"``
-    launches the K1 kernel once per interval on CUDA tensors and runs the
-    plain twin on CPU tensors; ``engine="torch"`` runs the twin on any
-    device.  ``max_attempts`` bounds the attempts per lane and interval.
+    launches the K1 kernel once per interval; ``engine="cuda"`` launches K3
+    once per attempt under a host loop that runs while any lane is short of
+    the checkpoint (``odecheckpts_tpu/batched.py:895-897, 919-935``).  Both
+    run the plain twin on CPU tensors.  ``engine="torch"`` runs the twin on
+    any device.  ``max_attempts`` bounds the attempts per lane and interval.
 
     Returns ``(u_smooth (B, T, d), u_filt (B, T, d), num_steps (B, T))``.
     """
     _check_config(
         strategy=strategy, calibration=calibration, ode_order=ode_order,
         correction=correction, error_unit=error_unit,
-        implementation=implementation, engine=engine,
-        num_derivatives=num_derivatives,
+        implementation=implementation, num_derivatives=num_derivatives,
     )
+    _check_engine(engine)
     if isinstance(u0s, tuple):
         (u0s,) = u0s
     b, d = u0s.shape
@@ -589,10 +646,8 @@ def solve_save_at_batched(
         vf, u0s, params, save_at=save_at, dt0=dt0, tols=tols,
         num_derivatives=nu, atol_factor=atol_factor,
     )
-    interval = (
-        kernels.step_ll_interval if engine == "cuda-loop"
-        else kernels.step_ll_interval_plain
-    )
+    interval = interval_fn(engine, kernels.step_ll_interval, kernels.step_ll_attempt,
+                           kernels.active_ll)
 
     rvs, conds, nsteps = [], [], []
     for t_next in save_at[1:]:
@@ -632,3 +687,60 @@ def solve_save_at_batched(
     mean = torch.cat([margs.mean, init_stack.mean[-1:]])  # (T, B, n, d)
     u_smooth = ssm.qoi(mean).transpose(0, 1)
     return u_smooth, u_filt, nsteps
+
+
+def _host_rtols(tols):
+    """(B,) tolerances as a numpy array on the host."""
+    if isinstance(tols, torch.Tensor):
+        return tols.detach().cpu().numpy()
+    return np.asarray(tols)
+
+
+def make_bucketed_solver(vf, params, *, save_at, dt0, num_buckets=4, **solve_kwargs):
+    """Mixed-tolerance step-count bucketing (counterpart of
+    ``odecheckpts_tpu/batched.py:980-1061``): lanes sorted by tolerance,
+    loosest first, are solved in ``num_buckets`` buckets of (nearly) equal
+    size, so a bucket of loose lanes does not wait for the tightest lane.
+
+    Host-side only: the closure holds the configuration, and each bucket is
+    one ``solve_save_at_batched`` call.  The reference pads the batch to a
+    multiple of ``num_buckets`` so that its buckets share one compiled
+    program; the port runs eagerly and splits unevenly instead.
+
+    Returns ``solve(u0s, tols) -> ((u_s, u_f, nsteps), bucket_max_steps)``;
+    per-lane results equal those of one unbucketed solve (lanes are
+    independent).
+    """
+
+    def solve(u0s, tols):
+        if isinstance(u0s, tuple):
+            (u0s,) = u0s
+        tols_np = _host_rtols(tols)
+        tols = torch.as_tensor(tols, dtype=u0s.dtype, device=u0s.device)
+        b = tols_np.shape[0]
+        nb = max(1, min(num_buckets, b))
+        order = np.argsort(tols_np, kind="stable")[::-1]  # loosest first
+        chunks = np.array_split(order, nb)
+        outs = []
+        for idx in chunks:
+            idx_t = torch.as_tensor(idx.copy(), device=u0s.device)
+            outs.append(solve_save_at_batched(
+                vf, u0s[idx_t], params, save_at=save_at, dt0=dt0, tols=tols[idx_t],
+                **solve_kwargs,
+            ))
+        inv = np.empty(b, dtype=np.int64)
+        inv[np.concatenate(chunks)] = np.arange(b)
+        inv_t = torch.as_tensor(inv, device=u0s.device)
+        u_s, u_f, nsteps = (torch.cat([o[i] for o in outs])[inv_t] for i in range(3))
+        bucket_max_steps = [int(torch.max(o[2][:, -1])) for o in outs]
+        return (u_s, u_f, nsteps), bucket_max_steps
+
+    return solve
+
+
+def solve_save_at_bucketed(vf, u0s, params, *, save_at, dt0, tols, num_buckets=4,
+                           **solve_kwargs):
+    """One-shot convenience wrapper around :func:`make_bucketed_solver`."""
+    solve = make_bucketed_solver(vf, params, save_at=save_at, dt0=dt0,
+                                 num_buckets=num_buckets, **solve_kwargs)
+    return solve(u0s, tols)

@@ -1,22 +1,11 @@
 // K1: one whole checkpoint interval of the isotropic TS0 fixedpoint solver,
-// one IVP lane per thread.
+// one IVP lane per thread.  The step body and the notes on what bounds it
+// and why it matches its twin bit for bit are in step_ll.cuh.
 //
 // Replaces odecheckpts_tpu/batched.py:_pallas_interval(make_step_ll), the
 // Pallas kernel of the f32 work-precision path.  The plain PyTorch twin is
 // odecheckpts_torch/batched.py:StepLL; kernels.py binds this file through
 // ctypes and compares nothing itself (the tests and chip_smoke.py do).
-//
-// What bounds it: per-thread registers and latency, not bytes.  A lane's
-// state is 4*n*d + 6*n*n + 7 floats (217 at nu=4, d=3), plus the
-// (2n) x (2n) = 100-float column list of the revert QR and the step's
-// temporaries.  An attempt is a few thousand dependent scalar operations;
-// the lane reads its state once, loops over attempts in registers and local
-// memory, and writes the state once: rejected attempts never touch device
-// memory.  This first version accepts register spills (ptxas -v counts are
-// recorded in PERF.md); blocks of 128 threads keep enough warps in flight.
-//
-// Layout: every array is lanes-last in device memory, so thread b reads
-// x[i * B + b] and neighbouring threads load neighbouring addresses.
 //
 // Why a per-thread loop gives the Pallas kernel's results: the Pallas kernel
 // loops over a lane TILE while any lane of the tile has t < t_next (and the
@@ -29,456 +18,31 @@
 // one difference: a lane whose t is NaN is neither active nor frozen; the
 // tile loop would keep stepping it while other lanes are active, this loop
 // does not.  Such a lane is already lost.)
-//
-// The arithmetic follows odecheckpts_tpu/batched.py:make_step_ll literally,
-// operation by operation and in the same order, including:
-//   * the column-list Householder QR _qr_r_cols (batched.py:70-103), which
-//     has NO power-of-two scaling and NO sign normalization -- unlike
-//     linalg.qr_r.  Do not move it towards linalg.qr_r: the difference flips
-//     knife-edge accepts;
-//   * _tri_solve_upper_ll with its eps^2 zeroing (batched.py:113-141);
-//   * the +-1e30 clip of l_bar, the per-lane `mag` normalization, the finite
-//     ceiling FLT_MAX^0.4 on the scale, `s2 + FLT_MIN`, the bwdG / t3
-//     normalizations of the fixedpoint accumulation;
-//   * PI control with non-finite factors mapped to factor_min, the stall
-//     bound dt_stall = 4 eps max(|t|, 1), the nsteps / mle updates.
-// Maxima and clips propagate NaN as jnp.maximum / torch.maximum do.  Build
-// with -fmad=false and without --use_fast_math: every operation rounds on
-// its own as in the twin, and the eps^2 / FLT_MIN floors rely on IEEE
-// division, square root and subnormals.
 
-#include <cuda_runtime.h>
-
-#include <cfloat>
-#include <cstdint>
-#include <cstring>
+#include "step_ll.cuh"
 
 namespace {
-
-constexpr int NMAX = 5;  // n = nu + 1 for nu <= 4
-constexpr int NUM_STATE = 17;
-constexpr int NUM_IN = NUM_STATE + 6;  // + t_next, atol, rtol, dt_max, dt_floor, tiny_scale
-constexpr int THREADS = 128;
-
-// Rounded f32 constants, in the order of StepLL.packed_constants().  Passed
-// by value, so they sit in the kernel's parameter (constant) bank.
-struct Consts {
-  float a[NMAX * NMAX];   // Pascal transition A, row-major, stride NMAX
-  float lq[NMAX * NMAX];  // chol(Qbar), row-major, stride NMAX
-  float lq_norm[NMAX];    // ||Lq[k, :]||
-  float inv_fact[NMAX];   // 1 / (nu - i)!
-  float max_lq, a_inf_norm, sqrt_d, kappa, neg_n1, n2, safety, factor_min,
-      factor_max, big, clip;
-};
-static_assert(sizeof(Consts) == 71 * sizeof(float), "layout of StepLL.packed_constants");
-
-struct Args {
-  const float* in[NUM_IN];
-  float* out[NUM_STATE];
-};
-
-// Vector fields as functors: D fixes the ODE dimension, the parameters come
-// in as kernel arguments.  Each one mirrors the row-wise torch vector field
-// of the same name in problems.py.
-struct RigidBody {
-  static constexpr int D = 3;
-  float p1, p2, p3;
-  __device__ void operator()(const float* u, float /*t*/, float* out) const {
-    out[0] = p1 * u[1] * u[2];
-    out[1] = p2 * u[0] * u[2];
-    out[2] = p3 * u[0] * u[1];
-  }
-};
-
-__device__ __forceinline__ float maxp(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
-}
-__device__ __forceinline__ float minp(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : fminf(a, b);
-}
-
-template <int N, int D>
-struct Lane {
-  float t, scale, t_prev, dt, errn_prev, nsteps, mle;
-  float mean[N][D], chol[N][N], bwdG[N][N], bwd_m[N][D], bwd_L[N][N];
-  float mean_prev[N][D], chol_prev[N][N], bwdG_prev[N][N], bwd_m_prev[N][D],
-      bwd_L_prev[N][N];
-};
-
-template <int R, int C>
-__device__ __forceinline__ void load(float (&x)[R][C], const float* src, int64_t b, int64_t B) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < C; ++k) x[i][k] = src[(i * C + k) * B + b];
-}
-
-template <int R, int C>
-__device__ __forceinline__ void store(const float (&x)[R][C], float* dst, int64_t b, int64_t B) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < C; ++k) dst[(i * C + k) * B + b] = x[i][k];
-}
-
-template <int R, int C>
-__device__ __forceinline__ void copy_to(float (&dst)[R][C], const float (&src)[R][C]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < C; ++k) dst[i][k] = src[i][k];
-}
-
-// _qr_r_cols: Householder QR on the column list cols[c][r] (NC columns of M
-// rows), reflections j < min(NC, M - 1), each applied to columns j..NC-1.
-template <int M, int NC>
-__device__ __forceinline__ void qr_r_cols(float (&cols)[NC][M]) {
-  constexpr int J = NC < M - 1 ? NC : M - 1;
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    float colm[M];
-#pragma unroll
-    for (int r = 0; r < M; ++r) colm[r] = cols[j][r] * (r >= j ? 1.0f : 0.0f);
-    float norm2 = colm[0] * colm[0];
-#pragma unroll
-    for (int r = 1; r < M; ++r) norm2 = norm2 + colm[r] * colm[r];
-    const float norm = sqrtf(norm2 + FLT_MIN);
-    float head = colm[0] * (j == 0 ? 1.0f : 0.0f);
-#pragma unroll
-    for (int r = 1; r < M; ++r) head = head + colm[r] * (r == j ? 1.0f : 0.0f);
-    const float sign = head >= 0.0f ? 1.0f : -1.0f;
-    const float alpha = -sign * norm;
-    float v[M];
-#pragma unroll
-    for (int r = 0; r < M; ++r) v[r] = colm[r] - (r == j ? 1.0f : 0.0f) * alpha;
-    const float vnorm2 = norm2 + alpha * alpha - 2.0f * head * alpha;
-    const float inv = vnorm2 > FLT_MIN ? 2.0f / vnorm2 : 0.0f;
-#pragma unroll
-    for (int c = j; c < NC; ++c) {
-      float coeff = v[0] * cols[c][0];
-#pragma unroll
-      for (int r = 1; r < M; ++r) coeff = coeff + v[r] * cols[c][r];
-#pragma unroll
-      for (int r = 0; r < M; ++r) cols[c][r] = cols[c][r] - inv * v[r] * coeff;
-    }
-  }
-}
-
-// Largest |x[k]| over one row, NaN-propagating.
-template <int C>
-__device__ __forceinline__ float row_absmax(const float (&x)[C]) {
-  float m = fabsf(x[0]);
-#pragma unroll
-  for (int k = 1; k < C; ++k) m = maxp(m, fabsf(x[k]));
-  return m;
-}
-
-// One accept/reject attempt (make_step_ll's `step`), updating s in place.
-template <int NU, class VF>
-__device__ __forceinline__ void attempt(Lane<NU + 1, VF::D>& s, const Consts& c, const VF& vf,
-                                        float t_next, float atol, float rtol, float dt_max,
-                                        float dt_floor, float tiny_scale) {
-  constexpr int N = NU + 1;
-  constexpr int D = VF::D;
-  constexpr int M = 2 * N;
-  const float eps2 = FLT_EPSILON * FLT_EPSILON;
-
-  const float dt = minp(maxp(s.dt, dt_floor), dt_max);
-  float pows[N];
-  pows[NU] = 1.0f;
-#pragma unroll
-  for (int i = NU - 1; i >= 0; --i) pows[i] = pows[i + 1] * dt;
-  const float sq = sqrtf(dt);
-  float p[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) p[i] = sq * pows[i] * c.inv_fact[i];
-  const float t_new = s.t + dt;
-
-  // -- extrapolate the mean: m_pred = P A P^-1 m (zero entries of A skipped;
-  // -0.0f is the exact identity of +)
-  float m_bar[N][D], m_pred[N][D];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int k = 0; k < D; ++k) m_bar[i][k] = s.mean[i][k] / p[i];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      float acc = -0.0f;
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        if (c.a[i * NMAX + j] != 0.0f) acc = acc + c.a[i * NMAX + j] * m_bar[j][k];
-      m_pred[i][k] = p[i] * acc;
-    }
-
-  // -- TS0 residual on the first derivative
-  float fx[D], z[D];
-  vf(m_pred[0], t_new, fx);
-#pragma unroll
-  for (int k = 0; k < D; ++k) z[k] = m_pred[1][k] - fx[k];
-
-  // -- local scale and error (solution units)
-  const float s_unit = p[1] * c.lq_norm[1];
-  float zz = z[0] * z[0];
-  float q = atol + rtol * fabsf(m_pred[0][0]);
-  float tol_acc = 1.0f / (q * q);
-#pragma unroll
-  for (int i = 1; i < D; ++i) {
-    zz = zz + z[i] * z[i];
-    q = atol + rtol * fabsf(m_pred[0][i]);
-    tol_acc = tol_acc + 1.0f / (q * q);
-  }
-  const float sigma = sqrtf(zz) / (s_unit * c.sqrt_d);
-  const float err_u = sigma * (p[0] * c.lq_norm[0]);
-  const float errn = c.kappa * err_u * sqrtf(tol_acc / static_cast<float>(D));
-
-  const float sigma_safe = isfinite(sigma) ? sigma : c.big;
-  const float new_scale = minp(maxp(sigma_safe, tiny_scale), c.big);
-
-  // -- extrapolate the covariance with reversal, preconditioned coordinates
-  float l_bar[N][N];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int k = 0; k < N; ++k) l_bar[i][k] = minp(maxp(s.chol[i][k] / p[i], -c.clip), c.clip);
-  float mag = new_scale * c.max_lq;
-#pragma unroll
-  for (int i = 0; i < N; ++i) mag = maxp(mag, row_absmax(l_bar[i]));
-  mag = maxp(mag * c.a_inf_norm, tiny_scale);
-  const float inv_mag = 1.0f / mag;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int k = 0; k < N; ++k) l_bar[i][k] = l_bar[i][k] * inv_mag;  // l_bar_n
-  const float lq_s = new_scale * inv_mag;
-
-  // revert-QR columns: column i < N is [ (A l_bar_n)[i] ; lq_s Lq[i] ],
-  // column N + i is [ l_bar_n[i] ; 0 ]
-  float cols[M][M];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float acc = -0.0f;
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        if (c.a[i * NMAX + j] != 0.0f) acc = acc + c.a[i * NMAX + j] * l_bar[j][k];
-      cols[i][k] = acc;
-      cols[i][N + k] = lq_s * c.lq[i * NMAX + k];
-      cols[N + i][k] = l_bar[i][k];
-      cols[N + i][N + k] = 0.0f;
-    }
-  qr_r_cols<M, M>(cols);  // R[r][col] = cols[col][r]
-
-  // R_yy[i][j] = cols[j][i], R_yx[i][k] = cols[N + k][i]; X = R_yy^-1 R_yx
-  float x[N][N];
-#pragma unroll
-  for (int i = N - 1; i >= 0; --i) {
-    const float dd = cols[i][i];
-    const bool ok = fabsf(dd) > eps2;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float acc = cols[N + k][i];
-#pragma unroll
-      for (int j = i + 1; j < N; ++j) acc = acc - cols[j][i] * x[j][k];
-      x[i][k] = ok ? acc / dd : 0.0f;
-    }
-  }
-  float l_pred[N][N], gain[N][N], bwd_L_step[N][N], bwd_m_step[N][D];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      l_pred[i][k] = p[i] * (cols[i][k] * mag);
-      gain[i][k] = p[i] * x[k][i] / p[k];
-      bwd_L_step[i][k] = p[i] * (cols[N + i][N + k] * mag);
-    }
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      float acc = gain[i][0] * m_pred[0][k];
-#pragma unroll
-      for (int j = 1; j < N; ++j) acc = acc + gain[i][j] * m_pred[j][k];
-      bwd_m_step[i][k] = s.mean[i][k] - acc;
-    }
-
-  // -- TS0 correction (rank-1 update on the observation row)
-  float l_obs_n[N];
-  float m2 = maxp(row_absmax(l_pred[1]), tiny_scale);
-#pragma unroll
-  for (int k = 0; k < N; ++k) l_obs_n[k] = l_pred[1][k] / m2;
-  float s2 = l_obs_n[0] * l_obs_n[0];
-#pragma unroll
-  for (int k = 1; k < N; ++k) s2 = s2 + l_obs_n[k] * l_obs_n[k];
-  s2 = s2 + FLT_MIN;
-  float gc[N], g_corr[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float acc = l_pred[i][0] * l_obs_n[0];
-#pragma unroll
-    for (int j = 1; j < N; ++j) acc = acc + l_pred[i][j] * l_obs_n[j];
-    gc[i] = acc / s2;
-    g_corr[i] = gc[i] / m2;
-  }
-
-  // -- fixedpoint accumulation
-  float bwdG_new[N][N], bwd_m_new[N][D], m1[N][N], bl_g[N][N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float acc = s.bwdG[i][0] * gain[0][k];
-#pragma unroll
-      for (int j = 1; j < N; ++j) acc = acc + s.bwdG[i][j] * gain[j][k];
-      bwdG_new[i][k] = acc;
-    }
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      float acc = s.bwdG[i][0] * bwd_m_step[0][k];
-#pragma unroll
-      for (int j = 1; j < N; ++j) acc = acc + s.bwdG[i][j] * bwd_m_step[j][k];
-      bwd_m_new[i][k] = acc + s.bwd_m[i][k];
-    }
-  }
-  float mag_g = tiny_scale;
-#pragma unroll
-  for (int i = 0; i < N; ++i) mag_g = maxp(mag_g, row_absmax(s.bwdG[i]));
-  const float inv_g = 1.0f / mag_g;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float acc = (s.bwdG[i][0] * inv_g) * bwd_L_step[0][k];
-#pragma unroll
-      for (int j = 1; j < N; ++j) acc = acc + (s.bwdG[i][j] * inv_g) * bwd_L_step[j][k];
-      m1[i][k] = acc;
-      bl_g[i][k] = s.bwd_L[i][k] * inv_g;
-    }
-  float t3 = tiny_scale;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    t3 = maxp(t3, row_absmax(m1[i]));
-    t3 = maxp(t3, row_absmax(bl_g[i]));
-  }
-  const float inv3 = 1.0f / t3;
-  float cols2[N][M];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      cols2[i][k] = m1[i][k] * inv3;
-      cols2[i][N + k] = bl_g[i][k] * inv3;
-    }
-  qr_r_cols<M, N>(cols2);
-
-  // -- PI control
-  const float errn_s = maxp(errn, FLT_MIN);
-  float factor = c.safety * expf(c.neg_n1 * logf(errn_s) +
-                                 c.n2 * (logf(s.errn_prev) - logf(errn_s)));
-  if (!isfinite(factor)) factor = c.factor_min;
-  const float dt_next = minp(dt * minp(maxp(factor, c.factor_min), c.factor_max), dt_max);
-
-  const float dt_stall = (4.0f * FLT_EPSILON) * maxp(fabsf(s.t), 1.0f);
-  const bool frozen = s.t >= t_next;
-  const bool accept = ((errn <= 1.0f) || (dt <= dt_stall)) && !frozen;
-
-  if (!frozen) s.dt = dt_next;
-  if (accept) {
-    s.t_prev = s.t;
-    copy_to(s.mean_prev, s.mean);
-    copy_to(s.chol_prev, s.chol);
-    copy_to(s.bwdG_prev, s.bwdG);
-    copy_to(s.bwd_m_prev, s.bwd_m);
-    copy_to(s.bwd_L_prev, s.bwd_L);
-    s.t = t_new;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int k = 0; k < D; ++k) s.mean[i][k] = m_pred[i][k] - g_corr[i] * z[k];
-#pragma unroll
-      for (int k = 0; k < N; ++k) {
-        s.chol[i][k] = l_pred[i][k] - gc[i] * l_obs_n[k];
-        s.bwd_L[i][k] = (cols2[i][k] * t3) * mag_g;
-      }
-    }
-    copy_to(s.bwdG, bwdG_new);
-    copy_to(s.bwd_m, bwd_m_new);
-    s.scale = new_scale;
-    s.errn_prev = errn_s;
-    s.nsteps = s.nsteps + 1.0f;
-    s.mle = s.mle + sigma * sigma;
-  }
-}
 
 template <int NU, class VF>
 __global__ void __launch_bounds__(THREADS)
     step_ll_interval(Args args, Consts c, VF vf, int64_t B, int max_attempts) {
-  constexpr int N = NU + 1;
-  constexpr int D = VF::D;
   const int64_t b = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
   if (b >= B) return;  // the ragged edge of the last block
-
-  Lane<N, D> s;
-  s.t = args.in[0][b];
-  load(s.mean, args.in[1], b, B);
-  load(s.chol, args.in[2], b, B);
-  load(s.bwdG, args.in[3], b, B);
-  load(s.bwd_m, args.in[4], b, B);
-  load(s.bwd_L, args.in[5], b, B);
-  s.scale = args.in[6][b];
-  s.t_prev = args.in[7][b];
-  load(s.mean_prev, args.in[8], b, B);
-  load(s.chol_prev, args.in[9], b, B);
-  load(s.bwdG_prev, args.in[10], b, B);
-  load(s.bwd_m_prev, args.in[11], b, B);
-  load(s.bwd_L_prev, args.in[12], b, B);
-  s.dt = args.in[13][b];
-  s.errn_prev = args.in[14][b];
-  s.nsteps = args.in[15][b];
-  s.mle = args.in[16][b];
-  const float t_next = args.in[17][b];
-  const float atol = args.in[18][b];
-  const float rtol = args.in[19][b];
-  const float dt_max = args.in[20][b];
-  const float dt_floor = args.in[21][b];
-  const float tiny_scale = args.in[22][b];
-
-  for (int k = 0; k < max_attempts && s.t < t_next; ++k)
-    attempt<NU, VF>(s, c, vf, t_next, atol, rtol, dt_max, dt_floor, tiny_scale);
-
-  args.out[0][b] = s.t;
-  store(s.mean, args.out[1], b, B);
-  store(s.chol, args.out[2], b, B);
-  store(s.bwdG, args.out[3], b, B);
-  store(s.bwd_m, args.out[4], b, B);
-  store(s.bwd_L, args.out[5], b, B);
-  args.out[6][b] = s.scale;
-  args.out[7][b] = s.t_prev;
-  store(s.mean_prev, args.out[8], b, B);
-  store(s.chol_prev, args.out[9], b, B);
-  store(s.bwdG_prev, args.out[10], b, B);
-  store(s.bwd_m_prev, args.out[11], b, B);
-  store(s.bwd_L_prev, args.out[12], b, B);
-  args.out[13][b] = s.dt;
-  args.out[14][b] = s.errn_prev;
-  args.out[15][b] = s.nsteps;
-  args.out[16][b] = s.mle;
+  Lane<NU + 1, VF::D> s;
+  const LaneInputs in = load_lane(s, args, b, B);
+  for (int k = 0; k < max_attempts && s.t < in.t_next; ++k) attempt<NU, VF>(s, c, vf, in);
+  store_lane(s, args, b, B);
 }
 
 template <class VF>
 int launch(int nu, const void* in_ptrs, const void* out_ptrs, const void* consts,
            long long batch, int max_attempts, VF vf, int device, void* stream) {
   Args args;
-  std::memcpy(args.in, in_ptrs, sizeof(args.in));
-  std::memcpy(args.out, out_ptrs, sizeof(args.out));
   Consts c;
-  std::memcpy(&c, consts, sizeof(Consts));
+  unpack(args, c, in_ptrs, out_ptrs, consts);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((batch + THREADS - 1) / THREADS));
-  const dim3 block(THREADS);
+  const dim3 grid = lanes_grid(batch), block(THREADS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t B = batch;
   switch (nu) {

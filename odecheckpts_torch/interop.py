@@ -2,8 +2,10 @@
 the port as numpy arrays.
 
 The problems have no learned weights; what both packages must share to
-compute the same thing are the vector-field parameters and the 17-array
-lanes-last solver state (layout in ``batched.NUM_STATE``).  ``to_torch``
+compute the same thing are the vector-field parameters and the lanes-last
+solver state: 17 arrays for the f32 engine (layout in
+``batched.NUM_STATE``), 12 for the df32 engine (``batched_hi.NUM_STATE_HI``;
+pairs travel as their two halves).  ``to_torch``
 turns nested tuples of numpy arrays or floats (a state, or the parameters
 ``(-2, 1.25, -0.5)`` as 0-dim tensors) into tensors on a device,
 ``to_numpy`` turns nested tuples of tensors back.
@@ -34,18 +36,24 @@ def to_numpy(tree):
     return tree.detach().cpu().numpy()
 
 
+_STATE_LENGTHS = (17, 12)  # batched.NUM_STATE, batched_hi.NUM_STATE_HI
+
+
 def _check_state(state):
-    if len(state) != 17:
-        raise ValueError(f"expected the 17-array lanes-last state, got {len(state)}")
+    if len(state) not in _STATE_LENGTHS:
+        raise ValueError(
+            f"expected a lanes-last state of {_STATE_LENGTHS} arrays, got {len(state)}"
+        )
 
 
 def state_to_torch(state, *, device="cpu"):
-    """The 17-array lanes-last state, given as numpy arrays, on ``device``."""
+    """A lanes-last state (17 or 12 arrays), given as numpy arrays, on
+    ``device``."""
     _check_state(state)
     return to_torch(tuple(state), device=device)
 
 
 def state_to_numpy(state):
-    """The 17-array lanes-last state back to numpy arrays."""
+    """A lanes-last state (17 or 12 arrays) back to numpy arrays."""
     _check_state(state)
     return to_numpy(tuple(state))

@@ -1,13 +1,25 @@
 """Hand-written CUDA kernels of the port and their wrappers.
 
-K1, ``step_ll_interval``: one whole checkpoint interval of the lanes-last
-isotropic TS0 fixedpoint step (``csrc/step_ll.cu``), the counterpart of the
-Pallas kernel ``odecheckpts_tpu.batched._pallas_interval(make_step_ll)``.
+=====  ====================  =============================  ====================================
+id     wrapper               source                         replaces (``odecheckpts_tpu``)
+=====  ====================  =============================  ====================================
+K1     ``step_ll_interval``  ``csrc/step_ll.cu``            ``batched._pallas_interval(make_step_ll)``
+K3     ``step_ll_attempt``   ``csrc/step_ll.cu``            ``batched._pallas_step(make_step_ll)``
+K2     ``step_hi_interval``  ``csrc/step_hi.cu``            ``batched_hi._pallas_interval(make_step_hi)``
+K4     ``step_hi_attempt``   ``csrc/step_hi_attempt.cu``    ``batched_hi._pallas_step(make_step_hi)``
+=====  ====================  =============================  ====================================
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first use (``odecheckpts_torch/_build/<hash>/``,
-keyed by a hash of the sources and flags) and bound with ``ctypes``.  Nothing
-is built or imported from CUDA when this module is imported.
+K1 and K2 run a whole checkpoint interval (the accept/reject loop of every
+lane) in one launch; K3 and K4 run one attempt of the same step body per
+launch, under the host loop ``attempt_loop``.  The twins are
+``batched.StepLL`` (f32) and ``batched_hi.StepHi`` (df32 pairs).
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` at first use, one
+``nvcc`` process per ``.cu`` file, all started together, then linked into
+one shared library with a plain C interface (``odecheckpts_torch/_build/
+<hash>/``, keyed by a hash of the sources and flags) and bound with
+``ctypes``.  Nothing is built or imported from CUDA when this module is
+imported.
 
 A wrapper runs its kernel's plain PyTorch version on CPU tensors, launches
 the kernel on CUDA tensors, and raises on anything else.  Each wrapper adds
@@ -32,17 +44,25 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libodeckpt_kernels.so"
 
 # launches per kernel wrapper, counted where the kernel is launched
-LAUNCHES = {"step_ll_interval": 0}
+LAUNCHES = {
+    "step_ll_interval": 0, "step_ll_attempt": 0,
+    "step_hi_interval": 0, "step_hi_attempt": 0,
+}
 
-# device functor name (problems.<vf>.device_functor) -> (C symbol, ODE dim)
-_FUNCTORS = {"rigid_body": ("odeckpt_step_ll_interval_rigid_body", 3)}
+# (kernel, device functor of the step's vector field) -> (C symbol, ODE dim)
+_FUNCTORS = {
+    ("step_ll_interval", "rigid_body"): ("odeckpt_step_ll_interval_rigid_body", 3),
+    ("step_ll_attempt", "rigid_body"): ("odeckpt_step_ll_attempt_rigid_body", 3),
+    ("step_hi_interval", "rigid_body_df"): ("odeckpt_step_hi_interval_rigid_body_df", 3),
+    ("step_hi_attempt", "rigid_body_df"): ("odeckpt_step_hi_attempt_rigid_body_df", 3),
+}
 
 
 def _nvcc():
@@ -73,40 +93,45 @@ def _build_key():
 
 
 def parse_ptxas(log):
-    """Registers and spill bytes per kernel template from ``ptxas -v`` output:
-    ``{nu: {"registers": r, "spill_stores": s, "spill_loads": l, "stack": f}}``."""
-    out, nu = {}, None
+    """Registers and spill bytes per kernel and template from ``ptxas -v``
+    output: ``{kernel: {nu: {"registers": r, "spill_stores": s,
+    "spill_loads": l, "stack": f}}}``."""
+    out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)", line)
         if m:
-            tm = re.search(r"step_ll_interval\w*?ILi(\d+)E", m.group(1))
-            nu = int(tm.group(1)) if tm else None
+            tm = re.search(r"(step_(?:ll|hi)_(?:interval|attempt))ILi(\d+)E", m.group(1))
+            key = (tm.group(1), int(tm.group(2))) if tm else None
             continue
-        if nu is None:
+        if key is None:
             continue
+        entry = out.setdefault(key[0], {}).setdefault(key[1], {})
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            out.setdefault(nu, {}).update(
-                stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                spill_loads=int(m.group(3)),
-            )
+            entry.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            out.setdefault(nu, {})["registers"] = int(m.group(1))
+            entry["registers"] = int(m.group(1))
     return out
+
+
+_INTERVAL_ARGS = [
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p,
+]
+# the attempt entries take no max_attempts
+_ATTEMPT_ARGS = _INTERVAL_ARGS[:5] + _INTERVAL_ARGS[6:]
 
 
 class _Library:
     def __init__(self, path, seconds, log):
         self.path, self.seconds, self.log = path, seconds, log
         self.lib = ctypes.CDLL(str(path))
-        for symbol, _ in _FUNCTORS.values():
+        for (kernel, _), (symbol, _) in _FUNCTORS.items():
             fn = getattr(self.lib, symbol)
-            fn.argtypes = [
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-            ]
+            fn.argtypes = _INTERVAL_ARGS if kernel.endswith("interval") else _ATTEMPT_ARGS
             fn.restype = ctypes.c_int
         self.lib.odeckpt_error_string.argtypes = [ctypes.c_int]
         self.lib.odeckpt_error_string.restype = ctypes.c_char_p
@@ -119,60 +144,158 @@ class _Library:
 def library():
     """Build (once per source hash) and load the kernel library.
 
-    Returns an object with ``path``, ``seconds`` (the build time, 0.0 when
-    the library was already built) and ``log`` (nvcc's ``-Xptxas -v``
-    output; see ``parse_ptxas``)."""
+    Returns an object with ``path``, ``seconds`` (the wall-clock build time,
+    0.0 when the library was already built) and ``log`` (nvcc's
+    ``-Xptxas -v`` output; see ``parse_ptxas``)."""
     out_dir = BUILD_DIR / _build_key()
     so, log_path = out_dir / LIB_NAME, out_dir / "build.log"
     seconds = 0.0
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources() if s.suffix == ".cu")]
+        nvcc, tag = _nvcc(), os.getpid()
         t0 = time.perf_counter()
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = out_dir / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for cmd, _obj, proc in jobs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{logs[-1]}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
             )
-        log_path.write_text(proc.stdout + proc.stderr)
+        seconds = time.perf_counter() - t0
+        log_path.write_text("".join(logs))
         os.replace(tmp, so)
+        for _, obj, _ in jobs:
+            obj.unlink()
     return _Library(so, seconds, log_path.read_text())
 
 
-def step_ll_interval_plain(step, state, t_next, *, atol, rtol, dt_max, dt_floor,
-                           tiny_scale, max_attempts):
-    """Plain version of K1: attempts of the twin ``step`` while any lane has
-    ``t < t_next``, at most ``max_attempts`` of them.  Lanes at the
-    checkpoint are frozen inside the step, so every lane ends in the state
-    the per-lane kernel loop leaves it in."""
+# ---------------------------------------------------------------------------
+# plain versions
+
+
+def active_ll(state, t_next):
+    """Lanes of the 17-array f32 state still short of the checkpoint."""
+    return state[0] < t_next
+
+
+def active_hi(state, t_next):
+    """Lanes of the 12-array df32 state still short of the checkpoint: a lane
+    whose time rounds onto ``t_next`` in the hi word with ``t_lo < 0`` is
+    still short of it (``odecheckpts_tpu/batched_hi.py:535-536``)."""
+    return (state[0] < t_next) | ((state[0] == t_next) & (state[1] < 0))
+
+
+def attempt_plain(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_scale):
+    """Plain version of the attempt kernels K3 and K4: one attempt of the
+    twin ``step`` on every lane (lanes at the checkpoint are frozen inside
+    the step)."""
+    return step(state, t_next, atol, rtol, dt_max, dt_floor, tiny_scale)
+
+
+step_ll_attempt_plain = step_hi_attempt_plain = attempt_plain
+
+
+def attempt_loop(attempt, active, step, state, t_next, *, max_attempts, **inputs):
+    """``attempt`` while any lane is ``active``, at most ``max_attempts``
+    times: the host loop of the per-attempt engines (one device sync per
+    attempt) and the plain version of the interval kernels."""
     for _ in range(max_attempts):
-        if not bool(torch.any(state[0] < t_next)):
+        if not bool(torch.any(active(state, t_next))):
             break
-        state = step(state, t_next, atol, rtol, dt_max, dt_floor, tiny_scale)
+        state = attempt(step, state, t_next, **inputs)
     return state
 
 
-def _check_cuda_inputs(step, state, extra):
-    n, d = step.nu + 1, step.d
-    b = state[0].shape[-1]
-    shapes = {1: (n, d, b), 4: (n, d, b), 8: (n, d, b), 11: (n, d, b),
-              2: (n, n, b), 3: (n, n, b), 5: (n, n, b), 9: (n, n, b),
-              10: (n, n, b), 12: (n, n, b)}
-    device = state[0].device
-    for i, x in enumerate(list(state) + list(extra)):
-        want = shapes.get(i, (1, b))
+def step_ll_interval_plain(step, state, t_next, *, max_attempts, **inputs):
+    """Plain version of K1: attempts of the twin while any lane has
+    ``t < t_next``.  Lanes at the checkpoint are frozen inside the step, so
+    every lane ends in the state the per-lane kernel loop leaves it in."""
+    return attempt_loop(attempt_plain, active_ll, step, state, t_next,
+                        max_attempts=max_attempts, **inputs)
+
+
+def step_hi_interval_plain(step, state, t_next, *, max_attempts, **inputs):
+    """Plain version of K2: attempts of the df32 twin while any lane is
+    short of the checkpoint by the pair-aware predicate ``active_hi``."""
+    return attempt_loop(attempt_plain, active_hi, step, state, t_next,
+                        max_attempts=max_attempts, **inputs)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+
+
+def _check_cuda_inputs(kernel, shapes, tensors):
+    device = tensors[0].device
+    for i, (x, want) in enumerate(zip(tensors, shapes)):
         if x.device != device or x.dtype != torch.float32:
             raise ValueError(
-                f"K1 takes float32 tensors on one CUDA device; input {i} is "
+                f"{kernel} takes float32 tensors on one CUDA device; input {i} is "
                 f"{x.dtype} on {x.device}"
             )
-        if tuple(x.shape) != want:
-            raise ValueError(f"K1 input {i} has shape {tuple(x.shape)}, expected {want}")
+        if tuple(x.shape) != tuple(want):
+            raise ValueError(f"{kernel} input {i} has shape {tuple(x.shape)}, expected {want}")
         if not x.is_contiguous():
-            raise ValueError(f"K1 input {i} is not contiguous")
+            raise ValueError(f"{kernel} input {i} is not contiguous")
+
+
+def _launch(kernel, step, state, t_next, inputs, max_attempts=None):
+    """Launch ``kernel`` on the CUDA tensors of ``state``: new output
+    tensors, the launch on the current stream, one count in ``LAUNCHES``."""
+    device = state[0].device
+    if device.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA tensors (or its plain version on CPU), got {device}")
+    functor = step.device_functor
+    if (kernel, functor) not in _FUNCTORS:
+        have = sorted(f for k, f in _FUNCTORS if k == kernel)
+        raise NotImplementedError(
+            f"{kernel}: the vector field has no device functor for this kernel (got "
+            f"{functor!r}; have {have}): ROADMAP queue 2, the vector-field contract"
+        )
+    symbol, dim = _FUNCTORS[(kernel, functor)]
+    if step.d != dim:
+        raise ValueError(f"device functor {functor!r} has d={dim}, the step has d={step.d}")
+    batch = state[0].shape[-1]
+    extra = (t_next, inputs["atol"], inputs["rtol"], inputs["dt_max"], inputs["dt_floor"],
+             inputs["tiny_scale"])
+    shapes = list(step.state_shapes(batch)) + [(1, batch)] * len(extra)
+    if len(state) + len(extra) != len(shapes):
+        raise ValueError(f"{kernel} takes {len(shapes) - len(extra)} state arrays, got {len(state)}")
+    _check_cuda_inputs(kernel, shapes, (*state, *extra))
+    outs = tuple(torch.empty_like(x) for x in state)
+    if batch == 0:
+        return outs
+    lib = library()
+    ins_ptr = (ctypes.c_void_p * len(shapes))(*(x.data_ptr() for x in (*state, *extra)))
+    outs_ptr = (ctypes.c_void_p * len(outs))(*(x.data_ptr() for x in outs))
+    consts = step.packed_constants()
+    p1, p2, p3 = (float(p) for p in step.functor_params)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    head = (step.nu, ctypes.addressof(ins_ptr), ctypes.addressof(outs_ptr),
+            consts.ctypes.data, batch)
+    if max_attempts is not None:
+        if not 0 <= int(max_attempts) < 2**31:
+            raise ValueError(f"max_attempts must fit an int32, got {max_attempts}")
+        head = head + (int(max_attempts),)
+    rc = getattr(lib.lib, symbol)(*head, p1, p2, p3, index, stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: {lib.error_string(rc)} ({rc})")
+    LAUNCHES[kernel] += 1
+    return outs
 
 
 def step_ll_interval(step, state, t_next, *, atol, rtol, dt_max, dt_floor,
@@ -184,44 +307,34 @@ def step_ll_interval(step, state, t_next, *, atol, rtol, dt_max, dt_floor,
     kernel needs: nu, the rounded constants and the vector field's device
     functor and parameters.  On CPU tensors the twin runs; on CUDA tensors
     the kernel runs or this raises."""
-    device = state[0].device
-    if device.type == "cpu":
-        return step_ll_interval_plain(
-            step, state, t_next, atol=atol, rtol=rtol, dt_max=dt_max,
-            dt_floor=dt_floor, tiny_scale=tiny_scale, max_attempts=max_attempts,
-        )
-    if device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA tensors (or its plain version on CPU), got {device}")
-    functor = getattr(step.vf, "device_functor", None)
-    if functor not in _FUNCTORS:
-        raise NotImplementedError(
-            f"vector field has no device functor (got {functor!r}; have "
-            f"{sorted(_FUNCTORS)}): ROADMAP queue 2, the vector-field contract"
-        )
-    symbol, dim = _FUNCTORS[functor]
-    if step.d != dim:
-        raise ValueError(f"device functor {functor!r} has d={dim}, the step has d={step.d}")
-    extra = (t_next, atol, rtol, dt_max, dt_floor, tiny_scale)
-    _check_cuda_inputs(step, state, extra)
-    if not 0 <= int(max_attempts) < 2**31:
-        raise ValueError(f"max_attempts must fit an int32, got {max_attempts}")
-    batch = state[0].shape[-1]
-    outs = tuple(torch.empty_like(x) for x in state)
-    if batch == 0:
-        return outs
-    lib = library()
-    ins_ptr = (ctypes.c_void_p * 23)(*(x.data_ptr() for x in (*state, *extra)))
-    outs_ptr = (ctypes.c_void_p * 17)(*(x.data_ptr() for x in outs))
-    consts = step.packed_constants()
-    p1, p2, p3 = (float(p) for p in step.params)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib.lib, symbol)(
-        step.nu, ctypes.addressof(ins_ptr), ctypes.addressof(outs_ptr),
-        consts.ctypes.data, batch, int(max_attempts), p1, p2, p3,
-        device.index if device.index is not None else torch.cuda.current_device(),
-        stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"K1 launch failed: {lib.error_string(rc)} ({rc})")
-    LAUNCHES["step_ll_interval"] += 1
-    return outs
+    inputs = dict(atol=atol, rtol=rtol, dt_max=dt_max, dt_floor=dt_floor, tiny_scale=tiny_scale)
+    if state[0].device.type == "cpu":
+        return step_ll_interval_plain(step, state, t_next, max_attempts=max_attempts, **inputs)
+    return _launch("step_ll_interval", step, state, t_next, inputs, max_attempts)
+
+
+def step_ll_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_scale):
+    """K3: one attempt of K1's step on every lane of the 17-array state."""
+    inputs = dict(atol=atol, rtol=rtol, dt_max=dt_max, dt_floor=dt_floor, tiny_scale=tiny_scale)
+    if state[0].device.type == "cpu":
+        return step_ll_attempt_plain(step, state, t_next, **inputs)
+    return _launch("step_ll_attempt", step, state, t_next, inputs)
+
+
+def step_hi_interval(step, state, t_next, *, atol, rtol, dt_max, dt_floor,
+                     tiny_scale, max_attempts):
+    """K2: advance every lane of the 12-array df32 ``state`` to ``t_next``
+    (pair-aware, or ``max_attempts`` attempts), one launch per interval.
+    ``step`` is the twin ``batched_hi.StepHi``."""
+    inputs = dict(atol=atol, rtol=rtol, dt_max=dt_max, dt_floor=dt_floor, tiny_scale=tiny_scale)
+    if state[0].device.type == "cpu":
+        return step_hi_interval_plain(step, state, t_next, max_attempts=max_attempts, **inputs)
+    return _launch("step_hi_interval", step, state, t_next, inputs, max_attempts)
+
+
+def step_hi_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_scale):
+    """K4: one attempt of K2's step on every lane of the 12-array state."""
+    inputs = dict(atol=atol, rtol=rtol, dt_max=dt_max, dt_floor=dt_floor, tiny_scale=tiny_scale)
+    if state[0].device.type == "cpu":
+        return step_hi_attempt_plain(step, state, t_next, **inputs)
+    return _launch("step_hi_attempt", step, state, t_next, inputs)

@@ -191,7 +191,7 @@ def test_hbm_guard_estimate_is_monotone_and_guard_raises():
 @pytest.mark.parametrize("option", [
     dict(strategy="filter"), dict(calibration="none"), dict(ode_order=2),
     dict(correction="ts1"), dict(error_unit="residual"), dict(implementation="dense"),
-    dict(engine="pallas"), dict(num_derivatives=5),
+    dict(implementation="blockdiag"), dict(num_derivatives=5),
 ])
 def test_unported_options_name_their_roadmap_item(option):
     u0s, tols = _ensemble(8, np.float32)
@@ -200,6 +200,16 @@ def test_unported_options_name_their_roadmap_item(option):
         tb.solve_save_at_batched(
             vf, torch.tensor(u0s), params, save_at=np.linspace(0, 10, 5), dt0=0.1,
             tols=torch.tensor(tols), **option,
+        )
+
+
+def test_engines_other_than_the_ports_are_refused():
+    u0s, tols = _ensemble(8, np.float32)
+    vf, _, _, params = tp.rigid_body()
+    with pytest.raises(ValueError, match="cuda-loop"):
+        tb.solve_save_at_batched(
+            vf, torch.tensor(u0s), params, save_at=np.linspace(0, 10, 5), dt0=0.1,
+            tols=torch.tensor(tols), engine="pallas",
         )
 
 

@@ -1,4 +1,5 @@
-"""The K1 kernel wrapper's contract, and K1 against its twin on the card.
+"""The kernel wrappers' contract (K1-K4), and each kernel against its twin
+on the card.
 
 This file imports no JAX, so the tests that need the card run where only
 the port is installed:
@@ -6,15 +7,17 @@ the port is installed:
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 
 On a machine without a CUDA device those tests skip.  Kernel and twin are
-compared at rtol 1e-5: both round every f32 operation on its own (the kernel
-is built with ``-fmad=false``), so they are expected to agree to a few ulp.
+compared at rtol 1e-5 (pairs: hi + lo in f64 at 1e-12): both round every
+f32 operation on its own (the kernels are built with ``-fmad=false``), so
+they are expected to agree to a few ulp, and on the card they have agreed
+bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from odecheckpts_torch import batched, kernels, problems
+from odecheckpts_torch import batched, batched_hi, kernels, problems
 
 INPUT_NAMES = ("atol", "rtol", "dt_max", "dt_floor", "tiny_scale")
 
@@ -84,16 +87,85 @@ def test_parse_ptxas_reads_registers_and_spills_per_nu():
         "_ZN12_GLOBAL__N_116step_ll_intervalILi4ENS_9RigidBodyEEEvNS_4ArgsE",
         "    544 bytes stack frame, 1060 bytes spill stores, 660 bytes spill loads",
         "ptxas info    : Used 255 registers, used 0 barriers, 544 bytes cumulative stack size",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_115step_hi_attemptILi5ENS_11RigidBodyDfEEEvNS_6ArgsHiENS_8ConstsHiET0_l'"
+        " for 'sm_90a'",
+        "ptxas info    : Function properties for "
+        "_ZN12_GLOBAL__N_115step_hi_attemptILi5ENS_11RigidBodyDfEEEvNS_6ArgsHiENS_8ConstsHiET0_l",
+        "    600 bytes stack frame, 948 bytes spill stores, 1028 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 0 barriers, 600 bytes cumulative stack size",
     ])
     assert kernels.parse_ptxas(log) == {
-        4: {"stack": 544, "spill_stores": 1060, "spill_loads": 660, "registers": 255}
+        "step_ll_interval": {
+            4: {"stack": 544, "spill_stores": 1060, "spill_loads": 660, "registers": 255}},
+        "step_hi_attempt": {
+            5: {"stack": 600, "spill_stores": 948, "spill_loads": 1028, "registers": 255}},
     }
+
+
+def _start_hi(nu, *, batch=64, warm_steps=30, device="cpu", vf_df=None):
+    """A mid-solve 12-array df32 state toward t = 10, advanced by the twin
+    from ``batched_hi.initial_state``; returns (step, state, t_next, inputs)."""
+    rng = np.random.default_rng(6)
+    u0s = np.array([1.0, 0.0, 0.9]) * (1.0 + 0.05 * rng.standard_normal((batch, 3)))
+    tols = torch.tensor(np.geomspace(1e-5, 1e-9, batch), dtype=torch.float32, device=device)
+    vf, _, _, params = problems.rigid_body()
+    save_at = np.linspace(0.0, 40.0, 5).astype(np.float32)
+    state, inputs = batched_hi.initial_state(vf, torch.tensor(u0s, device=device), params,
+                                             save_at=save_at, dt0=0.1, tols=tols,
+                                             num_derivatives=nu)
+    step = batched_hi.make_step_hi(vf_df or problems.rigid_body_df(), nu=nu, d=3,
+                                   error_calibration=5.0)
+    t_next = torch.full((1, batch), float(save_at[1]), device=device)
+    for _ in range(warm_steps):
+        state = kernels.attempt_plain(step, state, t_next, **inputs)
+    return step, state, t_next, inputs
+
+
+@pytest.mark.parametrize("kernel", ["step_ll_attempt", "step_hi_interval", "step_hi_attempt"])
+def test_new_wrappers_run_the_plain_version_on_cpu(kernel):
+    if kernel == "step_ll_attempt":
+        step, state, t_next, inputs = _start(2)
+    else:
+        step, state, t_next, inputs = _start_hi(4, batch=8, warm_steps=3)
+    kw = dict(max_attempts=3) if kernel.endswith("interval") else {}
+    before = dict(kernels.LAUNCHES)
+    got = getattr(kernels, kernel)(step, state, t_next, **inputs, **kw)
+    want = getattr(kernels, kernel + "_plain")(step, state, t_next, **inputs, **kw)
+    assert kernels.LAUNCHES == before  # no kernel ran
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_plain_hi_interval_lands_every_lane_on_the_checkpoint():
+    step, state, t_next, inputs = _start_hi(4, batch=8, warm_steps=0)
+    done = kernels.step_hi_interval_plain(step, state, t_next, max_attempts=100_000, **inputs)
+    assert bool(torch.all(done[0] == t_next)) and bool(torch.all(done[1] == 0))
+    assert not bool(torch.any(kernels.active_hi(done, t_next)))
+    again = kernels.step_hi_interval_plain(step, done, t_next, max_attempts=100_000, **inputs)
+    for g, w in zip(again, done):  # lanes at the checkpoint are frozen
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    # a hi word on the checkpoint with a negative lo word is still short of it
+    short = (t_next.clone(), torch.full_like(t_next, -1e-7)) + done[2:]
+    assert bool(torch.all(kernels.active_hi(short, t_next)))
+
+
+def test_packed_constants_of_the_df32_step_match_the_kernel_layout():
+    step = batched_hi.make_step_hi(problems.rigid_body_df(), nu=4, d=3, error_calibration=2.0)
+    c = step.packed_constants()
+    assert c.dtype == np.float32 and c.shape == (97,)  # sizeof(ConstsHi) / 4
+    a, lq = c[:36].reshape(6, 6), c[36:72].reshape(6, 6)
+    np.testing.assert_array_equal(a[:5, :5], np.float32(step.a_rows))
+    np.testing.assert_array_equal(lq[:5, :5], np.float32(step.lq_rows))
+    assert np.all(a[5] == 0) and np.all(lq[:, 5] == 0)
+    assert c[87] == np.float32(2.0)  # kappa
+    assert c[95] == np.float32(1e-5) and c[96] == np.float32(2.0**-43)  # tiny_frac, stall
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -121,3 +193,59 @@ def test_kernel_wrapper_checks_its_inputs(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         bad = (state[0],) + (state[1].transpose(0, 1).contiguous().transpose(0, 1),) + state[2:]
         kernels.step_ll_interval(step, bad, t_next, max_attempts=1, **inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nu", [2, 4])
+def test_attempt_kernel_k3_matches_twin_on_the_card(cuda_device, nu):
+    step, state, t_next, inputs = _start(nu, batch=1000, device=cuda_device)
+    before = kernels.LAUNCHES["step_ll_attempt"]
+    got = kernels.step_ll_attempt(step, state, t_next, **inputs)
+    assert kernels.LAUNCHES["step_ll_attempt"] == before + 1
+    want = kernels.step_ll_attempt_plain(step, state, t_next, **inputs)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+
+
+def _assert_hi_close(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i in (1, 3, 8):  # lo halves: compared as part of their pair
+            g, w = got[i - 1].double() + g.double(), want[i - 1].double() + w.double()
+            torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12 * float(w.abs().max()))
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["step_hi_interval-1", "step_hi_interval-100000",
+                                    "step_hi_attempt"])
+@pytest.mark.parametrize("nu", [4, 5])
+def test_df32_kernels_k2_k4_match_twin_on_the_card(cuda_device, nu, kernel):
+    step, state, t_next, inputs = _start_hi(nu, batch=1000, device=cuda_device)
+    name, _, cap = kernel.partition("-")
+    kw = dict(max_attempts=int(cap)) if cap else {}
+    before = kernels.LAUNCHES[name]
+    got = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+    assert kernels.LAUNCHES[name] == before + 1
+    want = getattr(kernels, name + "_plain")(step, state, t_next, **inputs, **kw)
+    torch.cuda.synchronize()
+    _assert_hi_close(got, want)
+    if cap == "100000":
+        assert bool(torch.all(got[0] == t_next))
+
+
+@pytest.mark.cuda
+def test_df32_kernels_refuse_a_vector_field_without_device_functor(cuda_device):
+    vf, _, _, params = problems.rigid_body()
+    step, state, t_next, inputs = _start_hi(
+        4, batch=128, warm_steps=0, device=cuda_device,
+        vf_df=batched_hi.wrap_vf_plain(vf, params))
+    for fn, kw in ((kernels.step_hi_interval, dict(max_attempts=1)),
+                   (kernels.step_hi_attempt, {})):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(step, state, t_next, **inputs, **kw)
+    step = batched_hi.make_step_hi(problems.rigid_body_df(), nu=4, d=3, error_calibration=5.0)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.step_hi_attempt(step, tuple(x.double() for x in state), t_next.double(),
+                                **{k: v.double() for k, v in inputs.items()})
