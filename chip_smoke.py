@@ -8,7 +8,7 @@ dt0 0.1, atol 1e-3 rtol), gated against LSODA(1e-12) truth on 256 lanes:
 RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
 
 1. device: versions and the card's name and power limit; full-f32 matmuls.
-2. build: compiles K1-K4 (odecheckpts_torch/csrc/, one nvcc per source, in
+2. build: compiles K1-K5 (odecheckpts_torch/csrc/, one nvcc per source, in
    parallel) and reports the build time and ptxas registers and spills per
    kernel and nu.
 3. one attempt, kernel against twin, 4,096 lanes, from the Taylor-initialized
@@ -32,11 +32,42 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
    lanes whose rtol cycles through 1e-1..1e-9, split as the bench splits
    them (rtol >= 1e-4 to f32); every truth lane within 10 max(rtol, 3e-7);
    K1 and K2 both launch.
-10. the kernel table line and the result line.
+10. attempt_dense: one attempt of K5 (interval form with max_attempts=1,
+    and attempt form) against the dense twin, 4,096 lanes, initial and
+    mid-interval state (with random backward conditionals), Brusselator
+    (d = 4) and rigid body (d = 3), TS1 and TS0: every one of the 17 arrays
+    equal (maximum deviation 0.0).
+11. main_dense (K5): the stiff ensemble of
+    ``experiments/4_brusselator/dense_ts1_tpu.py``:
+    ``batched.solve_save_at_batched(correction="ts1", implementation="dense",
+    engine="cuda-loop")`` on ``problems.brusselator(2)``, 32,768 lanes,
+    u0 (1 + 0.02 N(0, 1)) from numpy seed 0, tspan (0, 10), 5 checkpoints,
+    dt0 0.01, rtol 1e-5, atol 1e-3 rtol, nu 4, kappa 20; gated against
+    LSODA(rtol = atol = 1e-10) on 256 lanes: filtered values RMSE < 10 rtol,
+    worst lane < 20 rtol, no lane at the cap; exactly 4 launches per solve;
+    the median of 3 timed solves after one warm-up; the peak device memory;
+    K5's time per interval (CUDA events) in one more solve.  The smoothed
+    values are reported: in f32 they miss the lane gate on some lanes, in
+    the reference as in the port (``tests/test_torch_dense_smoother.py``);
+    those lanes are solved again by the twin in f64 on the card, whose
+    smoothed values must be within 20 rtol.
+12. interval_dense: the row's second interval on K5 against its plain
+    version (plain, kernel, kernel, plain), CUDA events, 32,768 lanes: every
+    array equal.
+13. attempt_engine_dense: ``engine="cuda"`` (K5's attempt form) gives the
+    cuda-loop row's per-lane step counts and outputs exactly; one launch
+    against its plain version, timed.
+14. the kernel table line and the result line.
 
-Each path of phases 4, 6, 8 and 9 runs with the launch counts set to 0 just
-before it and read just after; a kernel of the path that did not launch
-fails the run.  Kernel-against-plain comparisons run outside those windows.
+Each path of phases 4, 6, 8, 9, 11 and 13 runs with the launch counts set to
+0 just before it and read just after; a kernel of the path that did not
+launch fails the run.  Kernel-against-plain comparisons run outside those
+windows.  Each kernel's ``bound_ms`` is the larger of its state's bytes
+(read once and written once per launch) over 3.35 TB/s and the f32
+operations of the accepted attempts of the timed launch over 67 TFLOP/s
+(the QRs, triangular solves and products of an attempt, counted from the
+shapes in ``_attempt_flops``; rejected attempts are not counted, so the bound
+is a lower one).
 """
 
 from __future__ import annotations
@@ -100,7 +131,24 @@ KERNELS = {  # wrapper -> (id, source, the TPU kernel it replaces)
                         "odecheckpts_tpu/batched.py:897"),
     "step_hi_attempt": ("K4", "odecheckpts_torch/csrc/step_hi_attempt.cu",
                         "odecheckpts_tpu/batched_hi.py:547"),
+    "step_dense_interval": ("K5", "odecheckpts_torch/csrc/step_dense.cu",
+                            "odecheckpts_tpu/batched_dense.py:703"),
+    "step_dense_attempt": ("K5", "odecheckpts_torch/csrc/step_dense_attempt.cu",
+                           "odecheckpts_tpu/batched_dense.py:710"),
 }
+# the dense row (experiments/4_brusselator/dense_ts1_tpu.py:76-99)
+DENSE_N = 2
+DENSE_RTOL = 1e-5
+DENSE_TSPAN = (0.0, 10.0)
+DENSE_DT0 = 0.01
+DENSE_NOISE = 0.02
+DENSE_RMSE_FACTOR = 10.0
+DENSE_LANE_FACTOR = 20.0
+DENSE_TRUTH_TOL = 1e-10
+DENSE_MID_ATTEMPTS = 20
+# the H100 SXM's published peaks: f32 outside the tensor cores and HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def emit(obj):
@@ -131,8 +179,10 @@ def phase_build():
     lib = kernels.library()
     ptxas = kernels.parse_ptxas(lib.log)
     emit({"phase": "build", "seconds": lib.seconds, "ptxas": ptxas})
+    dense = tuple(f"4/{c}/{f}" for f in ("Brusselator", "RigidBody") for c in ("ts1", "ts0"))
     want = {"step_ll_interval": (2, 3, 4), "step_ll_attempt": (2, 3, 4),
-            "step_hi_interval": (4, 5), "step_hi_attempt": (4, 5)}
+            "step_hi_interval": (4, 5), "step_hi_attempt": (4, 5),
+            "step_dense_interval": dense, "step_dense_attempt": dense}
     missing = [(k, nu) for k, nus in want.items() for nu in nus
                if "registers" not in ptxas.get(k, {}).get(nu, {})]
     if missing:
@@ -281,7 +331,7 @@ def _lane_errors(u_s, truth):
     return np.sqrt(np.mean((u - truth) ** 2, axis=(1, 2)))
 
 
-def _gates(u_s, nsteps, truth, rtol):
+def _gates(u_s, nsteps, truth, rtol, rmse_factor=RMSE_FACTOR, lane_factor=LANE_FACTOR):
     from odecheckpts_torch import harness
 
     u = u_s[:SAMPLE].double().cpu().numpy()
@@ -289,7 +339,8 @@ def _gates(u_s, nsteps, truth, rtol):
     worst = float(np.max(_lane_errors(u_s, truth)))
     inc = np.diff(nsteps.cpu().numpy().astype(np.int64), axis=1)
     capped = int(np.sum(np.any(inc >= MAX_ATTEMPTS, axis=1)))
-    ok = np.isfinite(rmse) and rmse < RMSE_FACTOR * rtol and worst < LANE_FACTOR * rtol and capped == 0
+    ok = (np.isfinite(rmse) and rmse < rmse_factor * rtol and worst < lane_factor * rtol
+          and capped == 0)
     return ok, rmse, worst, capped
 
 
@@ -451,7 +502,7 @@ def phase_twin(device, truth, u0s, kernel_out):
           **interval})
     if interval["lanes_with_other_step_counts"]:
         raise AssertionError("K1 and its plain version differ in step counts over an interval")
-    return min(interval["kernel_ms"]), min(interval["plain_ms"])
+    return _timing("step_ll_interval", times, state, 15, nu=nu, d=3)
 
 
 def _hi_solver(nu, kappa, engine):
@@ -534,7 +585,7 @@ def phase_twin_hi(device, truth, u0s, kernel_out):
           **interval})
     if interval["lanes_with_other_step_counts"]:
         raise AssertionError("K2 and its plain version differ in step counts over an interval")
-    return min(interval["kernel_ms"]), min(interval["plain_ms"])
+    return _timing("step_hi_interval", times, state, 11, nu=nu, d=3)
 
 
 def phase_attempt_engines(device, truth, u0s, loop_ll, loop_hi):
@@ -589,8 +640,9 @@ def phase_attempt_engines(device, truth, u0s, loop_ll, loop_hi):
     step_hi = batched_hi.make_step_hi(problems.rigid_body_df(), nu=nu_hi, d=3,
                                       error_calibration=kappa_hi)
     one = {}
-    for name, st, s, inp in (("step_ll_attempt", step, state, inputs),
-                             ("step_hi_attempt", step_hi, state_hi, inputs_hi)):
+    for name, st, s, inp, nsteps_at, nu in (
+            ("step_ll_attempt", step, state, inputs, 15, nu_ll),
+            ("step_hi_attempt", step_hi, state_hi, inputs_hi, 11, nu_hi)):
         kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
         times = _time_pair((
             ("plain", lambda: plain(st, s, t_next, **inp)),
@@ -600,8 +652,7 @@ def phase_attempt_engines(device, truth, u0s, loop_ll, loop_hi):
         ))
         dev = max(float(torch.max(torch.abs(a - b)))
                   for a, b in zip(times["kernel"][1], times["plain"][1]))
-        one[name] = (min(times["kernel"][0], times["kernel2"][0]),
-                     min(times["plain"][0], times["plain2"][0]))
+        one[name] = _timing(name, times, s, nsteps_at, nu=nu, d=3)
         emit({"phase": "one_launch", "kernel": KERNELS[name][0], "batch": BATCH,
               "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
               "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev})
@@ -634,6 +685,382 @@ def phase_routed(device, truth, u0s):
         raise AssertionError(f"routed lanes over 10 max(rtol, 3e-7): {over[:10]}")
 
 
+def _qr_flops(m, nc, nr):
+    """f32 operations that a Householder QR of m rows and nc columns needs for
+    min(nr, m - 1) reflections: reflection j takes 2 (m - j) for its norm and
+    4 (m - j) for each column after j (a dot product and an update).  The
+    kernels' loops run over full-length rows and do more: this counts the
+    algorithm's work, not theirs."""
+    return sum(2 * (m - j) + 4 * (m - j) * (nc - j - 1) for j in range(min(nr, m - 1)))
+
+
+def _attempt_flops(kernel, nu, d):
+    """f32 operations of one accepted attempt, from the step's shapes: its
+    QRs, triangular solves and products (scalar work of O(n) is left out,
+    so this is a lower count)."""
+    n = nu + 1
+    if kernel.startswith("step_ll"):
+        return (_qr_flops(2 * n, 2 * n, 2 * n) + _qr_flops(2 * n, n, n) + n**3
+                + 6 * n**3 + 6 * n * n * d + 2 * n * n)
+    if kernel.startswith("step_hi"):  # pair multiply-adds counted at 20 operations
+        return (_qr_flops(2 * n, 2 * n, n) + n**3 + 4 * n**3 + 4 * n * n * d + 2 * n * n
+                + 20 * d * n * (n - 1) // 2)
+    nd = n * d
+    return (_qr_flops(nd, d, d) + _qr_flops(2 * nd, 2 * nd, 2 * nd) + _qr_flops(nd, d + nd, d + nd)
+            + _qr_flops(2 * nd, nd, nd) + nd**3 + d * d * nd + n * (n + 1) * d * nd
+            + 4 * nd**3 + 4 * nd * nd + 2 * d * d * nd)
+
+
+def _timing(kernel, times, state, nsteps_index, *, nu, d):
+    """The faster of the two kernel and the two plain times of ``times``
+    (from ``_time_pair``), the accepted attempts of the kernel's run, and
+    the bytes and operations of its bound."""
+    import torch
+
+    out = times["kernel"][1]
+    accepted = float(torch.sum(out[nsteps_index] - state[nsteps_index]))
+    lanes = state[0].shape[-1]
+    nbytes = 2 * sum(x.numel() * x.element_size() for x in state) + 6 * lanes * 4
+    return {"ms": min(times["kernel"][0], times["kernel2"][0]),
+            "plain_ms": min(times["plain"][0], times["plain2"][0]),
+            "accepted": accepted, "bytes": nbytes,
+            "flops": accepted * _attempt_flops(kernel, nu, d)}
+
+
+def _bound(info):
+    """The least time of the work: state bytes over the memory rate or
+    operations over the f32 rate, whichever is larger; ms and which."""
+    t_bytes = info["bytes"] / PEAK_BYTES_PER_S * 1e3
+    t_ops = info["flops"] / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _dense_problem(name):
+    from odecheckpts_torch import problems
+
+    if name == "brusselator":
+        vf, (y0,), _, params = problems.brusselator(DENSE_N)
+        return vf, y0, params, DENSE_DT0
+    vf, (y0,), _, params = problems.rigid_body(time_span=DENSE_TSPAN)
+    return vf, y0, params, 0.1
+
+
+def _dense_ensemble(y0, batch, torch, device):
+    rng = np.random.default_rng(SEED)
+    y0 = y0.numpy()
+    rows = (y0[None] * (1.0 + DENSE_NOISE * rng.standard_normal((batch, y0.shape[0]))))
+    return torch.tensor(rows.astype(np.float32), device=device)
+
+
+def _dense_save_at():
+    return np.linspace(DENSE_TSPAN[0], DENSE_TSPAN[1], NUM_SAVE).astype(np.float32)
+
+
+def _with_backward(state, torch, seed=SEED):
+    """``state`` with random backward conditionals (``bwdG``, ``bwd_m``,
+    ``bwd_L`` and their previous values, from numpy): within the first
+    interval they are exactly zero (the Taylor init has zero covariance, so
+    the gains are 0), which would leave the fixedpoint accumulation out."""
+    rng = np.random.default_rng(seed)
+    nd, _, b = state[3].shape
+    out = list(state)
+    for i in (3, 10):
+        out[i] = np.eye(nd)[:, :, None] + 0.3 * rng.standard_normal((nd, nd, b)) / np.sqrt(nd)
+    for i in (4, 11):
+        out[i] = rng.standard_normal((nd, b))
+    for i in (5, 12):
+        out[i] = 0.3 * np.tril(rng.standard_normal((b, nd, nd))).transpose(1, 2, 0)
+    for i in (3, 4, 5, 10, 11, 12):
+        out[i] = torch.tensor(np.ascontiguousarray(out[i], dtype=np.float32),
+                              device=state[0].device)
+    return tuple(out)
+
+
+def phase_attempt_dense(device):
+    """One attempt of K5 in both forms against the dense twin: every array
+    equal, for both functors and both corrections; returns the largest
+    deviation of each form."""
+    import torch
+
+    from odecheckpts_torch import batched, batched_dense, kernels
+
+    worst = {"step_dense_interval": 0.0, "step_dense_attempt": 0.0}
+    save_at = _dense_save_at()
+    tols = torch.tensor(np.geomspace(1e-3, 1e-6, ATTEMPT_LANES), dtype=torch.float32,
+                        device=device)
+    t_next = torch.full((1, ATTEMPT_LANES), float(save_at[1]), device=device)
+    for problem in ("brusselator", "rigid_body"):
+        vf, y0, params, dt0 = _dense_problem(problem)
+        u0s = _dense_ensemble(y0, ATTEMPT_LANES, torch, device)
+        state, _, inputs = batched.initial_state(vf, u0s, params, save_at=save_at, dt0=dt0,
+                                                 tols=tols, implementation="dense")
+        for corr in ("ts1", "ts0"):
+            step = batched_dense.make_step_dense(vf, params, nu=4, d=u0s.shape[1],
+                                                 correction=corr)
+            mid = state
+            for _ in range(DENSE_MID_ATTEMPTS):
+                mid = kernels.attempt_plain(step, mid, t_next, **inputs)
+            mid = _with_backward(mid, torch)
+            for label, start in (("init", state), ("mid", mid)):
+                want = kernels.attempt_plain(step, start, t_next, **inputs)
+                for name, got in (
+                    ("step_dense_interval", kernels.step_dense_interval(
+                        step, start, t_next, max_attempts=1, **inputs)),
+                    ("step_dense_attempt", kernels.step_dense_attempt(
+                        step, start, t_next, **inputs)),
+                ):
+                    torch.cuda.synchronize()
+                    devs = [float(torch.max(torch.abs(g - w))) for g, w in zip(got, want)]
+                    equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+                    worst[name] = max([worst[name], *devs])
+                    emit({"phase": "attempt_dense", "kernel": KERNELS[name][0], "form": name,
+                          "problem": problem, "correction": corr, "state": label,
+                          "accepted": int(torch.sum(want[0] != start[0])),
+                          "max_abs_dev": max(devs), "arrays_equal": equal})
+                    if not equal:
+                        bad = [n for n, g, w in zip(STATE_NAMES, got, want)
+                               if not torch.equal(g, w)]
+                        raise AssertionError(f"{name} and the dense twin differ ({problem}, "
+                                             f"{corr}, {label}) in {bad}")
+    return worst
+
+
+def _truth_brusselator(rows, save_at):
+    """Per-lane scipy LSODA reference of the Brusselator at the checkpoints
+    (experiments/4_brusselator/dense_ts1_tpu.py:36-59)."""
+    import scipy.integrate
+
+    n = DENSE_N
+    c = 1.0 / 50.0 * (n + 1) ** 2
+
+    def vf_np(_t, y):
+        u, v = y[:n], y[n:]
+        u_ = np.concatenate([[1.0], u, [1.0]])
+        v_ = np.concatenate([[3.0], v, [3.0]])
+        cu = u_[:-2] - 2.0 * u_[1:-1] + u_[2:]
+        cv = v_[:-2] - 2.0 * v_[1:-1] + v_[2:]
+        return np.concatenate([1.0 + u**2 * v - 4.0 * u + c * cu, 3.0 * u - u**2 * v + c * cv])
+
+    out = []
+    for row in rows:
+        sol = scipy.integrate.solve_ivp(
+            vf_np, (float(save_at[0]), float(save_at[-1])), row, t_eval=save_at,
+            rtol=DENSE_TRUTH_TOL, atol=DENSE_TRUTH_TOL, method="LSODA",
+        )
+        out.append(sol.y.T)
+    return np.stack(out)
+
+
+def _smoothed_check(vf, params, u0s, tols, u_s, nsteps, truth):
+    """The smoothed output on the sampled lanes.  In f32 the reference's dense
+    fixedpoint smoother misses the row's gate on some lanes by orders of
+    magnitude, as the port's does (``tests/test_torch_dense_smoother.py``
+    holds both on this row's sample), so the f32 values are reported, and
+    the sampled lanes over the lane gate are solved again in f64 by the twin
+    on the card: there the smoothed values must meet the lane gate.  Returns
+    (the numbers, whether that held)."""
+    import torch
+
+    from odecheckpts_torch import batched
+
+    _, rmse, worst, _ = _gates(u_s, nsteps, truth, DENSE_RTOL)
+    rows = np.nonzero(_lane_errors(u_s, truth) >= DENSE_LANE_FACTOR * DENSE_RTOL)[0]
+    out = {"smoothed_rmse_over_rtol": rmse / DENSE_RTOL,
+           "smoothed_worst_lane_over_rtol": worst / DENSE_RTOL,
+           "smoothed_rows_over_lane_gate": rows.tolist()}
+    if rows.size == 0:
+        return out, True
+    idx = torch.as_tensor(rows, device=u0s.device)
+    u64, _, _ = batched.solve_save_at_batched(
+        vf, u0s[idx].double(), params, save_at=_dense_save_at().astype(np.float64),
+        dt0=DENSE_DT0, tols=tols[idx].double(), correction="ts1", implementation="dense",
+        engine="torch", max_attempts=MAX_ATTEMPTS)
+    err = np.sqrt(np.mean((u64.cpu().numpy() - truth[rows]) ** 2, axis=(1, 2)))
+    out["f64_twin_smoothed_worst_lane_over_rtol"] = float(np.max(err)) / DENSE_RTOL
+    return out, bool(np.all(err < DENSE_LANE_FACTOR * DENSE_RTOL))
+
+
+def _dense_solver(vf, u0s, params, tols, engine):
+    from odecheckpts_torch import batched
+
+    save_at = _dense_save_at()
+
+    def solve():
+        return batched.solve_save_at_batched(
+            vf, u0s, params, save_at=save_at, dt0=DENSE_DT0, tols=tols, correction="ts1",
+            implementation="dense", engine=engine, max_attempts=MAX_ATTEMPTS,
+        )
+
+    return solve
+
+
+def _kernel_share(solve, name):
+    """CUDA-event times (ms) of each launch of wrapper ``name`` in one more,
+    untimed, call of ``solve``: the kernel's part of a solve."""
+    import torch
+
+    from odecheckpts_torch import kernels
+
+    wrapper, times = getattr(kernels, name), []
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = wrapper(*args, **kwargs)
+        end.record()
+        times.append((start, end))
+        return out
+
+    setattr(kernels, name, timed)
+    try:
+        solve()
+    finally:
+        setattr(kernels, name, wrapper)
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in times]
+
+
+def phase_main_dense(device):
+    """The Brusselator TS1 row on K5's interval form."""
+    import torch
+
+    from odecheckpts_torch import batched, kernels
+
+    vf, y0, params, _ = _dense_problem("brusselator")
+    u0s = _dense_ensemble(y0, BATCH, torch, device)
+    d = u0s.shape[1]
+    t0 = time.perf_counter()
+    truth = _truth_brusselator(u0s[:SAMPLE].double().cpu().numpy(),
+                               _dense_save_at().astype(np.float64))
+    emit({"phase": "truth_dense", "lanes": SAMPLE, "seconds": time.perf_counter() - t0})
+    tols = torch.full((BATCH,), DENSE_RTOL, dtype=torch.float32, device=device)
+    solve = _dense_solver(vf, u0s, params, tols, "cuda-loop")
+    solve()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    times, launches = [], set()
+    for _ in range(REPEATS):
+        before = kernels.LAUNCHES["step_dense_interval"]
+        secs, (u_s, u_f, nsteps) = _timed(solve)
+        launches.add(kernels.LAUNCHES["step_dense_interval"] - before)
+        times.append(secs)
+    peak = torch.cuda.max_memory_allocated(device)
+    launches = launches.pop() if len(launches) == 1 else sorted(launches)
+    seconds = float(np.median(times))
+    k5_ms = _kernel_share(solve, "step_dense_interval")
+    ok, rmse, worst, capped = _gates(u_f, nsteps, truth, DENSE_RTOL, DENSE_RMSE_FACTOR,
+                                     DENSE_LANE_FACTOR)
+    smoothed, smoothed_ok = _smoothed_check(vf, params, u0s, tols, u_s, nsteps, truth)
+    finite = bool(torch.all(torch.isfinite(u_s))) and bool(torch.all(torch.isfinite(u_f)))
+    shapes = (tuple(u_s.shape), tuple(u_f.shape), tuple(nsteps.shape))
+    emit({"phase": "main_dense", "problem": f"brusselator N={DENSE_N}", "d": d,
+          "correction": "ts1", "rtol": DENSE_RTOL, "nu": 4, "kappa": 20.0, "batch": BATCH,
+          "seconds": seconds, "seconds_all": times, "solves_per_sec": BATCH / seconds,
+          "mean_steps": float(nsteps[:, -1].double().mean()),
+          "gated": "u_filt; u_smooth in f64 on the rows over the lane gate",
+          "rmse_over_rtol": rmse / DENSE_RTOL, "worst_lane_over_rtol": worst / DENSE_RTOL,
+          "capped_lanes": capped, **smoothed, "launches_per_solve": launches,
+          "k5_ms_per_interval": k5_ms, "peak_bytes": peak,
+          "check_hbm_budget_estimate_bytes": batched.estimate_solve_bytes(
+              BATCH, 5 * d, num_derivatives=4, num_save_at=NUM_SAVE)})
+    want_shapes = ((BATCH, NUM_SAVE, d), (BATCH, NUM_SAVE, d), (BATCH, NUM_SAVE))
+    if not (ok and smoothed_ok and finite and launches == NUM_SAVE - 1
+            and shapes == want_shapes):
+        raise AssertionError(f"dense row failed: gates {ok} (rmse {rmse}, worst {worst}, "
+                             f"capped {capped}), f64 smoothed {smoothed_ok}, finite {finite}, "
+                             f"launches {launches}, {shapes}")
+    return {"seconds": seconds, "u_s": u_s, "u_f": u_f, "nsteps": nsteps, "truth": truth,
+            "u0s": u0s, "tols": tols}
+
+
+def _dense_start(loop, interval=0):
+    """The row's step, its state at the start of checkpoint interval
+    ``interval`` (the driver's own setup and checkpoint loop on K5), that
+    interval's end and the inputs."""
+    from odecheckpts_torch import batched, batched_dense
+
+    vf, _, params, _ = _dense_problem("brusselator")
+    setup = batched_dense.setup_dense(vf, loop["u0s"], params, save_at=_dense_save_at(),
+                                      dt0=DENSE_DT0, tols=loop["tols"], correction="ts1")
+    state, save_at = setup["state"], setup["save_at"]
+    for t in save_at[1 : interval + 1]:
+        _, state, _ = batched.advance_checkpoint(
+            setup["interval"], setup["step"], state, t, setup["inputs"], strat=setup["strat"],
+            max_attempts=MAX_ATTEMPTS)
+    t_next = save_at[interval + 1].expand(1, BATCH).contiguous()
+    return setup["step"], state, t_next, setup["inputs"]
+
+
+def phase_interval_dense(device, loop):
+    """One interval of K5 against its plain version, plain, kernel, kernel,
+    plain: the row's second interval, where the backward conditionals that
+    the fixedpoint step accumulates are not zero."""
+    import torch
+
+    from odecheckpts_torch import kernels
+
+    step, state, t_next, inputs = _dense_start(loop, interval=1)
+
+    def run(fn):
+        return lambda: fn(step, state, t_next, max_attempts=MAX_ATTEMPTS, **inputs)
+
+    times = _time_pair((("plain", run(kernels.step_dense_interval_plain)),
+                        ("kernel", run(kernels.step_dense_interval)),
+                        ("kernel2", run(kernels.step_dense_interval)),
+                        ("plain2", run(kernels.step_dense_interval_plain))))
+    k_out, p_out = times["kernel"][1], times["plain"][1]
+    other = int(torch.sum(k_out[15] != p_out[15]))
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(k_out, p_out))
+    emit({"phase": "interval_dense", "kernel": "K5", "rtol": DENSE_RTOL, "batch": BATCH,
+          "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
+          "plain_ms": [times["plain"][0], times["plain2"][0]],
+          "lanes_with_other_step_counts": other, "arrays_equal": equal})
+    if other or not equal:
+        raise AssertionError(f"K5 and its plain version differ over an interval ({other} lanes)")
+    return _timing("step_dense_interval", times, state, 15, nu=4, d=4)
+
+
+def phase_attempt_engine_dense(device, loop):
+    """``engine="cuda"`` (K5's attempt form under the host loop) against the
+    cuda-loop row, then one launch against its plain version."""
+    import torch
+
+    from odecheckpts_torch import kernels
+
+    vf, _, params, _ = _dense_problem("brusselator")
+    solve = _dense_solver(vf, loop["u0s"], params, loop["tols"], "cuda")
+    (secs, (u_s, u_f, nsteps)), counts = _path(["step_dense_attempt"], lambda: _timed(solve))
+    ok, rmse, worst, capped = _gates(u_f, nsteps, loop["truth"], DENSE_RTOL, DENSE_RMSE_FACTOR,
+                                     DENSE_LANE_FACTOR)
+    other = int(torch.sum(torch.any(nsteps != loop["nsteps"], dim=1)))
+    same = bool(torch.equal(u_s, loop["u_s"])) and bool(torch.equal(u_f, loop["u_f"]))
+    emit({"phase": "attempt_engine_dense", "kernel": "K5", "batch": BATCH, "seconds": secs,
+          "loop_engine_seconds": loop["seconds"], "launches": counts["step_dense_attempt"],
+          "rmse_over_rtol": rmse / DENSE_RTOL, "worst_lane_over_rtol": worst / DENSE_RTOL,
+          "capped_lanes": capped, "lanes_with_other_step_counts": other,
+          "outputs_equal_loop_engine": same})
+    if not (ok and other == 0 and same):
+        raise AssertionError(f"K5 attempt engine: gates {ok}, {other} lanes with other step "
+                             f"counts, outputs equal {same}")
+
+    step, state, t_next, inputs = _dense_start(loop)
+    times = _time_pair((
+        ("plain", lambda: kernels.step_dense_attempt_plain(step, state, t_next, **inputs)),
+        ("kernel", lambda: kernels.step_dense_attempt(step, state, t_next, **inputs)),
+        ("kernel2", lambda: kernels.step_dense_attempt(step, state, t_next, **inputs)),
+        ("plain2", lambda: kernels.step_dense_attempt_plain(step, state, t_next, **inputs)),
+    ))
+    dev = max(float(torch.max(torch.abs(a - b)))
+              for a, b in zip(times["kernel"][1], times["plain"][1]))
+    emit({"phase": "one_launch", "kernel": "K5", "form": "step_dense_attempt", "batch": BATCH,
+          "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
+          "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev})
+    if dev != 0.0:
+        raise AssertionError(
+            f"one launch of K5's attempt form differs from its plain version by {dev}")
+    return counts, _timing("step_dense_attempt", times, state, 15, nu=4, d=4)
+
+
 def main():
     device, _smi = phase_device()
     import torch
@@ -656,17 +1083,26 @@ def main():
                                                 outs_hi[("parity", 1e-7)])
     timing.update(one)
     phase_routed(device, truth, u0s)
+    worst.update(phase_attempt_dense(device))
+    loop_dense, counts_dense = _path(["step_dense_interval"], lambda: phase_main_dense(device))
+    timing["step_dense_interval"] = phase_interval_dense(device, loop_dense)
+    counts_attempt_dense, timing["step_dense_attempt"] = phase_attempt_engine_dense(device,
+                                                                                    loop_dense)
 
     launches = {"step_ll_interval": counts_ll["step_ll_interval"],
                 "step_hi_interval": counts_hi["step_hi_interval"],
                 "step_ll_attempt": counts_attempt["step_ll_attempt"]["step_ll_attempt"],
-                "step_hi_attempt": counts_attempt["step_hi_attempt"]["step_hi_attempt"]}
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": worst[name], "ms": timing[name][0],
-         "plain_ms": timing[name][1]}
-        for name, (_kid, source, replaces) in KERNELS.items()
-    ]})
+                "step_hi_attempt": counts_attempt["step_hi_attempt"]["step_hi_attempt"],
+                "step_dense_interval": counts_dense["step_dense_interval"],
+                "step_dense_attempt": counts_attempt_dense["step_dense_attempt"]}
+    rows = []
+    for name, (_kid, source, replaces) in KERNELS.items():
+        bound_ms, bound_by = _bound(timing[name])
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": worst[name],
+                     "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -399,7 +399,8 @@ def make_step_ll(vf, params, *, nu, d, error_calibration=None, control=None,
 
 
 def _state_to_generic(state):
-    """Lanes-last tuple -> batch-leading ``_State``."""
+    """Lanes-last tuple -> batch-leading ``_State`` (any layout: the lane
+    axis moves from last to first)."""
 
     def t3(x):  # (a, b, B) -> (B, a, b)
         return torch.movedim(x, -1, 0)
@@ -501,16 +502,17 @@ def _check_engine(engine):
 
 
 def _check_config(*, strategy, calibration, ode_order, correction, error_unit,
-                  implementation, num_derivatives, supported_nu=SUPPORTED_NU):
+                  implementation, num_derivatives, supported_nu=SUPPORTED_NU,
+                  corrections=("ts0",), implementations=("isotropic",)):
     for name, value, ported in (
-        ("strategy", strategy, "fixedpoint"),
-        ("calibration", calibration, "dynamic"),
-        ("ode_order", ode_order, 1),
-        ("correction", correction, "ts0"),
-        ("error_unit", error_unit, "qoi"),
-        ("implementation", implementation, "isotropic"),
+        ("strategy", strategy, ("fixedpoint",)),
+        ("calibration", calibration, ("dynamic",)),
+        ("ode_order", ode_order, (1,)),
+        ("correction", correction, corrections),
+        ("error_unit", error_unit, ("qoi",)),
+        ("implementation", implementation, implementations),
     ):
-        if value != ported:
+        if value not in ported:
             raise NotImplementedError(f"{name}={value!r} {_NOT_PORTED}")
     if num_derivatives not in supported_nu:
         raise NotImplementedError(
@@ -536,18 +538,21 @@ def interval_fn(engine, interval_kernel, attempt_kernel, active):
 
 
 def initial_state(vf, u0s, params, *, save_at, dt0, tols, num_derivatives=4,
-                  atol_factor=1e-3):
+                  atol_factor=1e-3, implementation="isotropic"):
     """Taylor-initialized lanes-last state and the per-lane kernel inputs.
 
     Returns ``(state0, rv0, inputs)`` where ``inputs`` is the dict of (1, B)
     tensors ``atol, rtol, dt_max, dt_floor, tiny_scale`` and ``rv0`` is the
-    batch-leading initial ``Normal``.
+    batch-leading initial ``Normal``.  ``implementation`` is the SSM backend
+    whose layout the state takes: "isotropic" ((n, d, B) means, (n, n, B)
+    factors) or "dense" ((nd, B) means, (nd, nd, B) factors).
     """
     b, d = u0s.shape
     dtype, device = u0s.dtype, u0s.device
     nu = num_derivatives
     save_at = torch.as_tensor(save_at, dtype=dtype, device=device)
-    ssm = ivpsolvers.prior_ibm(num_derivatives=nu, ode_shape=(d,))
+    ssm = ivpsolvers.prior_ibm(num_derivatives=nu, ode_shape=(d,),
+                               implementation=implementation)
     strat = ivpsolvers.strategy_fixedpoint(ssm, ivpsolvers.correction_ts0())
     solver_cfg = ivpsolvers.solver_dynamic(strat)
 
@@ -616,8 +621,28 @@ def solve_save_at_batched(
     run the plain twin on CPU tensors.  ``engine="torch"`` runs the twin on
     any device.  ``max_attempts`` bounds the attempts per lane and interval.
 
+    ``correction="ts1"`` with d > 1, or ``implementation="dense"``, goes to
+    the dense engine ``batched_dense.solve_save_at_batched_dense`` (kernel
+    K5), as in the reference (``odecheckpts_tpu/batched.py:780-793``).
+
     Returns ``(u_smooth (B, T, d), u_filt (B, T, d), num_steps (B, T))``.
     """
+    if implementation == "blockdiag":
+        raise NotImplementedError(
+            "implementation='blockdiag' is not ported yet: ROADMAP queue 1 item 7"
+        )
+    d = (u0s[0] if isinstance(u0s, tuple) else u0s).shape[-1]
+    if implementation == "dense" or (correction == "ts1" and d > 1):
+        from .batched_dense import solve_save_at_batched_dense
+
+        return solve_save_at_batched_dense(
+            vf, u0s, params, save_at=save_at, dt0=dt0, tols=tols,
+            num_derivatives=num_derivatives, strategy=strategy,
+            calibration=calibration, atol_factor=atol_factor, engine=engine,
+            hbm_budget=hbm_budget, ode_order=ode_order, correction=correction,
+            error_unit=error_unit, error_calibration=error_calibration,
+            max_attempts=max_attempts,
+        )
     _check_config(
         strategy=strategy, calibration=calibration, ode_order=ode_order,
         correction=correction, error_unit=error_unit,
@@ -648,16 +673,43 @@ def solve_save_at_batched(
     )
     interval = interval_fn(engine, kernels.step_ll_interval, kernels.step_ll_attempt,
                            kernels.active_ll)
+    return solve_intervals(interval, step, state, rv0, inputs, strat=strat,
+                           save_at=save_at, max_attempts=max_attempts)
 
+
+def advance_checkpoint(interval, step, state, t_next, inputs, *, strat, max_attempts):
+    """One checkpoint of ``solve_intervals``: ``interval`` advances the
+    lanes-last ``state`` to ``t_next`` (a 0-d tensor), then the generic stack
+    interpolates at it.  Returns ``((rv, cond), state, num_steps)``: the
+    filtered marginal and the backward conditional at the checkpoint, the
+    state the next interval starts from, and the accepted steps so far."""
+    b = state[0].shape[-1]
+    state = interval(step, state, t_next.expand(1, b).contiguous(), max_attempts=max_attempts,
+                     **inputs)
+    out, gen = _interpolate_at(strat, _state_to_generic(state), t_next)
+    return out, _generic_to_state(gen, state[0].dtype), gen.num_steps
+
+
+def solve_intervals(interval, step, state, rv0, inputs, *, strat, save_at, max_attempts):
+    """The checkpoint loop and the smoothing pass of the batched drivers.
+
+    Per checkpoint: ``interval`` advances the lanes-last ``state`` (see
+    ``interval_fn``), then the generic stack interpolates at the checkpoint
+    on batch-leading tensors (``_state_to_generic`` and ``_generic_to_state``
+    move the lane axis and serve the isotropic and the dense layout alike).
+    After the last one, the backward pass over the checkpoints gives the
+    smoothed means.  Returns ``(u_smooth, u_filt, num_steps)``.
+    """
+    ssm = strat.ssm
+    b = state[0].shape[-1]
+    dtype, device = state[0].dtype, state[0].device
     rvs, conds, nsteps = [], [], []
     for t_next in save_at[1:]:
-        t_next_v = t_next.expand(1, b).contiguous()
-        state = interval(step, state, t_next_v, max_attempts=max_attempts, **inputs)
-        (rv_e, cond_e), gen2 = _interpolate_at(strat, _state_to_generic(state), t_next)
-        state = _generic_to_state(gen2, dtype)
+        (rv_e, cond_e), state, n = advance_checkpoint(
+            interval, step, state, t_next, inputs, strat=strat, max_attempts=max_attempts)
         rvs.append(rv_e)
         conds.append(cond_e)
-        nsteps.append(gen2.num_steps)
+        nsteps.append(n)
 
     def stack(items):  # list over T-1 checkpoints -> (T-1, B, ...) tree
         first = items[0]
@@ -684,7 +736,7 @@ def solve_save_at_batched(
     )
     seq = stats.markov_select_terminal(MarkovSeq(init_stack, conds_full, ssm=ssm))
     margs = stats.markov_marginals(seq)
-    mean = torch.cat([margs.mean, init_stack.mean[-1:]])  # (T, B, n, d)
+    mean = torch.cat([margs.mean, init_stack.mean[-1:]])  # (T, B, ...)
     u_smooth = ssm.qoi(mean).transpose(0, 1)
     return u_smooth, u_filt, nsteps
 

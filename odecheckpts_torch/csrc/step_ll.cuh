@@ -77,6 +77,18 @@ struct RigidBody {
     out[1] = p2 * u[0] * u[2];
     out[2] = p3 * u[0] * u[1];
   }
+  // J[r][c] = d out[r] / d u[c] (the dense step's TS1; problems.rigid_body's jac)
+  __device__ void jac(const float* u, float /*t*/, float (*J)[D]) const {
+    J[0][0] = 0.0f;
+    J[0][1] = p1 * u[2];
+    J[0][2] = p1 * u[1];
+    J[1][0] = p2 * u[2];
+    J[1][1] = 0.0f;
+    J[1][2] = p2 * u[0];
+    J[2][0] = p3 * u[1];
+    J[2][1] = p3 * u[0];
+    J[2][2] = 0.0f;
+  }
 };
 
 template <int N, int D>

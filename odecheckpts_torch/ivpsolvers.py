@@ -1,9 +1,10 @@
 """Solver construction: prior, correction, strategy, calibration (PyTorch
 counterpart of ``odecheckpts_tpu.ivpsolvers``).
 
-Ported so far: the isotropic IBM prior, the TS0 correction, the fixedpoint
-strategy and dynamic calibration -- the configuration of the batched
-work-precision path.  Every config object is a frozen dataclass.
+Ported so far: the IBM prior on the isotropic and the dense backend, the
+TS0 and TS1 corrections, the fixedpoint strategy and dynamic calibration --
+the configurations of the batched paths.  Every config object is a frozen
+dataclass.
 """
 
 from __future__ import annotations
@@ -49,9 +50,7 @@ class Correction:
         return default_error_calibration(self.method, self.error_unit)
 
 
-def correction_ts0(*, ode_order: int = 1, error_unit: str = "qoi",
-                   error_calibration: float = None) -> Correction:
-    """Zeroth-order Taylor linearization (EK0) on derivative ``ode_order``."""
+def _correction(method, ode_order, error_unit, error_calibration):
     if ode_order != 1:
         raise NotImplementedError(
             "ode_order != 1 is not ported yet: ROADMAP queue 1 item 3a"
@@ -60,7 +59,21 @@ def correction_ts0(*, ode_order: int = 1, error_unit: str = "qoi",
         raise NotImplementedError(
             f"error_unit={error_unit!r} is not ported yet: ROADMAP queue 1 item 3a"
         )
-    return Correction("ts0", ode_order, error_unit, error_calibration)
+    return Correction(method, ode_order, error_unit, error_calibration)
+
+
+def correction_ts0(*, ode_order: int = 1, error_unit: str = "qoi",
+                   error_calibration: float = None) -> Correction:
+    """Zeroth-order Taylor linearization (EK0) on derivative ``ode_order``."""
+    return _correction("ts0", ode_order, error_unit, error_calibration)
+
+
+def correction_ts1(*, ode_order: int = 1, error_unit: str = "qoi",
+                   error_calibration: float = None) -> Correction:
+    """First-order Taylor linearization (EK1): the observation carries the
+    vector field's Jacobian (``odecheckpts_tpu/ivpsolvers.py:102-110``).
+    Requires the dense backend (see ``Strategy``)."""
+    return _correction("ts1", ode_order, error_unit, error_calibration)
 
 
 FIXEDPOINT = "fixedpoint"
@@ -71,6 +84,10 @@ class Strategy:
     ssm: Any
     correction: Correction
     kind: str
+
+    def __post_init__(self):
+        if self.correction.method == "ts1" and self.ssm.name != "dense":
+            raise ValueError("correction_ts1 requires the dense backend")
 
 
 def strategy_fixedpoint(prior, correction: Correction) -> Strategy:

@@ -1,18 +1,22 @@
 """Hand-written CUDA kernels of the port and their wrappers.
 
-=====  ====================  =============================  ====================================
-id     wrapper               source                         replaces (``odecheckpts_tpu``)
-=====  ====================  =============================  ====================================
-K1     ``step_ll_interval``  ``csrc/step_ll.cu``            ``batched._pallas_interval(make_step_ll)``
-K3     ``step_ll_attempt``   ``csrc/step_ll.cu``            ``batched._pallas_step(make_step_ll)``
-K2     ``step_hi_interval``  ``csrc/step_hi.cu``            ``batched_hi._pallas_interval(make_step_hi)``
-K4     ``step_hi_attempt``   ``csrc/step_hi_attempt.cu``    ``batched_hi._pallas_step(make_step_hi)``
-=====  ====================  =============================  ====================================
+=====  =======================  ================================  =======================================================
+id     wrapper                  source                            replaces (``odecheckpts_tpu``)
+=====  =======================  ================================  =======================================================
+K1     ``step_ll_interval``     ``csrc/step_ll.cu``               ``batched._pallas_interval(make_step_ll)``
+K3     ``step_ll_attempt``      ``csrc/step_ll_attempt.cu``       ``batched._pallas_step(make_step_ll)``
+K2     ``step_hi_interval``     ``csrc/step_hi.cu``               ``batched_hi._pallas_interval(make_step_hi)``
+K4     ``step_hi_attempt``      ``csrc/step_hi_attempt.cu``       ``batched_hi._pallas_step(make_step_hi)``
+K5     ``step_dense_interval``  ``csrc/step_dense.cu``            ``batched_dense._pallas_interval(make_step_dense_ll)``
+K5     ``step_dense_attempt``   ``csrc/step_dense_attempt.cu``    ``batched_dense._pallas_step(make_step_dense_ll)``
+=====  =======================  ================================  =======================================================
 
-K1 and K2 run a whole checkpoint interval (the accept/reject loop of every
-lane) in one launch; K3 and K4 run one attempt of the same step body per
-launch, under the host loop ``attempt_loop``.  The twins are
-``batched.StepLL`` (f32) and ``batched_hi.StepHi`` (df32 pairs).
+K1, K2 and K5's interval form run a whole checkpoint interval (the
+accept/reject loop of every lane) in one launch; K3, K4 and K5's attempt
+form run one attempt of the same step body per launch, under the host loop
+``attempt_loop``.  The twins are ``batched.StepLL`` (f32),
+``batched_hi.StepHi`` (df32 pairs) and ``batched_dense.StepDense`` (f32,
+dense covariance, TS1 or TS0).
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``nvcc`` process per ``.cu`` file, all started together, then linked into
@@ -54,6 +58,7 @@ LIB_NAME = "libodeckpt_kernels.so"
 LAUNCHES = {
     "step_ll_interval": 0, "step_ll_attempt": 0,
     "step_hi_interval": 0, "step_hi_attempt": 0,
+    "step_dense_interval": 0, "step_dense_attempt": 0,
 }
 
 # (kernel, device functor of the step's vector field) -> (C symbol, ODE dim)
@@ -62,6 +67,10 @@ _FUNCTORS = {
     ("step_ll_attempt", "rigid_body"): ("odeckpt_step_ll_attempt_rigid_body", 3),
     ("step_hi_interval", "rigid_body_df"): ("odeckpt_step_hi_interval_rigid_body_df", 3),
     ("step_hi_attempt", "rigid_body_df"): ("odeckpt_step_hi_attempt_rigid_body_df", 3),
+    ("step_dense_interval", "brusselator"): ("odeckpt_step_dense_interval_brusselator", 4),
+    ("step_dense_attempt", "brusselator"): ("odeckpt_step_dense_attempt_brusselator", 4),
+    ("step_dense_interval", "rigid_body"): ("odeckpt_step_dense_interval_rigid_body", 3),
+    ("step_dense_attempt", "rigid_body"): ("odeckpt_step_dense_attempt_rigid_body", 3),
 }
 
 
@@ -92,16 +101,33 @@ def _build_key():
     return h.hexdigest()[:16]
 
 
+def _ptxas_key(symbol):
+    """(kernel, template key) of a mangled step-kernel symbol: nu for K1-K4,
+    ``"<nu>/<ts1 or ts0>/<functor>"`` for K5; None for other symbols."""
+    m = re.search(r"(step_(?:ll|hi|dense)_(?:interval|attempt))ILi(\d+)E", symbol)
+    if m is None:
+        return None
+    kernel, nu = m.group(1), int(m.group(2))
+    if kernel.startswith("step_dense"):
+        fm = re.search(r"Lb([01])ENS_(\d+)", symbol)
+        if fm is None:
+            return None
+        start = fm.end()
+        functor = symbol[start : start + int(fm.group(2))]
+        return kernel, f"{nu}/{'ts1' if fm.group(1) == '1' else 'ts0'}/{functor}"
+    return kernel, nu
+
+
 def parse_ptxas(log):
     """Registers and spill bytes per kernel and template from ``ptxas -v``
-    output: ``{kernel: {nu: {"registers": r, "spill_stores": s,
-    "spill_loads": l, "stack": f}}}``."""
+    output: ``{kernel: {key: {"registers": r, "spill_stores": s,
+    "spill_loads": l, "stack": f}}}``, keyed by nu for K1-K4 and by
+    ``"<nu>/<ts1 or ts0>/<functor>"`` for K5 (``"4/ts1/Brusselator"``)."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)", line)
         if m:
-            tm = re.search(r"(step_(?:ll|hi)_(?:interval|attempt))ILi(\d+)E", m.group(1))
-            key = (tm.group(1), int(tm.group(2))) if tm else None
+            key = _ptxas_key(m.group(1))
             continue
         if key is None:
             continue
@@ -121,8 +147,19 @@ _INTERVAL_ARGS = [
     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p,
 ]
-# the attempt entries take no max_attempts
+# the attempt entries take no max_attempts; K5's entries take an int ts1
+# flag after nu
 _ATTEMPT_ARGS = _INTERVAL_ARGS[:5] + _INTERVAL_ARGS[6:]
+_ARGTYPES = {
+    "interval": _INTERVAL_ARGS, "attempt": _ATTEMPT_ARGS,
+    "dense_interval": _INTERVAL_ARGS[:1] + [ctypes.c_int] + _INTERVAL_ARGS[1:],
+    "dense_attempt": _ATTEMPT_ARGS[:1] + [ctypes.c_int] + _ATTEMPT_ARGS[1:],
+}
+
+
+def _argtypes(kernel):
+    form = kernel.rsplit("_", 1)[1]
+    return _ARGTYPES[f"dense_{form}" if kernel.startswith("step_dense") else form]
 
 
 class _Library:
@@ -131,7 +168,7 @@ class _Library:
         self.lib = ctypes.CDLL(str(path))
         for (kernel, _), (symbol, _) in _FUNCTORS.items():
             fn = getattr(self.lib, symbol)
-            fn.argtypes = _INTERVAL_ARGS if kernel.endswith("interval") else _ATTEMPT_ARGS
+            fn.argtypes = _argtypes(kernel)
             fn.restype = ctypes.c_int
         self.lib.odeckpt_error_string.argtypes = [ctypes.c_int]
         self.lib.odeckpt_error_string.restype = ctypes.c_char_p
@@ -205,7 +242,7 @@ def attempt_plain(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_sca
     return step(state, t_next, atol, rtol, dt_max, dt_floor, tiny_scale)
 
 
-step_ll_attempt_plain = step_hi_attempt_plain = attempt_plain
+step_ll_attempt_plain = step_hi_attempt_plain = step_dense_attempt_plain = attempt_plain
 
 
 def attempt_loop(attempt, active, step, state, t_next, *, max_attempts, **inputs):
@@ -220,11 +257,15 @@ def attempt_loop(attempt, active, step, state, t_next, *, max_attempts, **inputs
 
 
 def step_ll_interval_plain(step, state, t_next, *, max_attempts, **inputs):
-    """Plain version of K1: attempts of the twin while any lane has
+    """Plain version of K1 and of K5's interval form: attempts of the twin
+    (``batched.StepLL`` or ``batched_dense.StepDense``) while any lane has
     ``t < t_next``.  Lanes at the checkpoint are frozen inside the step, so
     every lane ends in the state the per-lane kernel loop leaves it in."""
     return attempt_loop(attempt_plain, active_ll, step, state, t_next,
                         max_attempts=max_attempts, **inputs)
+
+
+step_dense_interval_plain = step_ll_interval_plain
 
 
 def step_hi_interval_plain(step, state, t_next, *, max_attempts, **inputs):
@@ -282,10 +323,14 @@ def _launch(kernel, step, state, t_next, inputs, max_attempts=None):
     ins_ptr = (ctypes.c_void_p * len(shapes))(*(x.data_ptr() for x in (*state, *extra)))
     outs_ptr = (ctypes.c_void_p * len(outs))(*(x.data_ptr() for x in outs))
     consts = step.packed_constants()
-    p1, p2, p3 = (float(p) for p in step.functor_params)
+    params = tuple(float(p) for p in step.functor_params)
+    if len(params) > 3:
+        raise ValueError(f"{kernel}: a device functor takes at most 3 parameters, got {params}")
+    p1, p2, p3 = params + (0.0,) * (3 - len(params))
     stream = torch.cuda.current_stream(device).cuda_stream
     index = device.index if device.index is not None else torch.cuda.current_device()
-    head = (step.nu, ctypes.addressof(ins_ptr), ctypes.addressof(outs_ptr),
+    flags = (int(step.ts1),) if kernel.startswith("step_dense") else ()
+    head = (step.nu, *flags, ctypes.addressof(ins_ptr), ctypes.addressof(outs_ptr),
             consts.ctypes.data, batch)
     if max_attempts is not None:
         if not 0 <= int(max_attempts) < 2**31:
@@ -338,3 +383,23 @@ def step_hi_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_s
     if state[0].device.type == "cpu":
         return step_hi_attempt_plain(step, state, t_next, **inputs)
     return _launch("step_hi_attempt", step, state, t_next, inputs)
+
+
+def step_dense_interval(step, state, t_next, *, atol, rtol, dt_max, dt_floor,
+                        tiny_scale, max_attempts):
+    """K5, interval form: advance every lane of the dense 17-array state
+    ((nd, B) means, (nd, nd, B) factors) to ``t_next`` (or ``max_attempts``
+    attempts), one launch per interval.  ``step`` is the twin
+    ``batched_dense.StepDense``; TS1 or TS0 follows ``step.ts1``."""
+    inputs = dict(atol=atol, rtol=rtol, dt_max=dt_max, dt_floor=dt_floor, tiny_scale=tiny_scale)
+    if state[0].device.type == "cpu":
+        return step_dense_interval_plain(step, state, t_next, max_attempts=max_attempts, **inputs)
+    return _launch("step_dense_interval", step, state, t_next, inputs, max_attempts)
+
+
+def step_dense_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_scale):
+    """K5, attempt form: one attempt of the dense step on every lane."""
+    inputs = dict(atol=atol, rtol=rtol, dt_max=dt_max, dt_floor=dt_floor, tiny_scale=tiny_scale)
+    if state[0].device.type == "cpu":
+        return step_dense_attempt_plain(step, state, t_next, **inputs)
+    return _launch("step_dense_attempt", step, state, t_next, inputs)

@@ -1,11 +1,12 @@
 """SSM backends in square-root form (PyTorch counterpart of
-``odecheckpts_tpu.ssm``).  Only the isotropic backend is ported so far."""
+``odecheckpts_tpu.ssm``).  The isotropic and the dense backend are ported."""
 
 from .base import Conditional, MarkovSeq, Normal  # noqa: F401
+from .dense import DenseSSM  # noqa: F401
 from .isotropic import IsotropicSSM  # noqa: F401
 
+_BACKENDS = {"isotropic": IsotropicSSM, "dense": DenseSSM}
 _NOT_PORTED = {
-    "dense": "ROADMAP queue 1 item 6 (TS1 and the dense backend)",
     "blockdiag": "ROADMAP queue 1 item 7 (blockdiag)",
     "scalar": "ROADMAP queue 1 item 7 (blockdiag)",
 }
@@ -13,8 +14,10 @@ _NOT_PORTED = {
 
 def choose(implementation: str, *, ode_shape: tuple, num_derivatives: int):
     """Return the backend value for ``implementation``."""
-    if implementation == "isotropic":
-        return IsotropicSSM(num_derivatives=num_derivatives, ode_shape=tuple(ode_shape))
+    if implementation in _BACKENDS:
+        return _BACKENDS[implementation](
+            num_derivatives=num_derivatives, ode_shape=tuple(ode_shape)
+        )
     if implementation in _NOT_PORTED:
         raise NotImplementedError(
             f"implementation={implementation!r} is not ported yet: "
@@ -22,5 +25,5 @@ def choose(implementation: str, *, ode_shape: tuple, num_derivatives: int):
         )
     raise ValueError(
         f"unknown implementation {implementation!r}; "
-        f"available: {sorted(['isotropic', *_NOT_PORTED])}"
+        f"available: {sorted([*_BACKENDS, *_NOT_PORTED])}"
     )

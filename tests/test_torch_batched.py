@@ -190,7 +190,10 @@ def test_hbm_guard_estimate_is_monotone_and_guard_raises():
 
 @pytest.mark.parametrize("option", [
     dict(strategy="filter"), dict(calibration="none"), dict(ode_order=2),
-    dict(correction="ts1"), dict(error_unit="residual"), dict(implementation="dense"),
+    # TS1 with d > 1 and the dense backend run on the dense engine
+    # (test_torch_dense.py); its own unported options raise there
+    dict(correction="ts1", calibration="none"), dict(error_unit="residual"),
+    dict(implementation="dense", strategy="filter"),
     dict(implementation="blockdiag"), dict(num_derivatives=5),
 ])
 def test_unported_options_name_their_roadmap_item(option):

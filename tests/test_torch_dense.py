@@ -1,0 +1,497 @@
+"""Port differential tests: the dense TS1 / TS0 path (``ssm.dense``, the
+hand-derived Jacobians, the twin of K5, the batched dense driver) against
+the JAX reference.
+
+Inputs are made with numpy from fixed seeds and handed to both packages.
+Tolerances and why:
+
+* ``ssm.dense``, ``linalg.qr_r`` at (80, 40) and the smoothing pass on the
+  dense layout, in f64: rtol 1e-12 of each array's largest entry (same
+  algorithm, reassociated sums only); the backward gain of the reverting
+  extrapolation 1e-10 (LAPACK's and XLA's triangular solves substitute in
+  another order, and a random (20, 20) R_yy amplifies their last-ulp
+  differences by its condition number).
+* Vector fields: the port's Brusselator against the reference's ``slices``
+  form bit for bit (the same operations in the same order).  Each ``jac``
+  against ``jax.jacfwd`` of the reference vector field: f64 rtol 1e-14,
+  f32 within 2 ulp of each entry (the hand-derived Jacobian sums the
+  forward-mode terms in another order).
+* One attempt of ``StepDense`` against ``make_step_dense_ll`` run op by op
+  (``jax.disable_jit``), all 17 arrays, from the initial state and from a
+  mid-interval state with random backward conditionals: f64 rtol 1e-12,
+  f32 rtol 1e-5 (initial) and 1e-4 (mid-interval: the accumulated backward
+  gains reach ~1e9 on the Brusselator, and their sums lose the last digits
+  in another order) of each array's largest entry.  TS1 takes the twin's
+  ``jac`` against the reference's jvps, so its entries move by an ulp
+  before the QRs.  The two new factors (``chol``, ``bwd_L``) are compared
+  through L L^T: their column-list QRs fix no signs, and a column whose
+  pivot is ~0 flips with the last ulp of the sums.  In f32 on the
+  mid-interval state the (nd, d + nd) correction QR is ill-conditioned on
+  some lanes, where the twin's and the reference's corrected L L^T differ by
+  up to tens of percent of the largest entry; there both are judged by the
+  reference's f64 attempt on the same inputs, and the twin must be within
+  rtol 1e-4 of it, or no farther than twice the reference's own f32 result.
+  On the card the kernel is held to the twin bit for bit.
+* Whole solves in f64 against ``solve_save_at_batched_dense(engine="xla")``:
+  identical per-lane step counts, checkpoint values within rtol 1e-10 (the
+  jitted reference contracts multiply-adds into FMA, the twin does not).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from odecheckpts_tpu import batched_dense as jbd
+from odecheckpts_tpu import ivpsolvers as jsolvers
+from odecheckpts_tpu import linalg as jl
+from odecheckpts_tpu import problems as jp
+from odecheckpts_tpu import stats as jstats
+from odecheckpts_tpu.ssm.base import Conditional as JCond
+from odecheckpts_tpu.ssm.base import MarkovSeq as JSeq
+from odecheckpts_tpu.ssm.base import Normal as JNormal
+from odecheckpts_torch import batched as tb
+from odecheckpts_torch import batched_dense as tbd
+from odecheckpts_torch import interop, kernels
+from odecheckpts_torch import ivpsolvers as tsolvers
+from odecheckpts_torch import linalg as tl
+from odecheckpts_torch import problems as tp
+from odecheckpts_torch import stats as tstats
+from odecheckpts_torch.ssm.base import Conditional as TCond
+from odecheckpts_torch.ssm.base import MarkovSeq as TSeq
+from odecheckpts_torch.ssm.base import Normal as TNormal
+
+NP = {"f64": np.float64, "f32": np.float32}
+TORCH = {"f64": torch.float64, "f32": torch.float32}
+INPUT_NAMES = ("atol", "rtol", "dt_max", "dt_floor", "tiny_scale")
+NU, D, B = 4, 4, 5
+ND = (NU + 1) * D
+
+
+def _close(got, want, rtol=1e-12):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * np.max(np.abs(want)))
+
+
+def _close_tree(got, want, rtol=1e-12):
+    for g, w in zip(jax.tree.leaves(interop.to_numpy(tuple(got))), jax.tree.leaves(tuple(want))):
+        _close(g, w, rtol)
+
+
+# ---------------------------------------------------------------------------
+# ssm.dense
+
+
+def _ssms():
+    j = jsolvers.prior_ibm(num_derivatives=NU, ode_shape=(D,), implementation="dense")
+    t = tsolvers.prior_ibm(num_derivatives=NU, ode_shape=(D,), implementation="dense")
+    return j, t
+
+
+def _normal(rng, lead=(B,)):
+    return (rng.standard_normal(lead + (ND,)), np.tril(rng.standard_normal(lead + (ND, ND))))
+
+
+def _cond(rng, lead=(B,)):
+    return (rng.standard_normal(lead + (ND, ND)) / ND + np.eye(ND),) + _normal(rng, lead)
+
+
+def _jn(x):
+    return JNormal(*(jnp.asarray(a) for a in x))
+
+
+def _tn(x):
+    return TNormal(*(torch.tensor(a) for a in x))
+
+
+def _jc(x):
+    return JCond(jnp.asarray(x[0]), _jn(x[1:]))
+
+
+def _tc(x):
+    return TCond(torch.tensor(x[0]), _tn(x[1:]))
+
+
+@pytest.mark.parametrize("reversal", [True, False])
+def test_dense_extrapolate_direct_matches_jax(reversal):
+    jssm, tssm = _ssms()
+    rng = np.random.default_rng(0)
+    rv = _normal(rng)
+    dt = rng.uniform(1e-3, 1.0, B)
+    scale = rng.uniform(0.1, 3.0, B)
+    want = jax.vmap(lambda r, d, s: jssm.extrapolate_direct(r, d, s, reversal))(
+        _jn(rv), jnp.asarray(dt), jnp.asarray(scale))
+    got = tssm.extrapolate_direct(_tn(rv), torch.tensor(dt), torch.tensor(scale), reversal)
+    assert got[0].cholesky.shape == (B, ND, ND)
+    _close_tree(got[0], want[0])
+    if reversal:
+        _close_tree(got[1], want[1], 1e-10)
+    else:
+        assert got[1] is None
+
+
+@pytest.mark.parametrize("op", ["marginalize", "compose", "identity_conditional"])
+def test_dense_conditionals_match_jax(op):
+    jssm, tssm = _ssms()
+    rng = np.random.default_rng(1)
+    cond = _cond(rng)
+    if op == "marginalize":
+        other = _normal(rng)
+        want = jax.vmap(jssm.marginalize)(_jn(other), _jc(cond))
+        got = tssm.marginalize(_tn(other), _tc(cond))
+    elif op == "compose":
+        other = _cond(rng)
+        want = jax.vmap(jssm.compose)(_jc(cond), _jc(other))
+        got = tssm.compose(_tc(cond), _tc(other))
+    else:
+        want = jssm.identity_conditional(jnp.float64)
+        got = tssm.identity_conditional(torch.float64)
+        assert got.matrix.shape == (ND, ND) and got.noise.cholesky.shape == (ND, ND)
+    _close_tree(got, want)
+
+
+def test_dense_stack_tcoeffs_qoi_and_select_deriv_match_jax():
+    jssm, tssm = _ssms()
+    rng = np.random.default_rng(2)
+    tco = [rng.standard_normal((B, D)) for _ in range(NU + 1)]
+    want = jax.vmap(jssm.stack_tcoeffs)([jnp.asarray(c) for c in tco])
+    got = tssm.stack_tcoeffs([torch.tensor(c) for c in tco])
+    _close_tree(got, want)
+    _close(tssm.qoi(got.mean).numpy(), jssm.qoi(want.mean))
+    _close(tssm.select_deriv(got.mean, 2).numpy(), jssm.select_deriv(want.mean, 2))
+
+
+def test_markov_marginals_on_the_dense_layout_match_jax():
+    jssm, tssm = _ssms()
+    rng = np.random.default_rng(3)
+    steps = 4  # time on the leading axis, ensemble on the next
+    init = _normal(rng, (steps + 1, B))
+    conds = _cond(rng, (steps + 1, B))
+    jseq = JSeq(_jn(init), _jc(conds), ssm=jssm)
+    want = jax.vmap(
+        lambda s: jstats.markov_marginals(jstats.markov_select_terminal(s)),
+        in_axes=(JSeq(JNormal(1, 1), JCond(1, JNormal(1, 1)), ssm=jssm),), out_axes=1,
+    )(jseq)
+    tseq = TSeq(_tn(init), _tc(conds), ssm=tssm)
+    got = tstats.markov_marginals(tstats.markov_select_terminal(tseq))
+    assert got.mean.shape == (steps, B, ND) and got.cholesky.shape == (steps, B, ND, ND)
+    _close_tree(got, want)
+
+
+def test_qr_r_at_40_columns_matches_jax_householder_loop():
+    # 24-128 columns take the reference's _qr_r_householder_loop
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((3, 80, 40))
+    want = np.asarray(jl.qr_r(jnp.asarray(x)))
+    got = tl.qr_r(torch.tensor(x)).numpy()
+    assert got.shape == want.shape == (3, 40, 40)
+    _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# vector fields and Jacobians
+
+
+def _lanes(d, dtype, seed=5, batch=6):
+    rng = np.random.default_rng(seed)
+    return (1.0 + rng.standard_normal((d, batch))).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_brusselator_vf_matches_jax_slices(dtype):
+    jvf, (jy0,), jspan, _ = jp.brusselator(2, laplacian="slices")
+    vf, (y0,), span, params = tp.brusselator(2)
+    np.testing.assert_allclose(y0.numpy(), np.asarray(jy0), rtol=1e-15)
+    assert span == jspan and params == ()
+    y = _lanes(4, NP[dtype])
+    got = vf(torch.tensor(y)).numpy()
+    want = np.asarray(jvf(jnp.asarray(y)))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tp.brusselator(2, laplacian="convolve")
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("problem", ["brusselator", "rigid_body"])
+def test_jac_matches_jax_jacfwd(problem, dtype):
+    if problem == "brusselator":
+        jvf, _, _, jparams = jp.brusselator(2, laplacian="slices")
+        vf, _, _, params = tp.brusselator(2)
+        d = 4
+    else:
+        jvf, _, _, jparams = jp.rigid_body()
+        vf, _, _, params = tp.rigid_body()
+        d = 3
+    y = _lanes(d, NP[dtype])
+    got = vf.jac(torch.tensor(y), t=0.0, p=params).numpy()  # (d, d, B)
+    want = np.stack([np.asarray(jax.jacfwd(lambda u: jvf(u, t=0.0, p=jparams))(jnp.asarray(col)))
+                     for col in y.T], axis=-1)
+    assert got.shape == (d, d, y.shape[1]) and got.dtype == want.dtype
+    if dtype == "f64":
+        np.testing.assert_allclose(got, want, rtol=1e-14, atol=0)
+    else:
+        ulp = np.spacing(np.abs(want).astype(np.float32))
+        assert np.all(np.abs(got - want) <= 2 * ulp)
+
+
+# ---------------------------------------------------------------------------
+# one attempt of the twin of K5 against make_step_dense_ll
+
+
+def _problem(name):
+    if name == "brusselator":
+        (jvf, _, _, jparams), (vf, (y0,), _, params) = (
+            jp.brusselator(2, laplacian="slices"), tp.brusselator(2))
+        return jvf, jparams, vf, y0.numpy(), params, 0.01
+    (jvf, _, _, jparams), (vf, (y0,), _, params) = jp.rigid_body(), tp.rigid_body()
+    return jvf, jparams, vf, y0.numpy(), params, 0.1
+
+
+def _jax_step(jvf, jparams, d, correction):
+    def vfb(args, t):
+        return jvf(*args, t=t[0], p=jparams)
+
+    return jbd.make_step_dense_ll(vfb, nu=NU, d=d, correction=correction)
+
+
+def _with_backward(state, seed=7):
+    """``state`` with random backward conditionals (``bwdG``, ``bwd_m``,
+    ``bwd_L`` and their previous values): within the first interval they are
+    exactly zero (the Taylor init has zero covariance, so the gains are 0),
+    which would leave the fixedpoint accumulation untested."""
+    rng = np.random.default_rng(seed)
+    nd, _, b = state[3].shape
+    out = list(state)
+    for i in (3, 10):
+        out[i] = np.eye(nd)[:, :, None] + 0.3 * rng.standard_normal((nd, nd, b)) / np.sqrt(nd)
+    for i in (4, 11):
+        out[i] = rng.standard_normal((nd, b))
+    for i in (5, 12):
+        out[i] = 0.3 * np.tril(rng.standard_normal((b, nd, nd))).transpose(1, 2, 0)
+    return tuple(x.astype(state[1].dtype) for x in out)
+
+
+def _dense_start(problem, dtype, correction, batch=8, warm_steps=12):
+    """The port's Taylor-initialized dense state, and one advanced by the
+    twin ``warm_steps`` attempts with random backward conditionals, as numpy
+    arrays; and the kernel inputs."""
+    _, _, vf, y0, params, dt0 = _problem(problem)
+    d = y0.shape[0]
+    rng = np.random.default_rng(6)
+    u0s = (y0[None] * (1.0 + 0.02 * rng.standard_normal((batch, d)))).astype(NP[dtype])
+    tols = np.geomspace(1e-3, 1e-6, batch).astype(NP[dtype])
+    save_at = np.linspace(0.0, 10.0, 5).astype(NP[dtype])
+    state, _, inputs = tb.initial_state(vf, torch.tensor(u0s), params, save_at=save_at, dt0=dt0,
+                                        tols=torch.tensor(tols), implementation="dense")
+    step = tbd.make_step_dense(vf, params, nu=NU, d=d, correction=correction,
+                               dtype=TORCH[dtype])
+    t_next = torch.full((1, batch), float(save_at[1]), dtype=TORCH[dtype])
+    mid = state
+    for _ in range(warm_steps):
+        mid = kernels.attempt_plain(step, mid, t_next, **inputs)
+    extra = (t_next,) + tuple(inputs[k] for k in INPUT_NAMES)
+    mid = _with_backward(interop.state_to_numpy(mid))
+    return step, interop.state_to_numpy(state), mid, interop.to_numpy(extra)
+
+
+def _gram(x):
+    x = np.asarray(x, np.float64)
+    return np.einsum("ikb,jkb->ijb", x, x)
+
+
+def _lane_gaps(got, want):
+    """Per lane: the largest deviation of the Gram matrices of two factors
+    over the largest entry of ``want``'s."""
+    g, w = _gram(got), _gram(want)
+    scale = np.maximum(np.max(np.abs(w), axis=(0, 1)), np.finfo(np.float64).tiny)
+    return np.max(np.abs(g - w), axis=(0, 1)) / scale
+
+
+def _chol_as_accurate_as_reference(got, want, jstep, start, extra, rtol):
+    """The corrected factor of one f32 attempt from a mid-interval state,
+    judged by the reference's f64 attempt on the same (exactly widened)
+    inputs: on every lane the twin's L L^T is within ``rtol``, or within
+    twice the distance of the reference's own f32 L L^T, of the f64 one.
+    The (nd, d + nd) correction QR is ill-conditioned on some of these
+    lanes, so neither f32 result is near the other there."""
+    with jax.disable_jit():
+        ref = jstep(tuple(jnp.asarray(x, jnp.float64) for x in start),
+                    *(jnp.asarray(x, jnp.float64) for x in extra))
+    ref = np.asarray(ref[2])
+    twin, own = _lane_gaps(got, ref), _lane_gaps(want, ref)
+    assert np.all(twin <= np.maximum(2.0 * own, rtol)), (twin, own)
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("correction", ["ts1", "ts0"])
+@pytest.mark.parametrize("problem", ["brusselator", "rigid_body"])
+def test_one_attempt_matches_jax_make_step_dense_ll(problem, correction, dtype):
+    jvf, jparams, *_ = _problem(problem)
+    step, init, mid, extra = _dense_start(problem, dtype, correction)
+    jstep = _jax_step(jvf, jparams, step.d, correction)
+    for start in (init, mid):
+        rtol = {"f64": 1e-12, "f32": 1e-5 if start is init else 1e-4}[dtype]
+        with jax.disable_jit():
+            want = jstep(tuple(jnp.asarray(x) for x in start), *(jnp.asarray(x) for x in extra))
+        want = tuple(np.asarray(w) for w in want)
+        got = interop.state_to_numpy(step(interop.state_to_torch(start), *interop.to_torch(extra)))
+        assert int(np.sum(got[0] != start[0])) > 0  # some lanes accepted
+        np.testing.assert_array_equal(got[15], want[15])
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            if i == 2 and dtype == "f32" and start is mid:
+                _chol_as_accurate_as_reference(g, w, jstep, start, extra, rtol)
+            elif i in (2, 5):  # the new factors, through their Gram matrices
+                _close(_gram(g), _gram(w), rtol)
+            else:
+                _close(g, w, rtol)
+
+
+# ---------------------------------------------------------------------------
+# whole solves in f64
+
+
+def _jax_dense_solve(jvf, jparams, u0s, tols, save_at, dt0, correction):
+    out = jbd.solve_save_at_batched_dense(
+        jvf, jnp.asarray(u0s), jparams, save_at=jnp.asarray(save_at), dt0=dt0,
+        tols=jnp.asarray(tols), engine="xla", correction=correction, lanes=len(tols))
+    return tuple(np.asarray(x) for x in out)
+
+
+def _port_dense_solve(vf, params, u0s, tols, save_at, dt0, correction, engine="cuda-loop"):
+    out = tb.solve_save_at_batched(
+        vf, torch.tensor(u0s), params, save_at=save_at, dt0=dt0, tols=torch.tensor(tols),
+        correction=correction, implementation="dense", engine=engine)
+    return tuple(x.numpy() for x in out)
+
+
+def _assert_same_solve(got, want):
+    u_t, uf_t, n_t = got
+    u_j, uf_j, n_j = want
+    assert u_t.shape == u_j.shape and n_t.shape == n_j.shape
+    np.testing.assert_array_equal(n_t, n_j)
+    np.testing.assert_allclose(uf_t, uf_j, rtol=1e-10, atol=1e-10 * np.max(np.abs(uf_j)))
+    np.testing.assert_allclose(u_t, u_j, rtol=1e-10, atol=1e-10 * np.max(np.abs(u_j)))
+
+
+def test_brusselator_ts1_solve_matches_jax():
+    """Brusselator N = 2 at rtol 1e-4 and 1e-5 (alternating lanes), TS1."""
+    jvf, jparams, vf, y0, params, dt0 = _problem("brusselator")
+    rng = np.random.default_rng(0)
+    u0s = y0[None] * (1.0 + 0.02 * rng.standard_normal((4, 4)))
+    tols = np.array([1e-4, 1e-5, 1e-4, 1e-5])
+    save_at = np.linspace(0.0, 10.0, 5)
+    want = _jax_dense_solve(jvf, jparams, u0s, tols, save_at, dt0, "ts1")
+    got = _port_dense_solve(vf, params, u0s, tols, save_at, dt0, "ts1")
+    assert np.all(want[2][:, -1] > 50)  # a stiff solve, many steps a lane
+    _assert_same_solve(got, want)
+
+
+@pytest.mark.parametrize("correction", ["ts1", "ts0"])
+def test_rigid_body_dense_solve_matches_jax(correction):
+    jvf, jparams, vf, y0, params, dt0 = _problem("rigid_body")
+    rng = np.random.default_rng(1)
+    u0s = y0[None] * (1.0 + 0.05 * rng.standard_normal((4, 3)))
+    tols = np.array([1e-4, 1e-5, 1e-6, 1e-4])
+    save_at = np.linspace(0.0, 10.0, 5)
+    want = _jax_dense_solve(jvf, jparams, u0s, tols, save_at, dt0, correction)
+    got = _port_dense_solve(vf, params, u0s, tols, save_at, dt0, correction)
+    _assert_same_solve(got, want)
+
+
+def test_vdp_as_a_system_on_the_jvp_route_matches_jax():
+    """Van der Pol (mu = 10) as a d = 2 first-order system without a
+    hand-derived Jacobian: the twin takes one-hot jvp columns, as the
+    reference's ``vf_jacs`` does (``tests/test_batched_dense.py:60-93``)."""
+    mu = 10.0
+
+    def jvf(y, *, t, p=()):
+        return jnp.stack([y[1], mu * ((1.0 - y[0] ** 2) * y[1]) - y[0]])
+
+    def vf(y, *, t, p=()):
+        return torch.stack([y[1], mu * ((1.0 - y[0] ** 2) * y[1]) - y[0]])
+
+    u0s = np.array([[2.0, 0.0], [1.9, 0.1], [2.1, -0.1], [2.0, 0.2]])
+    tols = np.full((4,), 1e-6)
+    save_at = np.linspace(0.0, 3.0, 4)
+    want = _jax_dense_solve(jvf, (), u0s, tols, save_at, 0.01, "ts1")
+    got = _port_dense_solve(vf, (), u0s, tols, save_at, 0.01, "ts1", engine="torch")
+    _assert_same_solve(got, want)
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+
+
+def _rigid_inputs(dtype=np.float32):
+    vf, (y0,), _, params = tp.rigid_body()
+    rng = np.random.default_rng(2)
+    u0s = (y0.numpy()[None] * (1.0 + 0.05 * rng.standard_normal((4, 3)))).astype(dtype)
+    return vf, params, torch.tensor(u0s), torch.full((4,), 1e-3, dtype=TORCH["f32"])
+
+
+def test_ts1_with_d_above_1_reaches_the_dense_engine(monkeypatch):
+    vf, params, u0s, tols = _rigid_inputs()
+    calls = []
+    real = tbd.solve_save_at_batched_dense
+    monkeypatch.setattr(tbd, "solve_save_at_batched_dense",
+                        lambda *a, **k: calls.append(k) or real(*a, **k))
+    u_s, u_f, n = tb.solve_save_at_batched(vf, u0s, params, save_at=np.linspace(0, 2, 3),
+                                           dt0=0.1, tols=tols, correction="ts1")
+    assert len(calls) == 1 and calls[0]["correction"] == "ts1"
+    assert u_s.shape == (4, 3, 3) and bool(torch.all(torch.isfinite(u_s)))
+    assert int(n[:, -1].min()) > 0
+
+
+@pytest.mark.parametrize("option, item", [
+    (dict(implementation="blockdiag"), "item 7"),
+    (dict(strategy="filter"), "item 3a"),
+    (dict(calibration="none"), "item 3a"),
+    (dict(ode_order=2), "item 3a"),
+    (dict(error_unit="residual"), "item 3a"),
+    (dict(num_derivatives=3), "num_derivatives"),
+])
+def test_unported_dense_options_name_their_roadmap_item(option, item):
+    vf, params, u0s, tols = _rigid_inputs()
+    kw = dict(correction="ts1", implementation="dense") | option
+    with pytest.raises(NotImplementedError, match=item):
+        tb.solve_save_at_batched(vf, u0s, params, save_at=np.linspace(0, 10, 5), dt0=0.1,
+                                 tols=tols, **kw)
+
+
+def test_ts1_needs_the_dense_backend_and_ts1_at_d_1_stays_unported():
+    iso = tsolvers.prior_ibm(num_derivatives=NU, ode_shape=(1,))
+    with pytest.raises(ValueError, match="dense"):
+        tsolvers.strategy_fixedpoint(iso, tsolvers.correction_ts1())
+    u0s = torch.full((4, 1), 0.1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tb.solve_save_at_batched(lambda y, *, t, p: y * (1.0 - y), u0s, (),
+                                 save_at=np.linspace(0, 1, 3), dt0=0.1,
+                                 tols=torch.full((4,), 1e-3), correction="ts1")
+
+
+# ---------------------------------------------------------------------------
+# interop
+
+
+def test_interop_carries_the_dense_state_and_tells_layouts_apart():
+    _, init, _, _ = _dense_start("rigid_body", "f32", "ts1", batch=4, warm_steps=0)
+    assert init[1].shape == (15, 4) and init[2].shape == (15, 15, 4)
+    back = interop.state_to_numpy(interop.state_to_torch(init))
+    for a, b in zip(back, init):
+        np.testing.assert_array_equal(a, b)
+    assert interop.state_layout(init) == "dense"
+    iso = list(init)
+    iso[1], iso[8], iso[4], iso[11] = (np.zeros((5, 3, 4), np.float32),) * 4
+    for i in (2, 3, 5, 9, 10, 12):
+        iso[i] = np.zeros((5, 5, 4), np.float32)
+    assert interop.state_layout(tuple(iso)) == "isotropic"
+    row, mean, fac = np.zeros((1, 4)), np.zeros((5, 3, 4)), np.zeros((5, 5, 4))
+    df32 = (row, row, mean, mean, fac, row, fac, mean, mean, row, row, row)
+    assert interop.state_layout(df32) == "df32"
+    bad = list(init)
+    bad[2] = np.zeros((15, 14, 4), np.float32)
+    with pytest.raises(ValueError, match="layout"):
+        interop.state_to_torch(tuple(bad))

@@ -1,4 +1,4 @@
-"""The kernel wrappers' contract (K1-K4), and each kernel against its twin
+"""The kernel wrappers' contract (K1-K5), and each kernel against its twin
 on the card.
 
 This file imports no JAX, so the tests that need the card run where only
@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from odecheckpts_torch import batched, batched_hi, kernels, problems
+from odecheckpts_torch import batched, batched_dense, batched_hi, kernels, problems
 
 INPUT_NAMES = ("atol", "rtol", "dt_max", "dt_floor", "tiny_scale")
 
@@ -249,3 +249,155 @@ def test_df32_kernels_refuse_a_vector_field_without_device_functor(cuda_device):
     with pytest.raises(ValueError, match="float32"):
         kernels.step_hi_attempt(step, tuple(x.double() for x in state), t_next.double(),
                                 **{k: v.double() for k, v in inputs.items()})
+
+
+def _start_dense(problem, correction, *, batch=64, warm_steps=10, device="cpu"):
+    """A lanes-last state of the dense engine (K5), advanced by the twin from
+    the Taylor init toward the first checkpoint (with random backward
+    conditionals if advanced at all); returns (step, state, t_next,
+    inputs)."""
+    if problem == "brusselator":
+        vf, (y0,), _, params = problems.brusselator(2)
+        dt0 = 0.01
+    else:
+        vf, (y0,), _, params = problems.rigid_body()
+        dt0 = 0.1
+    d = y0.shape[0]
+    rng = np.random.default_rng(7)
+    u0s = y0.numpy()[None] * (1.0 + 0.02 * rng.standard_normal((batch, d)))
+    tols = torch.tensor(np.geomspace(1e-3, 1e-6, batch), dtype=torch.float32, device=device)
+    save_at = np.linspace(0.0, 10.0, 5).astype(np.float32)
+    state, _, inputs = batched.initial_state(
+        vf, torch.tensor(u0s, dtype=torch.float32, device=device), params, save_at=save_at,
+        dt0=dt0, tols=tols, implementation="dense")
+    step = batched_dense.make_step_dense(vf, params, nu=4, d=d, correction=correction)
+    t_next = torch.full((1, batch), float(save_at[1]), device=device)
+    for _ in range(warm_steps):
+        state = kernels.attempt_plain(step, state, t_next, **inputs)
+    if warm_steps:
+        # random backward conditionals: within the first interval they are
+        # zero (the Taylor init has zero covariance), which would leave the
+        # fixedpoint accumulation out
+        state = list(state)
+        nd = state[3].shape[0]
+        for i in (3, 10):
+            state[i] = torch.eye(nd, device=device)[:, :, None] + 0.3 * torch.tensor(
+                rng.standard_normal((nd, nd, batch)) / np.sqrt(nd), dtype=torch.float32,
+                device=device)
+        for i in (4, 11):
+            state[i] = torch.tensor(rng.standard_normal((nd, batch)), dtype=torch.float32,
+                                    device=device)
+        for i in (5, 12):
+            state[i] = 0.3 * torch.tensor(
+                np.tril(rng.standard_normal((batch, nd, nd))).transpose(1, 2, 0).copy(),
+                dtype=torch.float32, device=device)
+        state = tuple(state)
+    return step, state, t_next, inputs
+
+
+@pytest.mark.parametrize("kernel", ["step_dense_interval", "step_dense_attempt"])
+def test_dense_wrappers_run_the_plain_version_on_cpu_and_refuse_other_devices(kernel):
+    step, state, t_next, inputs = _start_dense("brusselator", "ts1", batch=8, warm_steps=3)
+    kw = dict(max_attempts=3) if kernel.endswith("interval") else {}
+    before = dict(kernels.LAUNCHES)
+    got = getattr(kernels, kernel)(step, state, t_next, **inputs, **kw)
+    want = getattr(kernels, kernel + "_plain")(step, state, t_next, **inputs, **kw)
+    assert kernels.LAUNCHES == before  # no kernel ran
+    assert [tuple(x.shape) for x in got] == [tuple(s) for s in step.state_shapes(8)]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    meta = tuple(x.to("meta") for x in state)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(kernels, kernel)(step, meta, t_next.to("meta"), **kw,
+                                 **{k: v.to("meta") for k, v in inputs.items()})
+
+
+def test_plain_dense_interval_lands_every_lane_on_the_checkpoint():
+    step, state, t_next, inputs = _start_dense("rigid_body", "ts1", batch=8, warm_steps=0)
+    capped = kernels.step_dense_interval_plain(step, state, t_next, max_attempts=2, **inputs)
+    assert float(torch.max(capped[15])) <= 2
+    done = kernels.step_dense_interval_plain(step, state, t_next, max_attempts=100_000, **inputs)
+    assert bool(torch.all(done[0] >= t_next))
+    again = kernels.step_dense_attempt(step, done, t_next, **inputs)
+    for g, w in zip(again, done):  # lanes at the checkpoint are frozen
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_packed_constants_of_the_dense_step_match_the_kernel_layout():
+    vf, _, _, params = problems.brusselator(2)
+    step = batched_dense.make_step_dense(vf, params, nu=4, d=4, correction="ts1")
+    c = step.packed_constants()
+    assert c.dtype == np.float32 and c.shape == (71,)  # sizeof(Consts) / 4, NMAX = 5
+    a, lq = c[:25].reshape(5, 5), c[25:50].reshape(5, 5)
+    np.testing.assert_array_equal(a, np.float32(step.a_rows))
+    np.testing.assert_array_equal(lq, np.float32(step.lq_rows))
+    np.testing.assert_array_equal(c[50:55], np.float32(step.lq_norms))
+    np.testing.assert_array_equal(c[55:60], np.float32(step.inv_fact))
+    assert c[62] == np.float32(2.0)  # sqrt(d)
+    assert c[63] == np.float32(20.0)  # kappa: the TS1 default
+    assert step.functor_params == (np.float32(0.18),)  # c = (N + 1)^2 / 50
+
+
+def test_parse_ptxas_reads_the_dense_entries():
+    def entry(name, regs, stack, stores, loads):
+        return [
+            f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {name}",
+            f"    {stack} bytes stack frame, {stores} bytes spill stores, "
+            f"{loads} bytes spill loads",
+            f"ptxas info    : Used {regs} registers, used 0 barriers, {stack} bytes cumulative "
+            "stack size",
+        ]
+
+    log = "\n".join(
+        entry("_ZN12_GLOBAL__N_119step_dense_intervalILi4ELb1ENS_11BrusselatorILi2EEEEEvNS_4"
+              "ArgsENS_6ConstsET1_li", 128, 23000, 40, 44)
+        + entry("_ZN12_GLOBAL__N_118step_dense_attemptILi4ELb0ENS_9RigidBodyEEEvNS_4ArgsENS_6"
+                "ConstsET1_l", 96, 17000, 0, 0)
+        + entry("_ZN12_GLOBAL__N_116step_ll_intervalILi3ENS_9RigidBodyEEEvNS_4ArgsE",
+                255, 112, 224, 112)
+    )
+    assert kernels.parse_ptxas(log) == {
+        "step_dense_interval": {"4/ts1/Brusselator": {
+            "stack": 23000, "spill_stores": 40, "spill_loads": 44, "registers": 128}},
+        "step_dense_attempt": {"4/ts0/RigidBody": {
+            "stack": 17000, "spill_stores": 0, "spill_loads": 0, "registers": 96}},
+        "step_ll_interval": {3: {
+            "stack": 112, "spill_stores": 224, "spill_loads": 112, "registers": 255}},
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["step_dense_interval-1", "step_dense_interval-100000",
+                                    "step_dense_attempt"])
+@pytest.mark.parametrize("correction", ["ts1", "ts0"])
+@pytest.mark.parametrize("problem", ["brusselator", "rigid_body"])
+def test_dense_kernels_k5_match_twin_on_the_card(cuda_device, problem, correction, kernel):
+    step, state, t_next, inputs = _start_dense(problem, correction, batch=1000,
+                                               device=cuda_device)
+    name, _, cap = kernel.partition("-")
+    kw = dict(max_attempts=int(cap)) if cap else {}
+    before = kernels.LAUNCHES[name]
+    got = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+    assert kernels.LAUNCHES[name] == before + 1
+    want = getattr(kernels, name + "_plain")(step, state, t_next, **inputs, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):  # bit for bit
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    if cap == "100000":
+        assert bool(torch.all(got[0] >= t_next))
+
+
+@pytest.mark.cuda
+def test_dense_kernels_refuse_a_vector_field_without_device_functor(cuda_device):
+    step, state, t_next, inputs = _start_dense("rigid_body", "ts1", batch=128, warm_steps=0,
+                                               device=cuda_device)
+    vf, _, _, params = problems.rigid_body()
+    bare = batched_dense.make_step_dense(lambda y, *, t, p: vf(y, t=t, p=p), params, nu=4, d=3)
+    for fn, kw in ((kernels.step_dense_interval, dict(max_attempts=1)),
+                   (kernels.step_dense_attempt, {})):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(bare, state, t_next, **inputs, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.step_dense_attempt(step, tuple(x.double() for x in state), t_next.double(),
+                                   **{k: v.double() for k, v in inputs.items()})
