@@ -8,7 +8,7 @@ dt0 0.1, atol 1e-3 rtol), gated against LSODA(1e-12) truth on 256 lanes:
 RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
 
 1. device: versions and the card's name and power limit; full-f32 matmuls.
-2. build: compiles K1-K5 (odecheckpts_torch/csrc/, one nvcc per source, in
+2. build: compiles K1-K7 (odecheckpts_torch/csrc/, one nvcc per source, in
    parallel) and reports the build time and ptxas registers and spills per
    kernel and nu.
 3. one attempt, kernel against twin, 4,096 lanes, from the Taylor-initialized
@@ -57,11 +57,50 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
 13. attempt_engine_dense: ``engine="cuda"`` (K5's attempt form) gives the
     cuda-loop row's per-lane step counts and outputs exactly; one launch
     against its plain version, timed.
-14. the kernel table line and the result line.
+14. attempt_bd: one attempt of K6 (interval form with max_attempts=1, and
+    attempt form) against the blockdiag twin, 4,096 lanes, initial and
+    mid-interval state (with random backward conditionals), anisotropic and
+    plain rigid body, nu = 2, 3, 4: all 17 arrays equal.
+15. main_bd (K6): the anisotropic ensemble of
+    ``experiments/6_tpu_batched_sweep/blockdiag_tpu.py``:
+    ``batched.solve_save_at_batched(implementation="blockdiag",
+    engine="cuda-loop")`` on ``problems.rigid_body_anisotropic`` (third
+    component x 1e4), 32,768 lanes, u0 (1 + 0.05 N(0, 1)) from numpy seed 0,
+    tspan (0, 50), 5 checkpoints, dt0 0.01, tol 1e-5, atol 1e-3 tol, nu 4,
+    kappa 10; gated against LSODA(rtol 1e-12, atol 1e-10) on 256 lanes, errors
+    divided by the scale: smoothed values RMSE < 10 tol, worst lane < 20 tol,
+    no lane at the cap; exactly 4 launches per solve; median of 3 timed solves
+    after one warm-up; peak device memory; K6's time per interval.
+16. foil_bd (reported, one solve, no accuracy gate): the same ensemble on the
+    isotropic engine (K1 with the anisotropic functor), for the step-count
+    ratio that is the reason the blockdiag engine exists.
+17. interval_bd: the row's second interval on K6 against its plain version
+    (plain, kernel, kernel, plain), CUDA events, 32,768 lanes: every array
+    equal.
+18. attempt_engine_bd: ``engine="cuda"`` (K6's attempt form) gives the
+    cuda-loop row's per-lane step counts and outputs exactly; one launch
+    against its plain version, timed.
+19. attempt_everystep: one attempt of K7 against ``StepLL(strategy=...)``,
+    smoother and filter, 4,096 lanes, nu = 2, 3, 4, initial and mid-solve
+    state: all 17 arrays equal.
+20. main_everystep (K7): the ensemble of
+    ``experiments/6_tpu_batched_sweep/everystep_tpu.py``:
+    ``batched_everystep.solve_every_step_batched(strategy="smoother",
+    engine="cuda")`` on 32,768 rigid-body lanes, tspan (0, 10), dt0 0.1,
+    tol 1e-4, max_steps 256, nu 4.  Gates: exactly 256 launches of K7;
+    ``engine="torch"`` on the card gives every output exactly; every smoothed
+    value at a valid slot finite; no lane short of t1; ``u_t1`` on 256 lanes
+    against LSODA(1e-12) RMSE < 3 tol, worst lane < 6 tol; the smoothed means
+    at those lanes' valid slots against LSODA at the slots' times RMSE
+    < 10 tol; per-lane ``num_steps`` equal to the save_at driver's on K1 over
+    the same span.  Reported: median of 3 solves, the attempts with emission
+    and the backward sweep apart (CUDA events), mean valid slots, peak
+    memory; one K7 launch against its plain version, timed.
+21. the kernel table line and the result line.
 
-Each path of phases 4, 6, 8, 9, 11 and 13 runs with the launch counts set to
-0 just before it and read just after; a kernel of the path that did not
-launch fails the run.  Kernel-against-plain comparisons run outside those
+Each path of phases 4, 6, 8, 9, 11, 13, 15, 18 and 20 runs with the launch
+counts set to 0 just before it and read just after; a kernel of the path
+that did not launch fails the run.  Kernel-against-plain comparisons run outside those
 windows.  Each kernel's ``bound_ms`` is the larger of its state's bytes
 (read once and written once per launch) over 3.35 TB/s and the f32
 operations of the accepted attempts of the timed launch over 67 TFLOP/s
@@ -135,6 +174,12 @@ KERNELS = {  # wrapper -> (id, source, the TPU kernel it replaces)
                             "odecheckpts_tpu/batched_dense.py:703"),
     "step_dense_attempt": ("K5", "odecheckpts_torch/csrc/step_dense_attempt.cu",
                            "odecheckpts_tpu/batched_dense.py:710"),
+    "step_bd_interval": ("K6", "odecheckpts_torch/csrc/step_bd.cu",
+                         "odecheckpts_tpu/batched_blockdiag.py:481"),
+    "step_bd_attempt": ("K6", "odecheckpts_torch/csrc/step_bd_attempt.cu",
+                        "odecheckpts_tpu/batched_blockdiag.py:488"),
+    "step_everystep_attempt": ("K7", "odecheckpts_torch/csrc/step_everystep_attempt.cu",
+                               "odecheckpts_tpu/batched_everystep.py:238"),
 }
 # the dense row (experiments/4_brusselator/dense_ts1_tpu.py:76-99)
 DENSE_N = 2
@@ -146,6 +191,18 @@ DENSE_RMSE_FACTOR = 10.0
 DENSE_LANE_FACTOR = 20.0
 DENSE_TRUTH_TOL = 1e-10
 DENSE_MID_ATTEMPTS = 20
+# the blockdiag row (experiments/6_tpu_batched_sweep/blockdiag_tpu.py:77-108)
+BD_SCALE = (1.0, 1.0, 1e4)
+BD_TOL = 1e-5
+BD_DT0 = 0.01
+BD_RMSE_FACTOR = 10.0
+BD_LANE_FACTOR = 20.0
+BD_MID_ATTEMPTS = 20
+# the save-every-step row (experiments/6_tpu_batched_sweep/everystep_tpu.py:31-47)
+ES_TOL = 1e-4
+ES_TSPAN = (0.0, 10.0)
+ES_MAX_STEPS = 256
+ES_SMOOTHED_FACTOR = 10.0
 # the H100 SXM's published peaks: f32 outside the tensor cores and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -180,9 +237,13 @@ def phase_build():
     ptxas = kernels.parse_ptxas(lib.log)
     emit({"phase": "build", "seconds": lib.seconds, "ptxas": ptxas})
     dense = tuple(f"4/{c}/{f}" for f in ("Brusselator", "RigidBody") for c in ("ts1", "ts0"))
+    bd = tuple(f"{nu}/{f}" for f in ("RigidBodyAniso", "RigidBody") for nu in (2, 3, 4))
+    everystep = tuple(f"{nu}/{s}" for s in ("smoother", "filter") for nu in (2, 3, 4))
     want = {"step_ll_interval": (2, 3, 4), "step_ll_attempt": (2, 3, 4),
             "step_hi_interval": (4, 5), "step_hi_attempt": (4, 5),
-            "step_dense_interval": dense, "step_dense_attempt": dense}
+            "step_dense_interval": dense, "step_dense_attempt": dense,
+            "step_bd_interval": bd, "step_bd_attempt": bd,
+            "step_everystep_attempt": everystep}
     missing = [(k, nu) for k, nus in want.items() for nu in nus
                if "registers" not in ptxas.get(k, {}).get(nu, {})]
     if missing:
@@ -702,6 +763,10 @@ def _attempt_flops(kernel, nu, d):
     if kernel.startswith("step_ll"):
         return (_qr_flops(2 * n, 2 * n, 2 * n) + _qr_flops(2 * n, n, n) + n**3
                 + 6 * n**3 + 6 * n * n * d + 2 * n * n)
+    if kernel.startswith("step_bd"):  # d times the isotropic covariance work at d = 1
+        return d * _attempt_flops("step_ll", nu, 1)
+    if kernel.startswith("step_everystep"):  # the smoother: no accumulation QR or products
+        return (_qr_flops(2 * n, 2 * n, 2 * n) + n**3 + 2 * n**3 + 4 * n * n * d + 2 * n * n)
     if kernel.startswith("step_hi"):  # pair multiply-adds counted at 20 operations
         return (_qr_flops(2 * n, 2 * n, n) + n**3 + 4 * n**3 + 4 * n * n * d + 2 * n * n
                 + 20 * d * n * (n - 1) // 2)
@@ -756,24 +821,26 @@ def _dense_save_at():
     return np.linspace(DENSE_TSPAN[0], DENSE_TSPAN[1], NUM_SAVE).astype(np.float32)
 
 
-def _with_backward(state, torch, seed=SEED):
+def _random_backward(state, torch, seed=SEED):
     """``state`` with random backward conditionals (``bwdG``, ``bwd_m``,
-    ``bwd_L`` and their previous values, from numpy): within the first
-    interval they are exactly zero (the Taylor init has zero covariance, so
-    the gains are 0), which would leave the fixedpoint accumulation out."""
+    ``bwd_L`` and their previous values, from numpy), for any layout (dense
+    (nd, nd, B) or blockdiag (n, n, d, B) factors): within the first interval
+    they are exactly zero (the Taylor init has zero covariance, so the gains
+    are 0), which would leave the fixedpoint accumulation out."""
     rng = np.random.default_rng(seed)
-    nd, _, b = state[3].shape
     out = list(state)
+    n = out[3].shape[0]
+    lead = (n, n) + (1,) * (out[3].dim() - 2)
     for i in (3, 10):
-        out[i] = np.eye(nd)[:, :, None] + 0.3 * rng.standard_normal((nd, nd, b)) / np.sqrt(nd)
+        out[i] = np.eye(n).reshape(lead) + 0.3 * rng.standard_normal(out[i].shape) / np.sqrt(n)
     for i in (4, 11):
-        out[i] = rng.standard_normal((nd, b))
+        out[i] = rng.standard_normal(out[i].shape)
     for i in (5, 12):
-        out[i] = 0.3 * np.tril(rng.standard_normal((b, nd, nd))).transpose(1, 2, 0)
+        out[i] = 0.3 * rng.standard_normal(out[i].shape) * np.tril(np.ones((n, n))).reshape(lead)
     for i in (3, 4, 5, 10, 11, 12):
         out[i] = torch.tensor(np.ascontiguousarray(out[i], dtype=np.float32),
                               device=state[0].device)
-    return tuple(out)
+    return tuple(x.contiguous() for x in out)
 
 
 def phase_attempt_dense(device):
@@ -800,7 +867,7 @@ def phase_attempt_dense(device):
             mid = state
             for _ in range(DENSE_MID_ATTEMPTS):
                 mid = kernels.attempt_plain(step, mid, t_next, **inputs)
-            mid = _with_backward(mid, torch)
+            mid = _random_backward(mid, torch)
             for label, start in (("init", state), ("mid", mid)):
                 want = kernels.attempt_plain(step, start, t_next, **inputs)
                 for name, got in (
@@ -1061,6 +1128,458 @@ def phase_attempt_engine_dense(device, loop):
     return counts, _timing("step_dense_attempt", times, state, 15, nu=4, d=4)
 
 
+def _bd_problem(name):
+    from odecheckpts_torch import problems
+
+    if name == "anisotropic":
+        vf, (y0,), _, params = problems.rigid_body_anisotropic(time_span=TSPAN, scale=BD_SCALE)
+        return vf, y0, params, BD_DT0
+    vf, (y0,), _, params = problems.rigid_body(time_span=TSPAN)
+    return vf, y0, params, DT0
+
+
+def _bd_ensemble(y0, batch, torch, device):
+    rng = np.random.default_rng(SEED)
+    rows = y0.numpy()[None] * (1.0 + 0.05 * rng.standard_normal((batch, 3)))
+    return torch.tensor(rows.astype(np.float32), device=device)
+
+
+def _equal_arrays(name, got, want, where, torch):
+    """Largest deviation over the 17 arrays; fails unless every array is
+    equal (NaNs in the same places count as equal)."""
+    devs = [float(torch.max(torch.nan_to_num(torch.abs(g - w), nan=0.0)))
+            for g, w in zip(got, want)]
+    bad = [n for n, g, w in zip(STATE_NAMES, got, want)
+           if not torch.equal(torch.nan_to_num(g, nan=0.0), torch.nan_to_num(w, nan=0.0))
+           or not torch.equal(torch.isnan(g), torch.isnan(w))]
+    if bad:
+        raise AssertionError(f"{name} and its twin differ ({where}) in {bad}")
+    return max(devs)
+
+
+def phase_attempt_bd(device):
+    """One attempt of K6 in both forms against the blockdiag twin: every
+    array equal, both functors, nu = 2, 3, 4; returns the largest deviation
+    of each form."""
+    import torch
+
+    from odecheckpts_torch import batched_blockdiag, kernels
+
+    worst = {"step_bd_interval": 0.0, "step_bd_attempt": 0.0}
+    save_at = _save_at()
+    tols = torch.tensor(np.geomspace(1e-2, 1e-6, ATTEMPT_LANES), dtype=torch.float32,
+                        device=device)
+    t_next = torch.full((1, ATTEMPT_LANES), float(save_at[1]), device=device)
+    for problem in ("anisotropic", "rigid_body"):
+        vf, y0, params, dt0 = _bd_problem(problem)
+        u0s = _bd_ensemble(y0, ATTEMPT_LANES, torch, device)
+        for nu in (2, 3, 4):
+            state, _, inputs = batched_blockdiag.initial_state(
+                vf, u0s, params, save_at=save_at, dt0=dt0, tols=tols, num_derivatives=nu)
+            step = batched_blockdiag.make_step_bd(vf, params, nu=nu, d=3)
+            mid = state
+            for _ in range(BD_MID_ATTEMPTS):
+                mid = kernels.attempt_plain(step, mid, t_next, **inputs)
+            mid = _random_backward(mid, torch)
+            for label, start in (("init", state), ("mid", mid)):
+                want = kernels.attempt_plain(step, start, t_next, **inputs)
+                for name, got in (
+                    ("step_bd_interval", kernels.step_bd_interval(
+                        step, start, t_next, max_attempts=1, **inputs)),
+                    ("step_bd_attempt", kernels.step_bd_attempt(step, start, t_next, **inputs)),
+                ):
+                    torch.cuda.synchronize()
+                    dev = _equal_arrays(name, got, want, f"{problem}, nu={nu}, {label}", torch)
+                    worst[name] = max(worst[name], dev)
+                    emit({"phase": "attempt_bd", "kernel": "K6", "form": name,
+                          "problem": problem, "nu": nu, "state": label,
+                          "accepted": int(torch.sum(want[0] != start[0])),
+                          "max_abs_dev": dev, "arrays_equal": True})
+    return worst
+
+
+def _truth_anisotropic(rows, save_at):
+    """Per-lane scipy LSODA reference of the rescaled rigid body at the
+    checkpoints (experiments/6_tpu_batched_sweep/blockdiag_tpu.py:56-74)."""
+    import scipy.integrate
+
+    p1, p2, p3 = -2.0, 1.25, -0.5
+    scale = np.array(BD_SCALE)
+
+    def vf_np(_t, z):
+        y = z / scale
+        return scale * np.array([p1 * y[1] * y[2], p2 * y[0] * y[2], p3 * y[0] * y[1]])
+
+    out = []
+    for row in rows:
+        sol = scipy.integrate.solve_ivp(
+            vf_np, (float(save_at[0]), float(save_at[-1])), row, t_eval=save_at,
+            rtol=1e-12, atol=1e-10, method="LSODA",
+        )
+        out.append(sol.y.T)
+    return np.stack(out)
+
+
+def _bd_solver(vf, u0s, params, tols, engine, implementation="blockdiag"):
+    from odecheckpts_torch import batched
+
+    save_at = _save_at()
+
+    def solve():
+        return batched.solve_save_at_batched(
+            vf, u0s, params, save_at=save_at, dt0=BD_DT0, tols=tols,
+            implementation=implementation, engine=engine, max_attempts=MAX_ATTEMPTS,
+        )
+
+    return solve
+
+
+def _bd_gates(u, nsteps, truth, torch):
+    """The row's gates on errors relative to each component's scale."""
+    scale = torch.tensor(BD_SCALE, dtype=u.dtype, device=u.device)
+    return _gates(u / scale, nsteps, truth / np.array(BD_SCALE), BD_TOL, BD_RMSE_FACTOR,
+                  BD_LANE_FACTOR)
+
+
+def phase_main_bd(device):
+    """The anisotropic rigid-body row on K6's interval form."""
+    import torch
+
+    from odecheckpts_torch import batched, kernels
+
+    vf, y0, params, _ = _bd_problem("anisotropic")
+    u0s = _bd_ensemble(y0, BATCH, torch, device)
+    t0 = time.perf_counter()
+    truth = _truth_anisotropic(u0s[:SAMPLE].double().cpu().numpy(), _save_at().astype(np.float64))
+    emit({"phase": "truth_bd", "lanes": SAMPLE, "seconds": time.perf_counter() - t0})
+    tols = torch.full((BATCH,), BD_TOL, dtype=torch.float32, device=device)
+    solve = _bd_solver(vf, u0s, params, tols, "cuda-loop")
+    solve()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    times, launches = [], set()
+    for _ in range(REPEATS):
+        before = kernels.LAUNCHES["step_bd_interval"]
+        secs, (u_s, u_f, nsteps) = _timed(solve)
+        launches.add(kernels.LAUNCHES["step_bd_interval"] - before)
+        times.append(secs)
+    peak = torch.cuda.max_memory_allocated(device)
+    launches = launches.pop() if len(launches) == 1 else sorted(launches)
+    seconds = float(np.median(times))
+    k6_ms = _kernel_share(solve, "step_bd_interval")
+    ok, rmse, worst, capped = _bd_gates(u_s, nsteps, truth, torch)
+    _, rmse_f, worst_f, _ = _bd_gates(u_f, nsteps, truth, torch)
+    finite = bool(torch.all(torch.isfinite(u_s))) and bool(torch.all(torch.isfinite(u_f)))
+    shapes = (tuple(u_s.shape), tuple(u_f.shape), tuple(nsteps.shape))
+    emit({"phase": "main_bd", "problem": f"rigid body x {BD_SCALE}", "d": 3,
+          "implementation": "blockdiag", "tol": BD_TOL, "nu": 4, "kappa": 10.0, "batch": BATCH,
+          "seconds": seconds, "seconds_all": times, "solves_per_sec": BATCH / seconds,
+          "mean_steps": float(nsteps[:, -1].double().mean()), "gated": "u_smooth / scale",
+          "rmse_over_tol": rmse / BD_TOL, "worst_lane_over_tol": worst / BD_TOL,
+          "filtered_rmse_over_tol": rmse_f / BD_TOL,
+          "filtered_worst_lane_over_tol": worst_f / BD_TOL, "capped_lanes": capped,
+          "launches_per_solve": launches, "k6_ms_per_interval": k6_ms, "peak_bytes": peak,
+          "check_hbm_budget_estimate_bytes": batched.estimate_solve_bytes(
+              BATCH, 5 * 3, num_derivatives=4, num_save_at=NUM_SAVE)})
+    want_shapes = ((BATCH, NUM_SAVE, 3), (BATCH, NUM_SAVE, 3), (BATCH, NUM_SAVE))
+    if not (ok and finite and launches == NUM_SAVE - 1 and shapes == want_shapes):
+        raise AssertionError(f"blockdiag row failed: gates {ok} (rmse {rmse}, worst {worst}, "
+                             f"capped {capped}), finite {finite}, launches {launches}, {shapes}")
+    return {"seconds": seconds, "u_s": u_s, "u_f": u_f, "nsteps": nsteps, "truth": truth,
+            "u0s": u0s, "tols": tols}
+
+
+def phase_foil_bd(device, loop):
+    """The blockdiag row's ensemble on the isotropic engine, once: reported,
+    not gated (one shared output scale misfits the third component)."""
+    import torch
+
+    vf, _, params, _ = _bd_problem("anisotropic")
+    solve = _bd_solver(vf, loop["u0s"], params, loop["tols"], "cuda-loop", "isotropic")
+    secs, (u_s, _u_f, nsteps) = _timed(solve)
+    _, rmse, worst, capped = _bd_gates(u_s, nsteps, loop["truth"], torch)
+    steps = float(nsteps[:, -1].double().mean())
+    bd_steps = float(loop["nsteps"][:, -1].double().mean())
+    emit({"phase": "foil_bd", "implementation": "isotropic", "kernel": "K1", "batch": BATCH,
+          "seconds": secs, "blockdiag_seconds": loop["seconds"], "mean_steps": steps,
+          "blockdiag_mean_steps": bd_steps, "step_ratio": steps / bd_steps,
+          "rmse_over_tol": rmse / BD_TOL, "worst_lane_over_tol": worst / BD_TOL,
+          "capped_lanes": capped})
+
+
+def _bd_start(loop, interval=0):
+    """The row's step, its state at the start of checkpoint interval
+    ``interval`` (the driver's own setup and checkpoint loop on K6), that
+    interval's end and the inputs."""
+    from odecheckpts_torch import batched, batched_blockdiag
+
+    vf, _, params, _ = _bd_problem("anisotropic")
+    setup = batched_blockdiag.setup_blockdiag(vf, loop["u0s"], params, save_at=_save_at(),
+                                              dt0=BD_DT0, tols=loop["tols"])
+    state, save_at = setup["state"], setup["save_at"]
+    for t in save_at[1 : interval + 1]:
+        _, state, _ = batched.advance_checkpoint(
+            setup["interval"], setup["step"], state, t, setup["inputs"], strat=setup["strat"],
+            max_attempts=MAX_ATTEMPTS, convert=batched_blockdiag.CONVERT)
+    t_next = save_at[interval + 1].expand(1, BATCH).contiguous()
+    return setup["step"], state, t_next, setup["inputs"]
+
+
+def phase_interval_bd(device, loop):
+    """One interval of K6 against its plain version, plain, kernel, kernel,
+    plain: the row's second interval, where the accumulated backward
+    conditionals are not zero."""
+    import torch
+
+    from odecheckpts_torch import kernels
+
+    step, state, t_next, inputs = _bd_start(loop, interval=1)
+
+    def run(fn):
+        return lambda: fn(step, state, t_next, max_attempts=MAX_ATTEMPTS, **inputs)
+
+    times = _time_pair((("plain", run(kernels.step_bd_interval_plain)),
+                        ("kernel", run(kernels.step_bd_interval)),
+                        ("kernel2", run(kernels.step_bd_interval)),
+                        ("plain2", run(kernels.step_bd_interval_plain))))
+    k_out, p_out = times["kernel"][1], times["plain"][1]
+    other = int(torch.sum(k_out[15] != p_out[15]))
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(k_out, p_out))
+    emit({"phase": "interval_bd", "kernel": "K6", "tol": BD_TOL, "batch": BATCH,
+          "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
+          "plain_ms": [times["plain"][0], times["plain2"][0]],
+          "lanes_with_other_step_counts": other, "arrays_equal": equal})
+    if other or not equal:
+        raise AssertionError(f"K6 and its plain version differ over an interval ({other} lanes)")
+    return _timing("step_bd_interval", times, state, 15, nu=4, d=3)
+
+
+def phase_attempt_engine_bd(device, loop):
+    """``engine="cuda"`` (K6's attempt form under the host loop) against the
+    cuda-loop row, then one launch against its plain version."""
+    import torch
+
+    from odecheckpts_torch import kernels
+
+    vf, _, params, _ = _bd_problem("anisotropic")
+    solve = _bd_solver(vf, loop["u0s"], params, loop["tols"], "cuda")
+    (secs, (u_s, u_f, nsteps)), counts = _path(["step_bd_attempt"], lambda: _timed(solve))
+    ok, rmse, worst, capped = _bd_gates(u_s, nsteps, loop["truth"], torch)
+    other = int(torch.sum(torch.any(nsteps != loop["nsteps"], dim=1)))
+    same = bool(torch.equal(u_s, loop["u_s"])) and bool(torch.equal(u_f, loop["u_f"]))
+    emit({"phase": "attempt_engine_bd", "kernel": "K6", "batch": BATCH, "seconds": secs,
+          "loop_engine_seconds": loop["seconds"], "launches": counts["step_bd_attempt"],
+          "rmse_over_tol": rmse / BD_TOL, "worst_lane_over_tol": worst / BD_TOL,
+          "capped_lanes": capped, "lanes_with_other_step_counts": other,
+          "outputs_equal_loop_engine": same})
+    if not (ok and other == 0 and same):
+        raise AssertionError(f"K6 attempt engine: gates {ok}, {other} lanes with other step "
+                             f"counts, outputs equal {same}")
+
+    step, state, t_next, inputs = _bd_start(loop)
+    times = _time_pair((
+        ("plain", lambda: kernels.step_bd_attempt_plain(step, state, t_next, **inputs)),
+        ("kernel", lambda: kernels.step_bd_attempt(step, state, t_next, **inputs)),
+        ("kernel2", lambda: kernels.step_bd_attempt(step, state, t_next, **inputs)),
+        ("plain2", lambda: kernels.step_bd_attempt_plain(step, state, t_next, **inputs)),
+    ))
+    dev = max(float(torch.max(torch.abs(a - b)))
+              for a, b in zip(times["kernel"][1], times["plain"][1]))
+    emit({"phase": "one_launch", "kernel": "K6", "form": "step_bd_attempt", "batch": BATCH,
+          "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
+          "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev})
+    if dev != 0.0:
+        raise AssertionError(
+            f"one launch of K6's attempt form differs from its plain version by {dev}")
+    return counts, _timing("step_bd_attempt", times, state, 15, nu=4, d=3)
+
+
+def phase_attempt_everystep(device):
+    """One attempt of K7 against ``StepLL`` with the smoother and the filter
+    strategy: every array equal, nu = 2, 3, 4, initial and mid-solve state;
+    returns the largest deviation."""
+    import torch
+
+    from odecheckpts_torch import batched, kernels, problems
+
+    vf, _, _, params = problems.rigid_body(time_span=ES_TSPAN)
+    u0s = _ensemble(ATTEMPT_LANES, torch, device)
+    tols = torch.tensor(np.geomspace(1e-1, 1e-5, ATTEMPT_LANES), dtype=torch.float32,
+                        device=device)
+    t1 = torch.full((1, ATTEMPT_LANES), ES_TSPAN[1], device=device)
+    worst = 0.0
+    for strategy in ("smoother", "filter"):
+        for nu in (2, 3, 4):
+            state, _, inputs = batched.initial_state(
+                vf, u0s, params, save_at=np.array(ES_TSPAN, np.float32), dt0=DT0, tols=tols,
+                num_derivatives=nu, strategy=strategy)
+            step = batched.make_step_ll(vf, params, nu=nu, d=3, strategy=strategy)
+            mid = state
+            for _ in range(MID_ATTEMPTS):
+                mid = kernels.attempt_plain(step, mid, t1, **inputs)
+            mid = tuple(x.contiguous() for x in mid)  # the twin's gains are transposed views
+            for label, start in (("init", state), ("mid", mid)):
+                want = kernels.attempt_plain(step, start, t1, **inputs)
+                got = kernels.step_everystep_attempt(step, start, t1, **inputs)
+                torch.cuda.synchronize()
+                dev = _equal_arrays("step_everystep_attempt", got, want,
+                                    f"{strategy}, nu={nu}, {label}", torch)
+                worst = max(worst, dev)
+                emit({"phase": "attempt_everystep", "kernel": "K7", "strategy": strategy,
+                      "nu": nu, "state": label,
+                      "accepted": int(torch.sum(want[0] != start[0])), "max_abs_dev": dev,
+                      "arrays_equal": True})
+    return {"step_everystep_attempt": worst}
+
+
+def _truth_at(row, times):
+    """scipy LSODA(1e-12) reference of one rigid-body lane at ``times``."""
+    import scipy.integrate
+
+    p1, p2, p3 = -2.0, 1.25, -0.5
+    sol = scipy.integrate.solve_ivp(
+        lambda _t, y: [p1 * y[1] * y[2], p2 * y[0] * y[2], p3 * y[0] * y[1]],
+        (ES_TSPAN[0], ES_TSPAN[1]), row, t_eval=times, rtol=1e-12, atol=1e-12, method="LSODA")
+    return sol.y.T
+
+
+def _everystep_split(solve):
+    """CUDA-event times (ms) of one more solve, split at the call of
+    ``_interpolate_at``: the attempts with their emission before it, the
+    interpolation, output stacks and backward sweep after it."""
+    import torch
+
+    from odecheckpts_torch import batched_everystep
+
+    real = batched_everystep._interpolate_at
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def marked(*args, **kwargs):
+        marks[1].record()
+        return real(*args, **kwargs)
+
+    batched_everystep._interpolate_at = marked
+    try:
+        marks[0].record()
+        solve()
+        marks[2].record()
+    finally:
+        batched_everystep._interpolate_at = real
+    torch.cuda.synchronize()
+    return marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])
+
+
+def phase_main_everystep(device):
+    """The save-every-step row on K7."""
+    import torch
+
+    from odecheckpts_torch import batched, batched_everystep, kernels, problems
+
+    vf, _, _, params = problems.rigid_body(time_span=ES_TSPAN)
+    u0s = _ensemble(BATCH, torch, device)
+    tols = torch.full((BATCH,), ES_TOL, dtype=torch.float32, device=device)
+
+    def solver(engine):
+        return lambda: batched_everystep.solve_every_step_batched(
+            vf, u0s, params, t0=ES_TSPAN[0], t1=ES_TSPAN[1], dt0=DT0, tols=tols,
+            max_steps=ES_MAX_STEPS, strategy="smoother", engine=engine)
+
+    solve = solver("cuda")
+    solve()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    times, launches = [], set()
+    for _ in range(REPEATS):
+        before = kernels.LAUNCHES["step_everystep_attempt"]
+        secs, sol = _timed(solve)
+        launches.add(kernels.LAUNCHES["step_everystep_attempt"] - before)
+        times.append(secs)
+    peak = torch.cuda.max_memory_allocated(device)
+    launches = launches.pop() if len(launches) == 1 else sorted(launches)
+    seconds = float(np.median(times))
+    attempts_ms, sweep_ms = _everystep_split(solve)
+
+    twin_secs, twin = _timed(solver("torch"))
+    same = {f: bool(torch.equal(getattr(sol, f), getattr(twin, f))) for f in sol._fields}
+    del twin
+    finite = bool(torch.all(torch.isfinite(sol.marginal_u[sol.valid])))
+    # every slot holds its lane's time after that attempt, so the largest is the last
+    short = int(torch.sum(sol.t.max(dim=1).values < ES_TSPAN[1]))
+    save_at = np.linspace(ES_TSPAN[0], ES_TSPAN[1], NUM_SAVE).astype(np.float32)
+    _, _, ns = batched.solve_save_at_batched(vf, u0s, params, save_at=save_at, dt0=DT0,
+                                             tols=tols, engine="cuda-loop",
+                                             max_attempts=MAX_ATTEMPTS)
+    other_steps = int(torch.sum(ns[:, -1] != sol.num_steps))
+
+    # accuracy on the sampled lanes: the terminal value, and the smoothed and
+    # filtered means at each lane's valid slots
+    t0 = time.perf_counter()
+    rows = u0s[:SAMPLE].double().cpu().numpy()
+    e_t1, e_s, e_f = [], [], []
+    for lane in range(SAMPLE):
+        c = batched_everystep.compact(sol, lane)
+        ref = _truth_at(rows[lane], np.append(c["t"].astype(np.float64), ES_TSPAN[1]))
+        e_t1.append(np.sqrt(np.mean((sol.u_t1[lane].double().cpu().numpy() - ref[-1]) ** 2)))
+        e_s.append(np.sqrt(np.mean((c["marginal_u"] - ref[:-1]) ** 2)))
+        e_f.append(np.sqrt(np.mean((c["u"] - ref[:-1]) ** 2)))
+    rms = lambda e: float(np.sqrt(np.mean(np.square(e))))  # noqa: E731
+    truth_secs = time.perf_counter() - t0
+    emit({"phase": "main_everystep", "strategy": "smoother", "tol": ES_TOL, "nu": 4,
+          "max_steps": ES_MAX_STEPS, "batch": BATCH, "seconds": seconds, "seconds_all": times,
+          "solves_per_sec": BATCH / seconds, "attempts_and_emission_ms": attempts_ms,
+          "interpolation_outputs_and_backward_sweep_ms": sweep_ms,
+          "twin_engine_seconds": twin_secs, "outputs_equal_twin_engine": same,
+          "launches_per_solve": launches,
+          "mean_steps": float(sol.num_steps.double().mean()),
+          "mean_valid_slots": float(sol.valid.sum(dim=1).double().mean()),
+          "lanes_short_of_t1": short, "smoothed_finite_at_valid_slots": finite,
+          "lanes_with_other_step_counts_than_save_at": other_steps,
+          "u_t1_rmse_over_tol": rms(e_t1) / ES_TOL,
+          "u_t1_worst_lane_over_tol": max(e_t1) / ES_TOL,
+          "smoothed_rmse_over_tol": rms(e_s) / ES_TOL,
+          "smoothed_worst_lane_over_tol": max(e_s) / ES_TOL,
+          "filtered_rmse_over_tol": rms(e_f) / ES_TOL, "truth_seconds": truth_secs,
+          "peak_bytes": peak,
+          "check_hbm_budget_estimate_bytes": batched.estimate_solve_bytes(
+              BATCH, 3, num_derivatives=4, num_save_at=ES_MAX_STEPS + 1)})
+    ok = (launches == ES_MAX_STEPS and all(same.values()) and finite and short == 0
+          and other_steps == 0 and rms(e_t1) < RMSE_FACTOR * ES_TOL
+          and max(e_t1) < LANE_FACTOR * ES_TOL and rms(e_s) < ES_SMOOTHED_FACTOR * ES_TOL)
+    if not ok:
+        raise AssertionError("save-every-step row failed one of its gates (see the line above)")
+    return {"u0s": u0s, "tols": tols}
+
+
+def phase_launch_everystep(device, row):
+    """One launch of K7 against its plain version, from the row's initial
+    state, timed."""
+    import torch
+
+    from odecheckpts_torch import batched, kernels, problems
+
+    vf, _, _, params = problems.rigid_body(time_span=ES_TSPAN)
+    u0s, tols = row["u0s"], row["tols"]
+    state, _, inputs = batched.initial_state(
+        vf, u0s, params, save_at=np.array(ES_TSPAN, np.float32), dt0=DT0, tols=tols,
+        strategy="smoother")
+    step = batched.make_step_ll(vf, params, nu=4, d=3, strategy="smoother")
+    t1 = torch.full((1, BATCH), ES_TSPAN[1], device=device)
+    times = _time_pair((
+        ("plain", lambda: kernels.step_everystep_attempt_plain(step, state, t1, **inputs)),
+        ("kernel", lambda: kernels.step_everystep_attempt(step, state, t1, **inputs)),
+        ("kernel2", lambda: kernels.step_everystep_attempt(step, state, t1, **inputs)),
+        ("plain2", lambda: kernels.step_everystep_attempt_plain(step, state, t1, **inputs)),
+    ))
+    dev = max(float(torch.max(torch.abs(a - b)))
+              for a, b in zip(times["kernel"][1], times["plain"][1]))
+    emit({"phase": "one_launch", "kernel": "K7", "form": "step_everystep_attempt",
+          "batch": BATCH, "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
+          "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev})
+    if dev != 0.0:
+        raise AssertionError(f"one launch of K7 differs from its plain version by {dev}")
+    return _timing("step_everystep_attempt", times, state, 15, nu=4, d=3)
+
+
 def main():
     device, _smi = phase_device()
     import torch
@@ -1088,13 +1607,26 @@ def main():
     timing["step_dense_interval"] = phase_interval_dense(device, loop_dense)
     counts_attempt_dense, timing["step_dense_attempt"] = phase_attempt_engine_dense(device,
                                                                                     loop_dense)
+    del loop_dense
+    worst.update(phase_attempt_bd(device))
+    loop_bd, counts_bd = _path(["step_bd_interval"], lambda: phase_main_bd(device))
+    phase_foil_bd(device, loop_bd)
+    timing["step_bd_interval"] = phase_interval_bd(device, loop_bd)
+    counts_attempt_bd, timing["step_bd_attempt"] = phase_attempt_engine_bd(device, loop_bd)
+    del loop_bd
+    worst.update(phase_attempt_everystep(device))
+    row_es, counts_es = _path(["step_everystep_attempt"], lambda: phase_main_everystep(device))
+    timing["step_everystep_attempt"] = phase_launch_everystep(device, row_es)
 
     launches = {"step_ll_interval": counts_ll["step_ll_interval"],
                 "step_hi_interval": counts_hi["step_hi_interval"],
                 "step_ll_attempt": counts_attempt["step_ll_attempt"]["step_ll_attempt"],
                 "step_hi_attempt": counts_attempt["step_hi_attempt"]["step_hi_attempt"],
                 "step_dense_interval": counts_dense["step_dense_interval"],
-                "step_dense_attempt": counts_attempt_dense["step_dense_attempt"]}
+                "step_dense_attempt": counts_attempt_dense["step_dense_attempt"],
+                "step_bd_interval": counts_bd["step_bd_interval"],
+                "step_bd_attempt": counts_attempt_bd["step_bd_attempt"],
+                "step_everystep_attempt": counts_es["step_everystep_attempt"]}
     rows = []
     for name, (_kid, source, replaces) in KERNELS.items():
         bound_ms, bound_by = _bound(timing[name])

@@ -7,12 +7,18 @@ solvers, rtol 1e-1..1e-9: the f32 engine (``batched.solve_save_at_batched``,
 kernels K1 and K3) with the generic stack it runs between kernel launches,
 the df32 engine (``batched_hi.make_hi_solver``, kernels K2 and K4), the
 step-count bucketing and the precision-routed driver
-(``batched_hi.make_routed_solver``).  The kernels are hand-written CUDA
-(``csrc/``, wrappers in ``kernels``).  This package never imports JAX.
+(``batched_hi.make_routed_solver``); the dense TS1 / TS0 engine
+(``batched_dense``, kernel K5), the blockdiag engine (``batched_blockdiag``,
+kernel K6) and the save-every-step driver (``batched_everystep``, kernel K7).
+The kernels are hand-written CUDA (``csrc/``, wrappers in ``kernels``).  This
+package never imports JAX.
 """
 
 from . import (  # noqa: F401
     batched,
+    batched_blockdiag,
+    batched_dense,
+    batched_everystep,
     batched_hi,
     df32,
     harness,

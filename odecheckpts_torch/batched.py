@@ -18,7 +18,10 @@ dynamic calibration, ``error_unit="qoi"``, any error calibration (kappa),
 
 ``engine="cuda"`` runs the per-attempt kernel K3 (``kernels.step_ll_attempt``)
 under a host loop instead; ``make_bucketed_solver`` sorts a mixed-tolerance
-ensemble into buckets.  The df32 engine is ``batched_hi``.
+ensemble into buckets.  The df32 engine is ``batched_hi``, the dense one
+``batched_dense``, the blockdiag one ``batched_blockdiag``; the
+save-every-step driver on ``StepLL``'s smoother and filter strategies is
+``batched_everystep``.
 """
 
 from __future__ import annotations
@@ -62,11 +65,11 @@ def _rowsum(x):
 
 def _qr_r_cols(cols, m, n_reflect, eps):
     """Householder QR on a column list: ``cols`` is (c, m, B), column c at
-    ``cols[c]``.  The first ``min(n_reflect, m - 1)`` reflections are applied
+    ``cols[c]`` (or (c, m, d, B): one QR per channel and lane).  The first ``min(n_reflect, m - 1)`` reflections are applied
     to every later column; with ``n_reflect = c`` the columns come out upper
     triangular in their first min(m, c) rows.  No rescaling and no sign
     normalization: this is the kernels' QR, not ``linalg.qr_r``."""
-    rows = torch.arange(m, device=cols.device).reshape(m, 1)
+    rows = torch.arange(m, device=cols.device).reshape((m,) + (1,) * (cols.dim() - 2))
     cols = cols.clone()
     for j in range(min(n_reflect, m - 1)):
         col = cols[j]
@@ -90,12 +93,13 @@ def _qr_r_cols(cols, m, n_reflect, eps):
         coeff = v[0] * rest[:, 0]
         for r in range(1, m):
             coeff = coeff + v[r] * rest[:, r]
-        cols[j:] = rest - (inv * v)[None] * coeff[:, None, :]
+        cols[j:] = rest - (inv * v)[None] * coeff[:, None]
     return cols
 
 
 def _tri_solve_upper_ll(r, b, n):
-    """Solve R X = B for upper-triangular (n, n, B) R and (n, n, B) B.
+    """Solve R X = B for upper-triangular (n, n, B) R and (n, n, B) B (or
+    (n, n, d, B) each: one solve per channel and lane).
 
     Directions whose diagonal is below eps^2 are zeroed: after the per-lane
     normalization the columns are O(1), so such a diagonal carries no
@@ -106,11 +110,11 @@ def _tri_solve_upper_ll(r, b, n):
     for i in reversed(range(n)):
         acc = b[i]
         for j in range(i + 1, n):
-            acc = acc - r[i][j][None, :] * rows[j]
+            acc = acc - r[i][j][None] * rows[j]
         d = r[i][i]
         ok = torch.abs(d) > eps2
         d_safe = torch.where(ok, d, torch.ones_like(d))
-        rows[i] = torch.where(ok[None, :], acc / d_safe[None, :], torch.zeros_like(acc))
+        rows[i] = torch.where(ok[None], acc / d_safe[None], torch.zeros_like(acc))
     return torch.stack(rows, dim=0)
 
 
@@ -130,10 +134,11 @@ def _const_matmul(a_rows, x):
 
 
 def _matmul_ll(a, b, n):
-    """(n, n, B) @ (n, k, B) batched over lanes, summed in column order."""
-    out = a[:, 0:1, :] * b[0:1, :, :]
+    """(n, n, B) @ (n, k, B) batched over lanes (and over any axes between,
+    as (n, n, d, B) @ (n, k, d, B)), summed in column order."""
+    out = a[:, 0:1] * b[0:1]
     for j in range(1, n):
-        out = out + a[:, j : j + 1, :] * b[j : j + 1, :, :]
+        out = out + a[:, j : j + 1] * b[j : j + 1]
     return out
 
 
@@ -202,9 +207,26 @@ class _StepConstants:
         return [sq * pows[i] * self.inv_fact[i] for i in range(n)]
 
 
+STRATEGIES = ("fixedpoint", "smoother", "filter")
+
+
+def functor_params(vf, params):
+    """The kernel arguments of ``vf``'s device functor: ``vf.device_params``
+    (a tuple, or a function of the parameters) where the vector field names
+    its own, else the parameters themselves."""
+    device_params = getattr(vf, "device_params", params)
+    return tuple(device_params(params) if callable(device_params) else device_params)
+
+
 class StepLL(_StepConstants):
-    """One lanes-last adaptive attempt of the isotropic TS0 fixedpoint solver
-    with dynamic calibration: the plain-torch twin of the K1 and K3 kernels.
+    """One lanes-last adaptive attempt of the isotropic TS0 solver with
+    dynamic calibration: the plain-torch twin of the K1 and K3 kernels
+    (``strategy="fixedpoint"``) and of K7 (``"smoother"``, ``"filter"``).
+
+    The fixedpoint strategy accumulates the backward conditional since the
+    last checkpoint; the smoother keeps the one-step conditional of the
+    attempt; the filter runs no reversal (a (2n, n) QR gives the predicted
+    factor, and the backward arrays pass through unchanged).
 
     Every constant is a Python float, rounded to ``dtype`` once (see
     ``_StepConstants``).  Sums over the small row axes run in the
@@ -212,7 +234,10 @@ class StepLL(_StepConstants):
     """
 
     def __init__(self, vf, params, *, nu, d, error_calibration, control=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, strategy="fixedpoint"):
+        if strategy not in STRATEGIES:
+            raise ValueError(f"strategy must be one of {STRATEGIES}, got {strategy!r}")
+        self.strategy = strategy
         if nu not in SUPPORTED_NU:
             raise NotImplementedError(
                 f"num_derivatives={nu} is not ported yet (the kernel is "
@@ -223,7 +248,7 @@ class StepLL(_StepConstants):
         self.vf, self.params = vf, params
         self.four_eps = 4.0 * float(torch.finfo(dtype).eps)
         self.device_functor = getattr(vf, "device_functor", None)
-        self.functor_params = params
+        self.functor_params = functor_params(vf, params)
 
     def packed_constants(self):
         """The kernel's constant buffer (layout of ``Consts`` in step_ll.cu)."""
@@ -292,23 +317,31 @@ class StepLL(_StepConstants):
         lq_scaled = (new_scale * inv_mag)[None] * self._lq_const(dt)
         magb = mag[None]
 
-        # revert QR of X = [[ (A Lbar)^T, Lbar^T ], [ Lq^T, 0 ]]: column c < n
-        # is [a_l[c]; lq_scaled[c]], column n+c is [l_bar_n[c]; 0]
-        zero = torch.zeros_like(a_l[0])
-        cols = torch.stack(
-            [torch.cat([a_l[c], lq_scaled[c]], dim=0) for c in range(n)]
-            + [torch.cat([l_bar_n[c], zero], dim=0) for c in range(n)]
-        )
-        cols = _qr_r_cols(cols, 2 * n, 2 * n, self.tiny)  # cols[c][r] = R[r][c]
-        l_pred_bar = cols[:n, :n] * magb
-        r_yy = cols[:n, :n].transpose(0, 1)
-        r_yx = cols[n:, :n].transpose(0, 1)
-        g_bar = _tri_solve_upper_ll(r_yy, r_yx, n).transpose(0, 1)
-        l_bwd_bar = cols[n:, n:] * magb
-        l_pred = p_arr[:, None, :] * l_pred_bar
-        gain = p_arr[:, None, :] * g_bar / p_arr[None, :, :]
-        bwd_L_step = p_arr[:, None, :] * l_bwd_bar
-        bwd_m_step = mean - _matmul_ll(gain, m_pred, n)
+        if self.strategy == "filter":
+            # no reversal: the predicted factor from a (2n, n) QR
+            cols = torch.stack(
+                [torch.cat([a_l[c], lq_scaled[c]], dim=0) for c in range(n)]
+            )
+            cols = _qr_r_cols(cols, 2 * n, n, self.tiny)
+            l_pred = p_arr[:, None, :] * cols[:, :n] * magb
+        else:
+            # revert QR of X = [[ (A Lbar)^T, Lbar^T ], [ Lq^T, 0 ]]: column
+            # c < n is [a_l[c]; lq_scaled[c]], column n+c is [l_bar_n[c]; 0]
+            zero = torch.zeros_like(a_l[0])
+            cols = torch.stack(
+                [torch.cat([a_l[c], lq_scaled[c]], dim=0) for c in range(n)]
+                + [torch.cat([l_bar_n[c], zero], dim=0) for c in range(n)]
+            )
+            cols = _qr_r_cols(cols, 2 * n, 2 * n, self.tiny)  # cols[c][r] = R[r][c]
+            l_pred_bar = cols[:n, :n] * magb
+            r_yy = cols[:n, :n].transpose(0, 1)
+            r_yx = cols[n:, :n].transpose(0, 1)
+            g_bar = _tri_solve_upper_ll(r_yy, r_yx, n).transpose(0, 1)
+            l_bwd_bar = cols[n:, n:] * magb
+            l_pred = p_arr[:, None, :] * l_pred_bar
+            gain = p_arr[:, None, :] * g_bar / p_arr[None, :, :]
+            bwd_L_step = p_arr[:, None, :] * l_bwd_bar
+            bwd_m_step = mean - _matmul_ll(gain, m_pred, n)
 
         # -- TS0 correction (rank-1 update on the observation row)
         l_obs = l_pred[1]
@@ -327,25 +360,30 @@ class StepLL(_StepConstants):
         mean_cor = m_pred - g_corr * z[None]
         chol_cor = l_pred - gc * l_obs_n[None]
 
-        # -- fixedpoint accumulation
-        bwdG_new = _matmul_ll(bwdG, gain, n)
-        bwd_m_new = _matmul_ll(bwdG, bwd_m_step, n) + bwd_m
-        mag_g = tiny_scale
-        for c in range(n):
-            mag_g = torch.maximum(mag_g, torch.amax(torch.abs(bwdG[c]), dim=0, keepdim=True))
-        inv_g = torch.reciprocal(mag_g)
-        m1 = _matmul_ll(bwdG * inv_g[None], bwd_L_step, n)
-        bl_g = bwd_L * inv_g[None]
-        t3 = tiny_scale
-        for c in range(n):
-            t3 = torch.maximum(t3, torch.amax(torch.abs(m1[c]), dim=0, keepdim=True))
-            t3 = torch.maximum(t3, torch.amax(torch.abs(bl_g[c]), dim=0, keepdim=True))
-        inv3 = torch.reciprocal(t3)
-        cols2 = torch.stack(
-            [torch.cat([m1[c] * inv3, bl_g[c] * inv3], dim=0) for c in range(n)]
-        )
-        cols2 = _qr_r_cols(cols2, 2 * n, n, self.tiny)
-        bwd_L_new = (cols2[:, :n] * t3[None]) * mag_g[None]
+        # -- the backward conditional the attempt leaves behind
+        if self.strategy == "filter":
+            bwdG_new, bwd_m_new, bwd_L_new = bwdG, bwd_m, bwd_L
+        elif self.strategy == "smoother":
+            bwdG_new, bwd_m_new, bwd_L_new = gain, bwd_m_step, bwd_L_step
+        else:  # fixedpoint accumulation
+            bwdG_new = _matmul_ll(bwdG, gain, n)
+            bwd_m_new = _matmul_ll(bwdG, bwd_m_step, n) + bwd_m
+            mag_g = tiny_scale
+            for c in range(n):
+                mag_g = torch.maximum(mag_g, torch.amax(torch.abs(bwdG[c]), dim=0, keepdim=True))
+            inv_g = torch.reciprocal(mag_g)
+            m1 = _matmul_ll(bwdG * inv_g[None], bwd_L_step, n)
+            bl_g = bwd_L * inv_g[None]
+            t3 = tiny_scale
+            for c in range(n):
+                t3 = torch.maximum(t3, torch.amax(torch.abs(m1[c]), dim=0, keepdim=True))
+                t3 = torch.maximum(t3, torch.amax(torch.abs(bl_g[c]), dim=0, keepdim=True))
+            inv3 = torch.reciprocal(t3)
+            cols2 = torch.stack(
+                [torch.cat([m1[c] * inv3, bl_g[c] * inv3], dim=0) for c in range(n)]
+            )
+            cols2 = _qr_r_cols(cols2, 2 * n, n, self.tiny)
+            bwd_L_new = (cols2[:, :n] * t3[None]) * mag_g[None]
 
         # -- PI control
         errn_s = torch.clamp(errn, min=self.tiny)
@@ -390,17 +428,19 @@ class StepLL(_StepConstants):
 
 
 def make_step_ll(vf, params, *, nu, d, error_calibration=None, control=None,
-                 dtype=torch.float32):
-    """The twin of K1 for ``vf`` (row-wise, see ``problems``)."""
+                 dtype=torch.float32, strategy="fixedpoint"):
+    """The twin of K1 and K3 (or, with ``strategy`` "smoother" or "filter",
+    of K7) for ``vf`` (row-wise, see ``problems``)."""
     if error_calibration is None:
         error_calibration = ivpsolvers.default_error_calibration("ts0", "qoi")
     return StepLL(vf, params, nu=nu, d=d, error_calibration=error_calibration,
-                  control=control, dtype=dtype)
+                  control=control, dtype=dtype, strategy=strategy)
 
 
-def _state_to_generic(state):
+def _state_to_generic(state, needs_rev=True):
     """Lanes-last tuple -> batch-leading ``_State`` (any layout: the lane
-    axis moves from last to first)."""
+    axis moves from last to first).  Without reversal (filter) the state
+    carries no backward conditionals."""
 
     def t3(x):  # (a, b, B) -> (B, a, b)
         return torch.movedim(x, -1, 0)
@@ -408,14 +448,19 @@ def _state_to_generic(state):
     def t1(x):  # (1, B) -> (B,)
         return x[0]
 
+    if needs_rev:
+        bwd = Conditional(t3(state[3]), Normal(t3(state[4]), t3(state[5])))
+        bwd_prev = Conditional(t3(state[10]), Normal(t3(state[11]), t3(state[12])))
+    else:
+        bwd = bwd_prev = None
     return _State(
         t=t1(state[0]),
         rv=Normal(t3(state[1]), t3(state[2])),
-        bwd=Conditional(t3(state[3]), Normal(t3(state[4]), t3(state[5]))),
+        bwd=bwd,
         scale_step=t1(state[6]),
         t_prev=t1(state[7]),
         rv_prev=Normal(t3(state[8]), t3(state[9])),
-        bwd_prev=Conditional(t3(state[10]), Normal(t3(state[11]), t3(state[12]))),
+        bwd_prev=bwd_prev,
         dt=t1(state[13]),
         errn_prev=t1(state[14]),
         num_steps=t1(state[15]).to(torch.int32),
@@ -423,23 +468,33 @@ def _state_to_generic(state):
     )
 
 
-def _generic_to_state(s: _State, dtype):
+def _generic_to_state(s: _State, dtype, needs_rev=True):
+    """Batch-leading ``_State`` -> lanes-last tuple; without reversal the
+    backward arrays are zeros."""
+
     def t3(x):
         return torch.movedim(x, 0, -1).contiguous()
 
     def t1(x):
         return x[None].to(dtype).contiguous()
 
+    if needs_rev:
+        bparts = (t3(s.bwd.matrix), t3(s.bwd.noise.mean), t3(s.bwd.noise.cholesky))
+        bprev = (t3(s.bwd_prev.matrix), t3(s.bwd_prev.noise.mean),
+                 t3(s.bwd_prev.noise.cholesky))
+    else:
+        z_g, z_m = torch.zeros_like(t3(s.rv.cholesky)), torch.zeros_like(t3(s.rv.mean))
+        bparts = bprev = (z_g, z_m, z_g)
     return (
         t1(s.t),
         t3(s.rv.mean),
         t3(s.rv.cholesky),
-        t3(s.bwd.matrix), t3(s.bwd.noise.mean), t3(s.bwd.noise.cholesky),
+        *bparts,
         t1(s.scale_step),
         t1(s.t_prev),
         t3(s.rv_prev.mean),
         t3(s.rv_prev.cholesky),
-        t3(s.bwd_prev.matrix), t3(s.bwd_prev.noise.mean), t3(s.bwd_prev.noise.cholesky),
+        *bprev,
         t1(s.dt),
         t1(s.errn_prev),
         t1(s.num_steps),
@@ -503,9 +558,10 @@ def _check_engine(engine):
 
 def _check_config(*, strategy, calibration, ode_order, correction, error_unit,
                   implementation, num_derivatives, supported_nu=SUPPORTED_NU,
-                  corrections=("ts0",), implementations=("isotropic",)):
+                  corrections=("ts0",), implementations=("isotropic",),
+                  strategies=("fixedpoint",)):
     for name, value, ported in (
-        ("strategy", strategy, ("fixedpoint",)),
+        ("strategy", strategy, strategies),
         ("calibration", calibration, ("dynamic",)),
         ("ode_order", ode_order, (1,)),
         ("correction", correction, corrections),
@@ -538,22 +594,40 @@ def interval_fn(engine, interval_kernel, attempt_kernel, active):
 
 
 def initial_state(vf, u0s, params, *, save_at, dt0, tols, num_derivatives=4,
-                  atol_factor=1e-3, implementation="isotropic"):
+                  atol_factor=1e-3, implementation="isotropic", strategy="fixedpoint"):
     """Taylor-initialized lanes-last state and the per-lane kernel inputs.
 
     Returns ``(state0, rv0, inputs)`` where ``inputs`` is the dict of (1, B)
     tensors ``atol, rtol, dt_max, dt_floor, tiny_scale`` and ``rv0`` is the
     batch-leading initial ``Normal``.  ``implementation`` is the SSM backend
     whose layout the state takes: "isotropic" ((n, d, B) means, (n, n, B)
-    factors) or "dense" ((nd, B) means, (nd, nd, B) factors).
+    factors) or "dense" ((nd, B) means, (nd, nd, B) factors); the blockdiag
+    layout is ``batched_blockdiag.initial_state``.  With
+    ``strategy="filter"`` the backward arrays are zeros.
     """
+    s0, rv0, inputs = initial_generic(
+        vf, u0s, params, save_at=save_at, dt0=dt0, tols=tols,
+        num_derivatives=num_derivatives, atol_factor=atol_factor,
+        implementation=implementation, strategy=strategy)
+    return _generic_to_state(s0, u0s.dtype, s0.bwd is not None), rv0, inputs
+
+
+def initial_generic(vf, u0s, params, *, save_at, dt0, tols, num_derivatives=4,
+                    atol_factor=1e-3, implementation="isotropic", strategy="fixedpoint"):
+    """``initial_state`` before the layout conversion: the batch-leading
+    ``_State`` at ``save_at[0]``, ``rv0`` and the kernel inputs.  The
+    blockdiag backend gets one output scale and one ``mle_ssq`` per
+    dimension."""
     b, d = u0s.shape
     dtype, device = u0s.dtype, u0s.device
     nu = num_derivatives
     save_at = torch.as_tensor(save_at, dtype=dtype, device=device)
     ssm = ivpsolvers.prior_ibm(num_derivatives=nu, ode_shape=(d,),
                                implementation=implementation)
-    strat = ivpsolvers.strategy_fixedpoint(ssm, ivpsolvers.correction_ts0())
+    make_strategy = {"fixedpoint": ivpsolvers.strategy_fixedpoint,
+                     "smoother": ivpsolvers.strategy_smoother,
+                     "filter": ivpsolvers.strategy_filter}[strategy]
+    strat = make_strategy(ssm, ivpsolvers.correction_ts0())
     solver_cfg = ivpsolvers.solver_dynamic(strat)
 
     # Taylor init of the whole ensemble at once: the row-wise vector field
@@ -563,20 +637,24 @@ def initial_state(vf, u0s, params, *, save_at, dt0, tols, num_derivatives=4,
     )
     rv0, _ = solver_cfg.initial_condition([c.T for c in tco], 1.0)
 
-    ident_b = _expand(ssm.identity_conditional(dtype, device), (b,))
+    ident_b = (_expand(ssm.identity_conditional(dtype, device), (b,))
+               if strat.needs_reversal else None)
     full = lambda v: torch.full((b,), v, dtype=dtype, device=device)  # noqa: E731
+    scale0 = full(1.0)
+    if implementation == "blockdiag":
+        scale0 = ssm.promote_output_scale(scale0)
     s0 = _State(
         t=save_at[0].expand(b),
         rv=rv0,
         bwd=ident_b,
-        scale_step=full(1.0),
+        scale_step=scale0,
         t_prev=save_at[0].expand(b),
         rv_prev=rv0,
         bwd_prev=ident_b,
         dt=full(dt0),
         errn_prev=full(1.0),
         num_steps=torch.zeros((b,), dtype=torch.int32, device=device),
-        mle_ssq=full(0.0),
+        mle_ssq=torch.zeros_like(scale0),
     )
     tiny = float(torch.finfo(dtype).tiny)
     row = lambda v: torch.full((1, b), v, dtype=dtype, device=device)  # noqa: E731
@@ -587,7 +665,7 @@ def initial_state(vf, u0s, params, *, save_at, dt0, tols, num_derivatives=4,
         dt_floor=row(tiny ** (1.0 / (nu + 1.5))),
         tiny_scale=row(tiny**0.5),
     )
-    return _generic_to_state(s0, dtype), rv0, inputs
+    return s0, rv0, inputs
 
 
 def solve_save_at_batched(
@@ -621,15 +699,25 @@ def solve_save_at_batched(
     run the plain twin on CPU tensors.  ``engine="torch"`` runs the twin on
     any device.  ``max_attempts`` bounds the attempts per lane and interval.
 
-    ``correction="ts1"`` with d > 1, or ``implementation="dense"``, goes to
-    the dense engine ``batched_dense.solve_save_at_batched_dense`` (kernel
-    K5), as in the reference (``odecheckpts_tpu/batched.py:780-793``).
+    ``implementation="blockdiag"`` goes to the blockdiag engine
+    ``batched_blockdiag.solve_save_at_batched_blockdiag`` (kernel K6; TS0
+    only); ``correction="ts1"`` with d > 1, or ``implementation="dense"``,
+    goes to the dense engine ``batched_dense.solve_save_at_batched_dense``
+    (kernel K5), as in the reference (``odecheckpts_tpu/batched.py:765-793``).
 
     Returns ``(u_smooth (B, T, d), u_filt (B, T, d), num_steps (B, T))``.
     """
     if implementation == "blockdiag":
-        raise NotImplementedError(
-            "implementation='blockdiag' is not ported yet: ROADMAP queue 1 item 7"
+        from .batched_blockdiag import solve_save_at_batched_blockdiag
+
+        if correction == "ts1":
+            raise ValueError("blockdiag supports ts0 corrections only")
+        return solve_save_at_batched_blockdiag(
+            vf, u0s, params, save_at=save_at, dt0=dt0, tols=tols,
+            num_derivatives=num_derivatives, strategy=strategy,
+            calibration=calibration, atol_factor=atol_factor, engine=engine,
+            hbm_budget=hbm_budget, ode_order=ode_order, error_unit=error_unit,
+            error_calibration=error_calibration, max_attempts=max_attempts,
         )
     d = (u0s[0] if isinstance(u0s, tuple) else u0s).shape[-1]
     if implementation == "dense" or (correction == "ts1" and d > 1):
@@ -677,26 +765,34 @@ def solve_save_at_batched(
                            save_at=save_at, max_attempts=max_attempts)
 
 
-def advance_checkpoint(interval, step, state, t_next, inputs, *, strat, max_attempts):
+_CONVERT = (_state_to_generic, _generic_to_state)
+
+
+def advance_checkpoint(interval, step, state, t_next, inputs, *, strat, max_attempts,
+                       convert=_CONVERT):
     """One checkpoint of ``solve_intervals``: ``interval`` advances the
     lanes-last ``state`` to ``t_next`` (a 0-d tensor), then the generic stack
     interpolates at it.  Returns ``((rv, cond), state, num_steps)``: the
     filtered marginal and the backward conditional at the checkpoint, the
-    state the next interval starts from, and the accepted steps so far."""
+    state the next interval starts from, and the accepted steps so far.
+    ``convert`` is the layout's ``(state_to_generic, generic_to_state)``."""
+    to_generic, to_state = convert
     b = state[0].shape[-1]
     state = interval(step, state, t_next.expand(1, b).contiguous(), max_attempts=max_attempts,
                      **inputs)
-    out, gen = _interpolate_at(strat, _state_to_generic(state), t_next)
-    return out, _generic_to_state(gen, state[0].dtype), gen.num_steps
+    out, gen = _interpolate_at(strat, to_generic(state), t_next)
+    return out, to_state(gen, state[0].dtype), gen.num_steps
 
 
-def solve_intervals(interval, step, state, rv0, inputs, *, strat, save_at, max_attempts):
+def solve_intervals(interval, step, state, rv0, inputs, *, strat, save_at, max_attempts,
+                    convert=_CONVERT):
     """The checkpoint loop and the smoothing pass of the batched drivers.
 
     Per checkpoint: ``interval`` advances the lanes-last ``state`` (see
     ``interval_fn``), then the generic stack interpolates at the checkpoint
     on batch-leading tensors (``_state_to_generic`` and ``_generic_to_state``
-    move the lane axis and serve the isotropic and the dense layout alike).
+    move the lane axis and serve the isotropic and the dense layout alike;
+    the blockdiag driver passes its own pair as ``convert``).
     After the last one, the backward pass over the checkpoints gives the
     smoothed means.  Returns ``(u_smooth, u_filt, num_steps)``.
     """
@@ -706,7 +802,8 @@ def solve_intervals(interval, step, state, rv0, inputs, *, strat, save_at, max_a
     rvs, conds, nsteps = [], [], []
     for t_next in save_at[1:]:
         (rv_e, cond_e), state, n = advance_checkpoint(
-            interval, step, state, t_next, inputs, strat=strat, max_attempts=max_attempts)
+            interval, step, state, t_next, inputs, strat=strat, max_attempts=max_attempts,
+            convert=convert)
         rvs.append(rv_e)
         conds.append(cond_e)
         nsteps.append(n)

@@ -67,7 +67,7 @@ class StepDense(batched._StepConstants):
         self.jac = getattr(vf, "jac", None)
         self.four_eps = 4.0 * float(torch.finfo(dtype).eps)
         self.device_functor = getattr(vf, "device_functor", None)
-        self.functor_params = tuple(getattr(vf, "device_params", params))
+        self.functor_params = batched.functor_params(vf, params)
         n = nu + 1
         self._kron_lq = [[self.lq_rows[i // d][k // d] if i % d == k % d else 0.0
                           for k in range(n * d)] for i in range(n * d)]

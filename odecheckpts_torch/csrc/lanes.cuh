@@ -1,4 +1,4 @@
-// Helpers shared by the lanes-last step kernels (K1-K5): NaN-propagating
+// Helpers shared by the lanes-last step kernels (K1-K7): NaN-propagating
 // min/max, lanes-last loads and stores, the column-list Householder QR of
 // odecheckpts_tpu/batched.py:_qr_r_cols / batched_hi.py:_qr_r_cols_partial
 // (unrolled, and with runtime loops for K5's large column lists) and the

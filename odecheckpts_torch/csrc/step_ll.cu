@@ -69,6 +69,15 @@ extern "C" int odeckpt_step_ll_interval_rigid_body(int nu, const void* in_ptrs,
                 device, stream);
 }
 
+// The anisotropic rigid body takes (p1, p2, s3 * p3, s3): the isotropic foil
+// of the blockdiag engine's row.
+extern "C" int odeckpt_step_ll_interval_rigid_body_anisotropic(
+    int nu, const void* in_ptrs, const void* out_ptrs, const void* consts, long long batch,
+    int max_attempts, float p1, float p2, float p3, float p4, int device, void* stream) {
+  return launch(nu, in_ptrs, out_ptrs, consts, batch, max_attempts,
+                RigidBodyAniso{p1, p2, p3, p4}, device, stream);
+}
+
 extern "C" const char* odeckpt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

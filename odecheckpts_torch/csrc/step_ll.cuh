@@ -1,11 +1,14 @@
-// The f32 step of K1 (step_ll.cu) and K3 (step_ll_attempt.cu): one
-// adaptive attempt of the isotropic TS0 fixedpoint solver, one IVP lane per
-// thread.
+// The f32 step of K1 (step_ll.cu), K3 (step_ll_attempt.cu) and K7
+// (step_everystep_attempt.cu): one adaptive attempt of the isotropic TS0
+// solver, one IVP lane per thread.
 //
 // K1 replaces odecheckpts_tpu/batched.py:_pallas_interval(make_step_ll), the
 // Pallas kernel of the f32 work-precision path; K3 replaces
-// batched.py:_pallas_step(make_step_ll), one attempt per launch.  The plain
-// PyTorch twin is odecheckpts_torch/batched.py:StepLL.
+// batched.py:_pallas_step(make_step_ll), one attempt per launch; both run the
+// fixedpoint strategy.  K7 replaces batched_everystep.py:238,
+// _pallas_step(make_step_ll) with strategy "smoother" or "filter": the
+// strategy is a template parameter of the attempt.  The plain PyTorch twin is
+// odecheckpts_torch/batched.py:StepLL.
 //
 // What bounds it: per-thread registers and latency, not bytes.  A lane's
 // state is 4*n*d + 6*n*n + 7 floats (217 at nu=4, d=3), plus the
@@ -91,6 +94,19 @@ struct RigidBody {
   }
 };
 
+// The rigid body in rescaled coordinates z = (1, 1, s3) * y
+// (problems.rigid_body_anisotropic): p3s = s3 * p3, formed by the host.
+struct RigidBodyAniso {
+  static constexpr int D = 3;
+  float p1, p2, p3s, s3;
+  __device__ void operator()(const float* u, float /*t*/, float* out) const {
+    const float w = u[2] / s3;
+    out[0] = p1 * u[1] * w;
+    out[1] = p2 * u[0] * w;
+    out[2] = p3s * u[0] * u[1];
+  }
+};
+
 template <int N, int D>
 struct Lane {
   float t, scale, t_prev, dt, errn_prev, nsteps, mle;
@@ -104,8 +120,17 @@ struct LaneInputs {
   float t_next, atol, rtol, dt_max, dt_floor, tiny_scale;
 };
 
+// What an attempt leaves in the backward arrays (make_step_ll's `strategy`,
+// batched.py:342-371, 398-437): the conditional accumulated since the last
+// checkpoint, the attempt's own one-step conditional, or nothing (no
+// reversal: the predicted factor comes from a (2n, n) QR and the backward
+// arrays pass through).  The codes are kernels.STRATEGY_CODES.
+constexpr int FIXEDPOINT = 0;
+constexpr int SMOOTHER = 1;
+constexpr int FILTER = 2;
+
 // One accept/reject attempt (make_step_ll's `step`), updating s in place.
-template <int NU, class VF>
+template <int NU, class VF, int STRATEGY = FIXEDPOINT>
 __device__ __forceinline__ void attempt(Lane<NU + 1, VF::D>& s, const Consts& c, const VF& vf,
                                         const LaneInputs& in) {
   const float t_next = in.t_next, atol = in.atol, rtol = in.rtol, dt_max = in.dt_max,
@@ -184,44 +209,65 @@ __device__ __forceinline__ void attempt(Lane<NU + 1, VF::D>& s, const Consts& c,
     for (int k = 0; k < N; ++k) l_bar[i][k] = l_bar[i][k] * inv_mag;  // l_bar_n
   const float lq_s = new_scale * inv_mag;
 
-  // revert-QR columns: column i < N is [ (A l_bar_n)[i] ; lq_s Lq[i] ],
-  // column N + i is [ l_bar_n[i] ; 0 ]
-  float cols[M][M];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float acc = -0.0f;
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        if (c.a[i * NMAX + j] != 0.0f) acc = acc + c.a[i * NMAX + j] * l_bar[j][k];
-      cols[i][k] = acc;
-      cols[i][N + k] = lq_s * c.lq[i * NMAX + k];
-      cols[N + i][k] = l_bar[i][k];
-      cols[N + i][N + k] = 0.0f;
-    }
-  qr_r_cols<M, M>(cols);  // R[r][col] = cols[col][r]
-
-  float x[N][N];  // X = R_yy^-1 R_yx
-  tri_solve_upper<N, M>(cols, x);
   float l_pred[N][N], gain[N][N], bwd_L_step[N][N], bwd_m_step[N][D];
+  if constexpr (STRATEGY == FILTER) {
+    // no reversal: the N columns [ (A l_bar_n)[i] ; lq_s Lq[i] ], N reflections
+    float cols[N][M];
 #pragma unroll
-  for (int i = 0; i < N; ++i)
+    for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      l_pred[i][k] = p[i] * (cols[i][k] * mag);
-      gain[i][k] = p[i] * x[k][i] / p[k];
-      bwd_L_step[i][k] = p[i] * (cols[N + i][N + k] * mag);
-    }
+      for (int k = 0; k < N; ++k) {
+        float acc = -0.0f;
 #pragma unroll
-  for (int i = 0; i < N; ++i)
+        for (int j = 0; j < N; ++j)
+          if (c.a[i * NMAX + j] != 0.0f) acc = acc + c.a[i * NMAX + j] * l_bar[j][k];
+        cols[i][k] = acc;
+        cols[i][N + k] = lq_s * c.lq[i * NMAX + k];
+      }
+    qr_r_cols<M, N>(cols);
 #pragma unroll
-    for (int k = 0; k < D; ++k) {
-      float acc = gain[i][0] * m_pred[0][k];
+    for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int j = 1; j < N; ++j) acc = acc + gain[i][j] * m_pred[j][k];
-      bwd_m_step[i][k] = s.mean[i][k] - acc;
-    }
+      for (int k = 0; k < N; ++k) l_pred[i][k] = (p[i] * cols[i][k]) * mag;
+  } else {
+    // revert-QR columns: column i < N is [ (A l_bar_n)[i] ; lq_s Lq[i] ],
+    // column N + i is [ l_bar_n[i] ; 0 ]
+    float cols[M][M];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        float acc = -0.0f;
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+          if (c.a[i * NMAX + j] != 0.0f) acc = acc + c.a[i * NMAX + j] * l_bar[j][k];
+        cols[i][k] = acc;
+        cols[i][N + k] = lq_s * c.lq[i * NMAX + k];
+        cols[N + i][k] = l_bar[i][k];
+        cols[N + i][N + k] = 0.0f;
+      }
+    qr_r_cols<M, M>(cols);  // R[r][col] = cols[col][r]
+
+    float x[N][N];  // X = R_yy^-1 R_yx
+    tri_solve_upper<N, M>(cols, x);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        l_pred[i][k] = p[i] * (cols[i][k] * mag);
+        gain[i][k] = p[i] * x[k][i] / p[k];
+        bwd_L_step[i][k] = p[i] * (cols[N + i][N + k] * mag);
+      }
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        float acc = gain[i][0] * m_pred[0][k];
+#pragma unroll
+        for (int j = 1; j < N; ++j) acc = acc + gain[i][j] * m_pred[j][k];
+        bwd_m_step[i][k] = s.mean[i][k] - acc;
+      }
+  }
 
   // -- TS0 correction (rank-1 update on the observation row)
   float l_obs_n[N];
@@ -243,54 +289,55 @@ __device__ __forceinline__ void attempt(Lane<NU + 1, VF::D>& s, const Consts& c,
   }
 
   // -- fixedpoint accumulation
-  float bwdG_new[N][N], bwd_m_new[N][D], m1[N][N], bl_g[N][N];
+  float bwdG_new[N][N], bwd_m_new[N][D], cols2[N][M];
+  float mag_g = tiny_scale, t3 = tiny_scale;
+  if constexpr (STRATEGY == FIXEDPOINT) {
+    float m1[N][N], bl_g[N][N];
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
+    for (int i = 0; i < N; ++i) {
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float acc = s.bwdG[i][0] * gain[0][k];
+      for (int k = 0; k < N; ++k) {
+        float acc = s.bwdG[i][0] * gain[0][k];
 #pragma unroll
-      for (int j = 1; j < N; ++j) acc = acc + s.bwdG[i][j] * gain[j][k];
-      bwdG_new[i][k] = acc;
+        for (int j = 1; j < N; ++j) acc = acc + s.bwdG[i][j] * gain[j][k];
+        bwdG_new[i][k] = acc;
+      }
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        float acc = s.bwdG[i][0] * bwd_m_step[0][k];
+#pragma unroll
+        for (int j = 1; j < N; ++j) acc = acc + s.bwdG[i][j] * bwd_m_step[j][k];
+        bwd_m_new[i][k] = acc + s.bwd_m[i][k];
+      }
     }
 #pragma unroll
-    for (int k = 0; k < D; ++k) {
-      float acc = s.bwdG[i][0] * bwd_m_step[0][k];
+    for (int i = 0; i < N; ++i) mag_g = maxp(mag_g, row_absmax(s.bwdG[i]));
+    const float inv_g = 1.0f / mag_g;
 #pragma unroll
-      for (int j = 1; j < N; ++j) acc = acc + s.bwdG[i][j] * bwd_m_step[j][k];
-      bwd_m_new[i][k] = acc + s.bwd_m[i][k];
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        float acc = (s.bwdG[i][0] * inv_g) * bwd_L_step[0][k];
+#pragma unroll
+        for (int j = 1; j < N; ++j) acc = acc + (s.bwdG[i][j] * inv_g) * bwd_L_step[j][k];
+        m1[i][k] = acc;
+        bl_g[i][k] = s.bwd_L[i][k] * inv_g;
+      }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      t3 = maxp(t3, row_absmax(m1[i]));
+      t3 = maxp(t3, row_absmax(bl_g[i]));
     }
+    const float inv3 = 1.0f / t3;
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        cols2[i][k] = m1[i][k] * inv3;
+        cols2[i][N + k] = bl_g[i][k] * inv3;
+      }
+    qr_r_cols<M, N>(cols2);
   }
-  float mag_g = tiny_scale;
-#pragma unroll
-  for (int i = 0; i < N; ++i) mag_g = maxp(mag_g, row_absmax(s.bwdG[i]));
-  const float inv_g = 1.0f / mag_g;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float acc = (s.bwdG[i][0] * inv_g) * bwd_L_step[0][k];
-#pragma unroll
-      for (int j = 1; j < N; ++j) acc = acc + (s.bwdG[i][j] * inv_g) * bwd_L_step[j][k];
-      m1[i][k] = acc;
-      bl_g[i][k] = s.bwd_L[i][k] * inv_g;
-    }
-  float t3 = tiny_scale;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    t3 = maxp(t3, row_absmax(m1[i]));
-    t3 = maxp(t3, row_absmax(bl_g[i]));
-  }
-  const float inv3 = 1.0f / t3;
-  float cols2[N][M];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      cols2[i][k] = m1[i][k] * inv3;
-      cols2[i][N + k] = bl_g[i][k] * inv3;
-    }
-  qr_r_cols<M, N>(cols2);
 
   // -- PI control
   const float errn_s = maxp(errn, FLT_MIN);
@@ -317,13 +364,20 @@ __device__ __forceinline__ void attempt(Lane<NU + 1, VF::D>& s, const Consts& c,
 #pragma unroll
       for (int k = 0; k < D; ++k) s.mean[i][k] = m_pred[i][k] - g_corr[i] * z[k];
 #pragma unroll
-      for (int k = 0; k < N; ++k) {
-        s.chol[i][k] = l_pred[i][k] - gc[i] * l_obs_n[k];
-        s.bwd_L[i][k] = (cols2[i][k] * t3) * mag_g;
-      }
+      for (int k = 0; k < N; ++k) s.chol[i][k] = l_pred[i][k] - gc[i] * l_obs_n[k];
     }
-    copy_to(s.bwdG, bwdG_new);
-    copy_to(s.bwd_m, bwd_m_new);
+    if constexpr (STRATEGY == FIXEDPOINT) {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int k = 0; k < N; ++k) s.bwd_L[i][k] = (cols2[i][k] * t3) * mag_g;
+      copy_to(s.bwdG, bwdG_new);
+      copy_to(s.bwd_m, bwd_m_new);
+    } else if constexpr (STRATEGY == SMOOTHER) {
+      copy_to(s.bwdG, gain);
+      copy_to(s.bwd_m, bwd_m_step);
+      copy_to(s.bwd_L, bwd_L_step);
+    }
     s.scale = new_scale;
     s.errn_prev = errn_s;
     s.nsteps = s.nsteps + 1.0f;

@@ -5,9 +5,11 @@ The problems have no learned weights; what both packages must share to
 compute the same thing are the vector-field parameters and the lanes-last
 solver state: 17 arrays for the f32 engines (layout in
 ``batched.NUM_STATE``: (n, d, B) means and (n, n, B) factors on the
-isotropic engine, (nd, B) means and (nd, nd, B) factors on the dense one),
-12 for the df32 engine (``batched_hi.NUM_STATE_HI``; pairs travel as their
-two halves).  ``state_layout`` tells the three apart by shape.  ``to_torch``
+isotropic engine, (nd, B) means and (nd, nd, B) factors on the dense one,
+(n, d, B) means, (n, n, d, B) factors and (d, B) ``scale`` and ``mle`` rows
+on the blockdiag one), 12 for the df32 engine (``batched_hi.NUM_STATE_HI``;
+pairs travel as their two halves).  ``state_layout`` tells the four apart by
+shape.  ``to_torch``
 turns nested tuples of numpy arrays or floats (a state, or the parameters
 ``(-2, 1.25, -0.5)`` as 0-dim tensors) into tensors on a device,
 ``to_numpy`` turns nested tuples of tensors back.
@@ -39,17 +41,18 @@ def to_numpy(tree):
 
 
 # position of each array of a lanes-last state -> its kind: a (1, B) row, a
-# mean, a factor (gains share the factors' shape)
+# mean, a factor (gains share the factors' shape), a per-dimension row
+# ((d, B) on the blockdiag engine, (1, B) elsewhere)
 _KINDS = {
-    17: "r m f f m f r r m f f m f r r r r",  # batched.NUM_STATE
+    17: "r m f f m f c r m f f m f r r r c",  # batched.NUM_STATE
     12: "r r m m f r f m m r r r",  # batched_hi.NUM_STATE_HI
 }
 
 
 def state_layout(state):
-    """``"isotropic"``, ``"dense"`` or ``"df32"`` for a lanes-last state, from
-    the number of arrays and their shapes; raises ``ValueError`` on anything
-    else."""
+    """``"isotropic"``, ``"dense"``, ``"blockdiag"`` or ``"df32"`` for a
+    lanes-last state, from the number of arrays and their shapes; raises
+    ``ValueError`` on anything else."""
     kinds = _KINDS.get(len(state), "").split()
     if not kinds:
         raise ValueError(
@@ -57,12 +60,18 @@ def state_layout(state):
         )
     shapes = [tuple(np.shape(x)) for x in state]
     mean = shapes[kinds.index("m")]  # (n, d, B) or, dense, (nd, B)
-    want = {"r": (1, mean[-1]), "m": mean, "f": (mean[0], mean[0], mean[-1])}
+    factor = shapes[kinds.index("f")]
+    blockdiag = len(state) == 17 and len(mean) == 3 and len(factor) == 4
+    want = {"r": (1, mean[-1]), "m": mean, "f": (mean[0], mean[0], mean[-1]),
+            "c": (1, mean[-1])}
+    if blockdiag:
+        want["f"] = (mean[0], mean[0], mean[1], mean[2])
+        want["c"] = (mean[1], mean[2])
     bad = [i for i, (k, s) in enumerate(zip(kinds, shapes)) if s != want[k]]
     layouts = {(17, 3): "isotropic", (17, 2): "dense", (12, 3): "df32"}
     if bad or (len(state), len(mean)) not in layouts:
         raise ValueError(f"the shapes {shapes} fit no state layout (arrays {bad} are off)")
-    return layouts[len(state), len(mean)]
+    return "blockdiag" if blockdiag else layouts[len(state), len(mean)]
 
 
 def _check_state(state):

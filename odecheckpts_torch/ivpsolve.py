@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import ivpsolvers
 from .ssm.base import Conditional, Normal
 
 
@@ -61,21 +62,28 @@ def _expand(tree, batch):
 
 def _interpolate_at(strategy, state: _State, t):
     """Emit the solution at checkpoint ``t`` (``t_prev <= t <= state.t``)
-    and rewire the fixedpoint state for the next interval.
+    and rewire the state for the next interval.
 
     Per lane: if the last accepted step landed exactly on ``t`` the state
     itself is emitted; otherwise the direct (unpreconditioned) extrapolation
     interpolates.  Both branches are computed and selected per lane.
     Near-degenerate sub-intervals snap to identity conditionals.
+
+    The fixedpoint strategy emits the conditional back to the previous
+    checkpoint (``compose(bwd_prev, b1)``), the smoother the one-step
+    conditional ``b1``; a strategy without reversal (filter) carries and
+    emits no conditionals (``odecheckpts_tpu/ivpsolve.py:231-294``).
     """
     ssm = strategy.ssm
+    fixedpoint = strategy.kind == ivpsolvers.FIXEDPOINT
+    needs_rev = strategy.needs_reversal
     dtype, device = state.rv.mean.dtype, state.rv.mean.device
-    ident = ssm.identity_conditional(dtype, device)
     t = torch.as_tensor(t, dtype=dtype, device=device)
     eps_soft = float(torch.finfo(dtype).eps) ** 0.75
     thresh = eps_soft * torch.clamp(torch.abs(t), min=1.0)
     t_b = t.expand_as(state.t)
-    ident_b = _expand(ident, state.t.shape)
+    ident_b = (_expand(ssm.identity_conditional(dtype, device), state.t.shape)
+               if needs_rev else None)
 
     # branch 1: the state sits exactly on the checkpoint
     emit_exact = (state.rv, state.bwd)
@@ -88,10 +96,17 @@ def _interpolate_at(strategy, state: _State, t):
     dt1_raw = t_b - state.t_prev
     close1 = dt1_raw <= thresh
     dt1 = torch.where(close1, one, dt1_raw)
+    exact = state.t == t_b
+    if not needs_rev:
+        rv_t, _ = ssm.extrapolate_direct(state.rv_prev, dt1, state.scale_step, False)
+        rv_t = _tree_select(close1, state.rv_prev, rv_t)
+        new_interp = state._replace(t_prev=t_b, rv_prev=rv_t)
+        emit = (_tree_select(exact, emit_exact[0], rv_t), None)
+        return emit, _tree_select(exact, new_exact, new_interp)
     rv_t, b1 = ssm.extrapolate_direct(state.rv_prev, dt1, state.scale_step, True)
     rv_t = _tree_select(close1, state.rv_prev, rv_t)
     b1 = _tree_select(close1, ident_b, b1)
-    emit_cond = ssm.compose(state.bwd_prev, b1)
+    emit_cond = ssm.compose(state.bwd_prev, b1) if fixedpoint else b1
 
     dt2_raw = state.t - t_b
     close2 = dt2_raw <= thresh
@@ -100,7 +115,6 @@ def _interpolate_at(strategy, state: _State, t):
     b2 = _tree_select(close2, ident_b, b2)
     new_interp = state._replace(bwd=b2, t_prev=t_b, rv_prev=rv_t, bwd_prev=ident_b)
 
-    exact = state.t == t_b
     emit = (
         _tree_select(exact, emit_exact[0], rv_t),
         _tree_select(exact, emit_exact[1], emit_cond),

@@ -1,9 +1,10 @@
 """Solver construction: prior, correction, strategy, calibration (PyTorch
 counterpart of ``odecheckpts_tpu.ivpsolvers``).
 
-Ported so far: the IBM prior on the isotropic and the dense backend, the
-TS0 and TS1 corrections, the fixedpoint strategy and dynamic calibration --
-the configurations of the batched paths.  Every config object is a frozen
+Ported so far: the IBM prior on the isotropic, the dense and the blockdiag
+backend, the TS0 and TS1 corrections, the filter, smoother and fixedpoint
+strategies and dynamic calibration -- the configurations of the batched
+paths.  Every config object is a frozen
 dataclass.
 """
 
@@ -76,7 +77,7 @@ def correction_ts1(*, ode_order: int = 1, error_unit: str = "qoi",
     return _correction("ts1", ode_order, error_unit, error_calibration)
 
 
-FIXEDPOINT = "fixedpoint"
+FILTER, SMOOTHER, FIXEDPOINT = "filter", "smoother", "fixedpoint"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +89,20 @@ class Strategy:
     def __post_init__(self):
         if self.correction.method == "ts1" and self.ssm.name != "dense":
             raise ValueError("correction_ts1 requires the dense backend")
+
+    @property
+    def needs_reversal(self) -> bool:
+        return self.kind != FILTER
+
+
+def strategy_filter(prior, correction: Correction) -> Strategy:
+    """Forward-only estimation: marginals at steps, O(1) state."""
+    return Strategy(prior, correction, FILTER)
+
+
+def strategy_smoother(prior, correction: Correction) -> Strategy:
+    """Store a backward transition per step: O(#steps) memory dense output."""
+    return Strategy(prior, correction, SMOOTHER)
 
 
 def strategy_fixedpoint(prior, correction: Correction) -> Strategy:

@@ -1,22 +1,28 @@
 """Hand-written CUDA kernels of the port and their wrappers.
 
-=====  =======================  ================================  =======================================================
-id     wrapper                  source                            replaces (``odecheckpts_tpu``)
-=====  =======================  ================================  =======================================================
-K1     ``step_ll_interval``     ``csrc/step_ll.cu``               ``batched._pallas_interval(make_step_ll)``
-K3     ``step_ll_attempt``      ``csrc/step_ll_attempt.cu``       ``batched._pallas_step(make_step_ll)``
-K2     ``step_hi_interval``     ``csrc/step_hi.cu``               ``batched_hi._pallas_interval(make_step_hi)``
-K4     ``step_hi_attempt``      ``csrc/step_hi_attempt.cu``       ``batched_hi._pallas_step(make_step_hi)``
-K5     ``step_dense_interval``  ``csrc/step_dense.cu``            ``batched_dense._pallas_interval(make_step_dense_ll)``
-K5     ``step_dense_attempt``   ``csrc/step_dense_attempt.cu``    ``batched_dense._pallas_step(make_step_dense_ll)``
-=====  =======================  ================================  =======================================================
+==  ==========================  ==================================  =======================================================
+id  wrapper                     source                              replaces (``odecheckpts_tpu``)
+==  ==========================  ==================================  =======================================================
+K1  ``step_ll_interval``        ``csrc/step_ll.cu``                 ``batched._pallas_interval(make_step_ll)``
+K3  ``step_ll_attempt``         ``csrc/step_ll_attempt.cu``         ``batched._pallas_step(make_step_ll)``
+K2  ``step_hi_interval``        ``csrc/step_hi.cu``                 ``batched_hi._pallas_interval(make_step_hi)``
+K4  ``step_hi_attempt``         ``csrc/step_hi_attempt.cu``         ``batched_hi._pallas_step(make_step_hi)``
+K5  ``step_dense_interval``     ``csrc/step_dense.cu``              ``batched_dense._pallas_interval(make_step_dense_ll)``
+K5  ``step_dense_attempt``      ``csrc/step_dense_attempt.cu``      ``batched_dense._pallas_step(make_step_dense_ll)``
+K6  ``step_bd_interval``        ``csrc/step_bd.cu``                 ``batched_blockdiag._pallas_interval(make_step_bd_ll)``
+K6  ``step_bd_attempt``         ``csrc/step_bd_attempt.cu``         ``batched_blockdiag._pallas_step(make_step_bd_ll)``
+K7  ``step_everystep_attempt``  ``csrc/step_everystep_attempt.cu``  ``batched_everystep._pallas_step(make_step_ll)``
+==  ==========================  ==================================  =======================================================
 
-K1, K2 and K5's interval form run a whole checkpoint interval (the
-accept/reject loop of every lane) in one launch; K3, K4 and K5's attempt
-form run one attempt of the same step body per launch, under the host loop
-``attempt_loop``.  The twins are ``batched.StepLL`` (f32),
-``batched_hi.StepHi`` (df32 pairs) and ``batched_dense.StepDense`` (f32,
-dense covariance, TS1 or TS0).
+K1, K2 and the interval forms of K5 and K6 run a whole checkpoint interval
+(the accept/reject loop of every lane) in one launch; K3, K4 and the attempt
+forms of K5 and K6 run one attempt of the same step body per launch, under
+the host loop ``attempt_loop``.  K7 is one attempt of K3's step body with the
+smoother or the filter strategy, launched a fixed number of times by the
+save-every-step driver.  The twins are ``batched.StepLL`` (f32; K1, K3 and,
+with its strategy, K7), ``batched_hi.StepHi`` (df32 pairs),
+``batched_dense.StepDense`` (f32, dense covariance, TS1 or TS0) and
+``batched_blockdiag.StepBD`` (f32, one factor and one scale per dimension).
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``nvcc`` process per ``.cu`` file, all started together, then linked into
@@ -59,11 +65,15 @@ LAUNCHES = {
     "step_ll_interval": 0, "step_ll_attempt": 0,
     "step_hi_interval": 0, "step_hi_attempt": 0,
     "step_dense_interval": 0, "step_dense_attempt": 0,
+    "step_bd_interval": 0, "step_bd_attempt": 0,
+    "step_everystep_attempt": 0,
 }
 
 # (kernel, device functor of the step's vector field) -> (C symbol, ODE dim)
 _FUNCTORS = {
     ("step_ll_interval", "rigid_body"): ("odeckpt_step_ll_interval_rigid_body", 3),
+    ("step_ll_interval", "rigid_body_anisotropic"):
+        ("odeckpt_step_ll_interval_rigid_body_anisotropic", 3),
     ("step_ll_attempt", "rigid_body"): ("odeckpt_step_ll_attempt_rigid_body", 3),
     ("step_hi_interval", "rigid_body_df"): ("odeckpt_step_hi_interval_rigid_body_df", 3),
     ("step_hi_attempt", "rigid_body_df"): ("odeckpt_step_hi_attempt_rigid_body_df", 3),
@@ -71,7 +81,16 @@ _FUNCTORS = {
     ("step_dense_attempt", "brusselator"): ("odeckpt_step_dense_attempt_brusselator", 4),
     ("step_dense_interval", "rigid_body"): ("odeckpt_step_dense_interval_rigid_body", 3),
     ("step_dense_attempt", "rigid_body"): ("odeckpt_step_dense_attempt_rigid_body", 3),
+    ("step_bd_interval", "rigid_body"): ("odeckpt_step_bd_interval_rigid_body", 3),
+    ("step_bd_attempt", "rigid_body"): ("odeckpt_step_bd_attempt_rigid_body", 3),
+    ("step_bd_interval", "rigid_body_anisotropic"):
+        ("odeckpt_step_bd_interval_rigid_body_anisotropic", 3),
+    ("step_bd_attempt", "rigid_body_anisotropic"):
+        ("odeckpt_step_bd_attempt_rigid_body_anisotropic", 3),
+    ("step_everystep_attempt", "rigid_body"): ("odeckpt_step_everystep_attempt_rigid_body", 3),
 }
+# K7's strategy argument (the template parameter of step_ll.cuh's attempt)
+STRATEGY_CODES = {"fixedpoint": 0, "smoother": 1, "filter": 2}
 
 
 def _nvcc():
@@ -103,18 +122,30 @@ def _build_key():
 
 def _ptxas_key(symbol):
     """(kernel, template key) of a mangled step-kernel symbol: nu for K1-K4,
-    ``"<nu>/<ts1 or ts0>/<functor>"`` for K5; None for other symbols."""
-    m = re.search(r"(step_(?:ll|hi|dense)_(?:interval|attempt))ILi(\d+)E", symbol)
+    ``"<nu>/<ts1 or ts0>/<functor>"`` for K5, ``"<nu>/<functor>"`` for K6,
+    ``"<nu>/<strategy>"`` for K7; None for other symbols."""
+    m = re.search(r"(step_(?:ll|hi|dense|bd|everystep)_(?:interval|attempt))ILi(\d+)E", symbol)
     if m is None:
         return None
     kernel, nu = m.group(1), int(m.group(2))
+    rest = symbol[m.end():]
     if kernel.startswith("step_dense"):
-        fm = re.search(r"Lb([01])ENS_(\d+)", symbol)
+        fm = re.match(r"Lb([01])ENS_(\d+)", rest)
         if fm is None:
             return None
-        start = fm.end()
-        functor = symbol[start : start + int(fm.group(2))]
+        functor = rest[fm.end() : fm.end() + int(fm.group(2))]
         return kernel, f"{nu}/{'ts1' if fm.group(1) == '1' else 'ts0'}/{functor}"
+    if kernel.startswith("step_bd"):
+        fm = re.match(r"NS_(\d+)", rest)
+        if fm is None:
+            return None
+        return kernel, f"{nu}/{rest[fm.end() : fm.end() + int(fm.group(1))]}"
+    if kernel.startswith("step_everystep"):
+        fm = re.match(r"Li(\d)E", rest)
+        names = {code: name for name, code in STRATEGY_CODES.items()}
+        if fm is None or int(fm.group(1)) not in names:
+            return None
+        return kernel, f"{nu}/{names[int(fm.group(1))]}"
     return kernel, nu
 
 
@@ -122,7 +153,8 @@ def parse_ptxas(log):
     """Registers and spill bytes per kernel and template from ``ptxas -v``
     output: ``{kernel: {key: {"registers": r, "spill_stores": s,
     "spill_loads": l, "stack": f}}}``, keyed by nu for K1-K4 and by
-    ``"<nu>/<ts1 or ts0>/<functor>"`` for K5 (``"4/ts1/Brusselator"``)."""
+    ``"<nu>/<ts1 or ts0>/<functor>"`` for K5 (``"4/ts1/Brusselator"``),
+    ``"<nu>/<functor>"`` for K6 and ``"<nu>/<strategy>"`` for K7."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)", line)
@@ -142,33 +174,36 @@ def parse_ptxas(log):
     return out
 
 
-_INTERVAL_ARGS = [
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-    ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-    ctypes.c_void_p,
-]
-# the attempt entries take no max_attempts; K5's entries take an int ts1
-# flag after nu
-_ATTEMPT_ARGS = _INTERVAL_ARGS[:5] + _INTERVAL_ARGS[6:]
-_ARGTYPES = {
-    "interval": _INTERVAL_ARGS, "attempt": _ATTEMPT_ARGS,
-    "dense_interval": _INTERVAL_ARGS[:1] + [ctypes.c_int] + _INTERVAL_ARGS[1:],
-    "dense_attempt": _ATTEMPT_ARGS[:1] + [ctypes.c_int] + _ATTEMPT_ARGS[1:],
-}
+def _num_params(kernel, functor):
+    """Float parameters of an entry: K6's entries and those of the
+    anisotropic rigid body take a fourth, the scale."""
+    return 4 if kernel.startswith("step_bd") or functor == "rigid_body_anisotropic" else 3
 
 
-def _argtypes(kernel):
-    form = kernel.rsplit("_", 1)[1]
-    return _ARGTYPES[f"dense_{form}" if kernel.startswith("step_dense") else form]
+def _has_flag(kernel):
+    """Whether the entry takes an int after nu: K5's ts1 flag, K7's strategy."""
+    return kernel.startswith(("step_dense", "step_everystep"))
+
+
+def _argtypes(kernel, functor):
+    """C signature of a kernel's entry: nu, [flag], the host arrays of
+    input and output pointers, the constants, the batch, [max_attempts], the
+    functor's parameters, the device index, the stream."""
+    args = [ctypes.c_int] * (2 if _has_flag(kernel) else 1)
+    args += [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+    if kernel.endswith("interval"):
+        args.append(ctypes.c_int)
+    return (args + [ctypes.c_float] * _num_params(kernel, functor)
+            + [ctypes.c_int, ctypes.c_void_p])
 
 
 class _Library:
     def __init__(self, path, seconds, log):
         self.path, self.seconds, self.log = path, seconds, log
         self.lib = ctypes.CDLL(str(path))
-        for (kernel, _), (symbol, _) in _FUNCTORS.items():
+        for (kernel, functor), (symbol, _) in _FUNCTORS.items():
             fn = getattr(self.lib, symbol)
-            fn.argtypes = _argtypes(kernel)
+            fn.argtypes = _argtypes(kernel, functor)
             fn.restype = ctypes.c_int
         self.lib.odeckpt_error_string.argtypes = [ctypes.c_int]
         self.lib.odeckpt_error_string.restype = ctypes.c_char_p
@@ -236,13 +271,14 @@ def active_hi(state, t_next):
 
 
 def attempt_plain(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_scale):
-    """Plain version of the attempt kernels K3 and K4: one attempt of the
-    twin ``step`` on every lane (lanes at the checkpoint are frozen inside
-    the step)."""
+    """Plain version of the attempt kernels (K3, K4, K7 and the attempt
+    forms of K5 and K6): one attempt of the twin ``step`` on every lane
+    (lanes at the checkpoint are frozen inside the step)."""
     return step(state, t_next, atol, rtol, dt_max, dt_floor, tiny_scale)
 
 
 step_ll_attempt_plain = step_hi_attempt_plain = step_dense_attempt_plain = attempt_plain
+step_bd_attempt_plain = step_everystep_attempt_plain = attempt_plain
 
 
 def attempt_loop(attempt, active, step, state, t_next, *, max_attempts, **inputs):
@@ -257,15 +293,16 @@ def attempt_loop(attempt, active, step, state, t_next, *, max_attempts, **inputs
 
 
 def step_ll_interval_plain(step, state, t_next, *, max_attempts, **inputs):
-    """Plain version of K1 and of K5's interval form: attempts of the twin
-    (``batched.StepLL`` or ``batched_dense.StepDense``) while any lane has
+    """Plain version of K1 and of the interval forms of K5 and K6: attempts
+    of the twin (``batched.StepLL``, ``batched_dense.StepDense`` or
+    ``batched_blockdiag.StepBD``) while any lane has
     ``t < t_next``.  Lanes at the checkpoint are frozen inside the step, so
     every lane ends in the state the per-lane kernel loop leaves it in."""
     return attempt_loop(attempt_plain, active_ll, step, state, t_next,
                         max_attempts=max_attempts, **inputs)
 
 
-step_dense_interval_plain = step_ll_interval_plain
+step_dense_interval_plain = step_bd_interval_plain = step_ll_interval_plain
 
 
 def step_hi_interval_plain(step, state, t_next, *, max_attempts, **inputs):
@@ -324,19 +361,25 @@ def _launch(kernel, step, state, t_next, inputs, max_attempts=None):
     outs_ptr = (ctypes.c_void_p * len(outs))(*(x.data_ptr() for x in outs))
     consts = step.packed_constants()
     params = tuple(float(p) for p in step.functor_params)
-    if len(params) > 3:
-        raise ValueError(f"{kernel}: a device functor takes at most 3 parameters, got {params}")
-    p1, p2, p3 = params + (0.0,) * (3 - len(params))
+    num_params = _num_params(kernel, functor)
+    if len(params) > num_params:
+        raise ValueError(
+            f"{kernel}: a device functor takes at most {num_params} parameters, got {params}")
+    params = params + (0.0,) * (num_params - len(params))
     stream = torch.cuda.current_stream(device).cuda_stream
     index = device.index if device.index is not None else torch.cuda.current_device()
-    flags = (int(step.ts1),) if kernel.startswith("step_dense") else ()
+    flags = ()
+    if kernel.startswith("step_dense"):
+        flags = (int(step.ts1),)
+    elif kernel.startswith("step_everystep"):
+        flags = (STRATEGY_CODES[step.strategy],)
     head = (step.nu, *flags, ctypes.addressof(ins_ptr), ctypes.addressof(outs_ptr),
             consts.ctypes.data, batch)
     if max_attempts is not None:
         if not 0 <= int(max_attempts) < 2**31:
             raise ValueError(f"max_attempts must fit an int32, got {max_attempts}")
         head = head + (int(max_attempts),)
-    rc = getattr(lib.lib, symbol)(*head, p1, p2, p3, index, stream)
+    rc = getattr(lib.lib, symbol)(*head, *params, index, stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: {lib.error_string(rc)} ({rc})")
     LAUNCHES[kernel] += 1
@@ -403,3 +446,39 @@ def step_dense_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tin
     if state[0].device.type == "cpu":
         return step_dense_attempt_plain(step, state, t_next, **inputs)
     return _launch("step_dense_attempt", step, state, t_next, inputs)
+
+
+def step_bd_interval(step, state, t_next, *, atol, rtol, dt_max, dt_floor,
+                     tiny_scale, max_attempts):
+    """K6, interval form: advance every lane of the blockdiag 17-array state
+    ((n, d, B) means, (n, n, d, B) factors, (d, B) scales) to ``t_next`` (or
+    ``max_attempts`` attempts), one launch per interval.  ``step`` is the
+    twin ``batched_blockdiag.StepBD``."""
+    inputs = dict(atol=atol, rtol=rtol, dt_max=dt_max, dt_floor=dt_floor, tiny_scale=tiny_scale)
+    if state[0].device.type == "cpu":
+        return step_bd_interval_plain(step, state, t_next, max_attempts=max_attempts, **inputs)
+    return _launch("step_bd_interval", step, state, t_next, inputs, max_attempts)
+
+
+def step_bd_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_scale):
+    """K6, attempt form: one attempt of the blockdiag step on every lane."""
+    inputs = dict(atol=atol, rtol=rtol, dt_max=dt_max, dt_floor=dt_floor, tiny_scale=tiny_scale)
+    if state[0].device.type == "cpu":
+        return step_bd_attempt_plain(step, state, t_next, **inputs)
+    return _launch("step_bd_attempt", step, state, t_next, inputs)
+
+
+def step_everystep_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_scale):
+    """K7: one attempt of the isotropic step with ``step.strategy``
+    "smoother" (the attempt's own backward conditional, no accumulation) or
+    "filter" (no reversal) on every lane of the 17-array state.  ``step`` is
+    the twin ``batched.StepLL`` made with that strategy; the fixedpoint
+    strategy is K3's (``step_ll_attempt``)."""
+    if step.strategy not in ("smoother", "filter"):
+        raise ValueError(
+            f"step_everystep_attempt runs the smoother or the filter strategy, got "
+            f"{step.strategy!r} (fixedpoint: step_ll_attempt)")
+    inputs = dict(atol=atol, rtol=rtol, dt_max=dt_max, dt_floor=dt_floor, tiny_scale=tiny_scale)
+    if state[0].device.type == "cpu":
+        return step_everystep_attempt_plain(step, state, t_next, **inputs)
+    return _launch("step_everystep_attempt", step, state, t_next, inputs)

@@ -7,10 +7,10 @@ args)``, with vector fields taking the state positionally and keyword-only
 
 A vector field that the hand-written kernels can run carries the name of its
 device functor in ``vf.device_functor`` (see ``csrc/step_ll.cuh``,
-``csrc/step_hi.cuh`` and ``csrc/step_dense.cuh``).  The parameters ``p`` of
+``csrc/step_hi.cuh``, ``csrc/step_dense.cuh`` and ``csrc/step_bd.cuh``).  The parameters ``p`` of
 a plain vector field are passed to that functor as kernel arguments, unless
-the vector field names its own in ``vf.device_params``; a pair vector field
-carries its own in ``vf_df.params``.
+the vector field names its own in ``vf.device_params`` (a tuple, or a
+function of ``p``); a pair vector field carries its own in ``vf_df.params``.
 
 ``vf.jac(u, t=, p=)`` where present is the hand-derived Jacobian
 ``J[r, c] = d f_r / d u_c`` as a (d, d, ...) tensor, written in the order
@@ -48,6 +48,45 @@ def rigid_body(*, time_span=(0.0, 10.0)):
     vf.jac = jac
     u0 = torch.tensor([1.0, 0.0, 0.9], dtype=torch.float64)
     return vf, (u0,), tuple(time_span), (-2.0, 1.25, -0.5)
+
+
+#: Per-component scale of ``rigid_body_anisotropic``: the third component
+#: lives 4 decades above the others.
+ANISOTROPIC_SCALE = (1.0, 1.0, 1e4)
+
+
+def rigid_body_anisotropic(*, time_span=(0.0, 50.0), scale=ANISOTROPIC_SCALE):
+    """The rigid body in rescaled coordinates z = scale * y with
+    ``scale = (1, 1, s3)`` (``experiments/6_tpu_batched_sweep/
+    blockdiag_tpu.py:36-53``): one shared output scale misfits the third
+    component by ``log10(s3)`` decades, which is what the blockdiag backend's
+    per-dimension scales are for.
+
+    The device functor ``"rigid_body_anisotropic"`` takes
+    ``(p1, p2, s3 * p3, s3)`` as its kernel arguments: ``vf.device_params``
+    maps the parameters ``p`` to them (the product is formed once, in
+    Python, as the vector field forms it).
+    """
+    s1, s2, s3 = (float(c) for c in scale)
+    if (s1, s2) != (1.0, 1.0):
+        raise NotImplementedError(
+            "rigid_body_anisotropic rescales the third component only, as the "
+            "reference's experiment does"
+        )
+    params = (-2.0, 1.25, -0.5)
+
+    def vf(u, *, t, p):
+        p1, p2, p3 = p
+        # divide by a tensor: torch turns division by a Python scalar into a
+        # multiplication by its reciprocal, which rounds differently
+        w = u[2] / torch.full_like(u[2], s3)
+        return torch.stack([p1 * u[1] * w, p2 * u[0] * w, (s3 * p3) * u[0] * u[1]])
+
+    vf.device_functor = "rigid_body_anisotropic"
+    vf.device_params = lambda p: (p[0], p[1], s3 * p[2], s3)
+    u0 = torch.tensor([1.0, 0.0, 0.9], dtype=torch.float64) * torch.tensor(
+        [s1, s2, s3], dtype=torch.float64)
+    return vf, (u0,), tuple(time_span), params
 
 
 def brusselator(N, t0=0.0, tmax=10.0, laplacian="slices"):

@@ -1,15 +1,14 @@
 """SSM backends in square-root form (PyTorch counterpart of
-``odecheckpts_tpu.ssm``).  The isotropic and the dense backend are ported."""
+``odecheckpts_tpu.ssm``).  The isotropic, the dense and the blockdiag backend
+are ported."""
 
 from .base import Conditional, MarkovSeq, Normal  # noqa: F401
+from .blockdiag import BlockDiagSSM  # noqa: F401
 from .dense import DenseSSM  # noqa: F401
 from .isotropic import IsotropicSSM  # noqa: F401
 
-_BACKENDS = {"isotropic": IsotropicSSM, "dense": DenseSSM}
-_NOT_PORTED = {
-    "blockdiag": "ROADMAP queue 1 item 7 (blockdiag)",
-    "scalar": "ROADMAP queue 1 item 7 (blockdiag)",
-}
+_BACKENDS = {"isotropic": IsotropicSSM, "dense": DenseSSM, "blockdiag": BlockDiagSSM}
+_NOT_PORTED = {"scalar": "ROADMAP queue 1 item 7 (blockdiag)"}
 
 
 def choose(implementation: str, *, ode_shape: tuple, num_derivatives: int):

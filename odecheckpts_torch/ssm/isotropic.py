@@ -46,6 +46,12 @@ class IsotropicSSM:
     def qoi(self, mean):
         return mean[..., 0, :]
 
+    def qoi_std(self, rv):
+        """Marginal standard deviation of the solution, (..., d): the shared
+        factor's first row norm for every dimension."""
+        s = torch.sqrt(torch.sum(rv.cholesky[..., 0, :] ** 2, dim=-1))
+        return s[..., None].expand(rv.mean.shape[:-2] + (self.d,))
+
     def _system(self, like):
         return prior.system_matrices(
             self.num_derivatives, dtype=like.dtype, device=like.device

@@ -194,7 +194,9 @@ def test_hbm_guard_estimate_is_monotone_and_guard_raises():
     # (test_torch_dense.py); its own unported options raise there
     dict(correction="ts1", calibration="none"), dict(error_unit="residual"),
     dict(implementation="dense", strategy="filter"),
-    dict(implementation="blockdiag"), dict(num_derivatives=5),
+    # the blockdiag backend runs on the blockdiag engine (test_torch_blockdiag.py);
+    # its own unported options raise there
+    dict(implementation="blockdiag", strategy="filter"), dict(num_derivatives=5),
 ])
 def test_unported_options_name_their_roadmap_item(option):
     u0s, tols = _ensemble(8, np.float32)

@@ -1,4 +1,4 @@
-"""The kernel wrappers' contract (K1-K5), and each kernel against its twin
+"""The kernel wrappers' contract (K1-K7), and each kernel against its twin
 on the card.
 
 This file imports no JAX, so the tests that need the card run where only
@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from odecheckpts_torch import batched, batched_dense, batched_hi, kernels, problems
+from odecheckpts_torch import (batched, batched_blockdiag, batched_dense, batched_hi, kernels,
+                               problems)
 
 INPUT_NAMES = ("atol", "rtol", "dt_max", "dt_floor", "tiny_scale")
 
@@ -251,6 +252,25 @@ def test_df32_kernels_refuse_a_vector_field_without_device_functor(cuda_device):
                                 **{k: v.double() for k, v in inputs.items()})
 
 
+def _random_backward(state, rng, device):
+    """``state`` with random backward conditionals of the state's own shapes
+    (isotropic (n, n, B) or blockdiag (n, n, d, B) factors): within the first
+    interval they are exactly zero, which would leave the fixedpoint
+    accumulation out."""
+    out = list(state)
+    n = out[3].shape[0]
+    lead = (n, n) + (1,) * (out[3].dim() - 2)
+    for i in (3, 10):
+        out[i] = np.eye(n).reshape(lead) + 0.3 * rng.standard_normal(out[i].shape) / np.sqrt(n)
+    for i in (4, 11):
+        out[i] = rng.standard_normal(out[i].shape)
+    for i in (5, 12):
+        out[i] = 0.3 * rng.standard_normal(out[i].shape) * np.tril(np.ones((n, n))).reshape(lead)
+    for i in (3, 4, 5, 10, 11, 12):
+        out[i] = torch.tensor(out[i], dtype=torch.float32, device=device)
+    return tuple(out)
+
+
 def _start_dense(problem, correction, *, batch=64, warm_steps=10, device="cpu"):
     """A lanes-last state of the dense engine (K5), advanced by the twin from
     the Taylor init toward the first checkpoint (with random backward
@@ -275,23 +295,7 @@ def _start_dense(problem, correction, *, batch=64, warm_steps=10, device="cpu"):
     for _ in range(warm_steps):
         state = kernels.attempt_plain(step, state, t_next, **inputs)
     if warm_steps:
-        # random backward conditionals: within the first interval they are
-        # zero (the Taylor init has zero covariance), which would leave the
-        # fixedpoint accumulation out
-        state = list(state)
-        nd = state[3].shape[0]
-        for i in (3, 10):
-            state[i] = torch.eye(nd, device=device)[:, :, None] + 0.3 * torch.tensor(
-                rng.standard_normal((nd, nd, batch)) / np.sqrt(nd), dtype=torch.float32,
-                device=device)
-        for i in (4, 11):
-            state[i] = torch.tensor(rng.standard_normal((nd, batch)), dtype=torch.float32,
-                                    device=device)
-        for i in (5, 12):
-            state[i] = 0.3 * torch.tensor(
-                np.tril(rng.standard_normal((batch, nd, nd))).transpose(1, 2, 0).copy(),
-                dtype=torch.float32, device=device)
-        state = tuple(state)
+        state = _random_backward(state, rng, device)
     return step, state, t_next, inputs
 
 
@@ -401,3 +405,194 @@ def test_dense_kernels_refuse_a_vector_field_without_device_functor(cuda_device)
     with pytest.raises(ValueError, match="float32"):
         kernels.step_dense_attempt(step, tuple(x.double() for x in state), t_next.double(),
                                    **{k: v.double() for k, v in inputs.items()})
+
+
+# ---------------------------------------------------------------------------
+# K6 (blockdiag, interval and attempt form) and K7 (save every step)
+
+
+def _start_bd(problem, nu, *, batch=64, warm_steps=20, device="cpu"):
+    """A lanes-last state of the blockdiag engine (K6), advanced by the twin
+    from the Taylor init toward the first checkpoint (with random backward
+    conditionals if advanced at all); returns (step, state, t_next, inputs)."""
+    if problem == "anisotropic":
+        vf, (y0,), _, params = problems.rigid_body_anisotropic()
+        dt0 = 0.01
+    else:
+        vf, (y0,), _, params = problems.rigid_body()
+        dt0 = 0.1
+    rng = np.random.default_rng(8)
+    u0s = y0.numpy()[None] * (1.0 + 0.05 * rng.standard_normal((batch, 3)))
+    tols = torch.tensor(np.geomspace(1e-2, 1e-6, batch), dtype=torch.float32, device=device)
+    save_at = np.linspace(0.0, 10.0, 5).astype(np.float32)
+    state, _, inputs = batched_blockdiag.initial_state(
+        vf, torch.tensor(u0s, dtype=torch.float32, device=device), params, save_at=save_at,
+        dt0=dt0, tols=tols, num_derivatives=nu)
+    step = batched_blockdiag.make_step_bd(vf, params, nu=nu, d=3)
+    t_next = torch.full((1, batch), float(save_at[1]), device=device)
+    for _ in range(warm_steps):
+        state = kernels.attempt_plain(step, state, t_next, **inputs)
+    if warm_steps:
+        state = _random_backward(state, rng, device)
+    return step, state, t_next, inputs
+
+
+def _start_everystep(strategy, nu, *, batch=64, warm_steps=20, device="cpu"):
+    """A lanes-last state of the save-every-step driver (K7), advanced by the
+    twin with ``strategy`` from the Taylor init toward t1 = 10 (contiguous:
+    the twin's gains are transposed views); returns (step, state, t1,
+    inputs)."""
+    rng = np.random.default_rng(9)
+    u0s = np.array([1.0, 0.0, 0.9]) * (1.0 + 0.05 * rng.standard_normal((batch, 3)))
+    tols = torch.tensor(np.geomspace(1e-1, 1e-5, batch), dtype=torch.float32, device=device)
+    vf, _, _, params = problems.rigid_body()
+    state, _, inputs = batched.initial_state(
+        vf, torch.tensor(u0s, dtype=torch.float32, device=device), params,
+        save_at=np.array([0.0, 10.0], np.float32), dt0=0.1, tols=tols, num_derivatives=nu,
+        strategy=strategy)
+    step = batched.make_step_ll(vf, params, nu=nu, d=3, strategy=strategy)
+    t1 = torch.full((1, batch), 10.0, device=device)
+    for _ in range(warm_steps):
+        state = kernels.attempt_plain(step, state, t1, **inputs)
+    return step, tuple(x.contiguous() for x in state), t1, inputs
+
+
+@pytest.mark.parametrize("kernel", ["step_bd_interval", "step_bd_attempt",
+                                    "step_everystep_attempt"])
+def test_k6_k7_wrappers_run_the_plain_version_on_cpu_and_refuse_other_devices(kernel):
+    if kernel == "step_everystep_attempt":
+        step, state, t_next, inputs = _start_everystep("smoother", 4, batch=8, warm_steps=3)
+    else:
+        step, state, t_next, inputs = _start_bd("anisotropic", 4, batch=8, warm_steps=3)
+    kw = dict(max_attempts=3) if kernel.endswith("interval") else {}
+    before = dict(kernels.LAUNCHES)
+    got = getattr(kernels, kernel)(step, state, t_next, **inputs, **kw)
+    want = getattr(kernels, kernel + "_plain")(step, state, t_next, **inputs, **kw)
+    assert kernels.LAUNCHES == before  # no kernel ran
+    assert [tuple(x.shape) for x in got] == [tuple(s) for s in step.state_shapes(8)]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    meta = tuple(x.to("meta") for x in state)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(kernels, kernel)(step, meta, t_next.to("meta"), **kw,
+                                 **{k: v.to("meta") for k, v in inputs.items()})
+
+
+def test_plain_bd_interval_lands_every_lane_on_the_checkpoint():
+    step, state, t_next, inputs = _start_bd("rigid_body", 4, batch=8, warm_steps=0)
+    assert state[2].shape == (5, 5, 3, 8) and state[6].shape == (3, 8)
+    capped = kernels.step_bd_interval_plain(step, state, t_next, max_attempts=2, **inputs)
+    assert float(torch.max(capped[15])) <= 2
+    done = kernels.step_bd_interval_plain(step, state, t_next, max_attempts=100_000, **inputs)
+    assert bool(torch.all(done[0] >= t_next))
+    again = kernels.step_bd_attempt(step, done, t_next, **inputs)
+    for g, w in zip(again, done):  # lanes at the checkpoint are frozen
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_everystep_attempt_refuses_the_fixedpoint_strategy():
+    step, state, t1, inputs = _start_everystep("smoother", 2, batch=8, warm_steps=0)
+    fixedpoint = batched.make_step_ll(step.vf, step.params, nu=2, d=3)
+    with pytest.raises(ValueError, match="step_ll_attempt"):
+        kernels.step_everystep_attempt(fixedpoint, state, t1, **inputs)
+    with pytest.raises(ValueError, match="strategy"):
+        batched.make_step_ll(step.vf, step.params, nu=2, d=3, strategy="fixed")
+
+
+def test_packed_constants_and_functor_parameters_of_the_blockdiag_step():
+    vf, _, _, params = problems.rigid_body_anisotropic()
+    step = batched_blockdiag.make_step_bd(vf, params, nu=4, d=3)
+    c = step.packed_constants()
+    assert c.dtype == np.float32 and c.shape == (71,)  # sizeof(Consts) / 4, NMAX = 5
+    np.testing.assert_array_equal(c[:25].reshape(5, 5), np.float32(step.a_rows))
+    assert c[63] == np.float32(10.0)  # kappa: the TS0 default
+    assert step.functor_params == (-2.0, 1.25, -5000.0, 1e4)  # p1, p2, s3 * p3, s3
+    assert step.device_functor == "rigid_body_anisotropic"
+    assert kernels._num_params("step_bd_attempt", "rigid_body") == 4
+    assert kernels._num_params("step_ll_interval", "rigid_body_anisotropic") == 4
+    assert len(kernels._argtypes("step_bd_interval", "rigid_body")) == 12
+    assert len(kernels._argtypes("step_everystep_attempt", "rigid_body")) == 11
+    assert len(kernels._argtypes("step_ll_interval", "rigid_body")) == 11
+
+
+def test_parse_ptxas_reads_the_blockdiag_and_everystep_entries():
+    def entry(name, regs, stack):
+        return [
+            f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {name}",
+            f"    {stack} bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+            f"ptxas info    : Used {regs} registers, used 0 barriers, {stack} bytes cumulative "
+            "stack size",
+        ]
+
+    log = "\n".join(
+        entry("_ZN12_GLOBAL__N_116step_bd_intervalILi4ENS_14RigidBodyAnisoEEEvNS_4ArgsENS_6"
+              "ConstsET0_li", 128, 3000)
+        + entry("_ZN12_GLOBAL__N_115step_bd_attemptILi2ENS_9RigidBodyEEEvNS_4ArgsENS_6ConstsET0_l",
+                96, 900)
+        + entry("_ZN12_GLOBAL__N_122step_everystep_attemptILi4ELi1ENS_9RigidBodyEEEvNS_4ArgsENS_6"
+                "ConstsET1_l", 255, 400)
+        + entry("_ZN12_GLOBAL__N_122step_everystep_attemptILi3ELi2ENS_9RigidBodyEEEvNS_4ArgsENS_6"
+                "ConstsET1_l", 200, 0)
+    )
+    props = lambda regs, stack: {"stack": stack, "spill_stores": 0, "spill_loads": 0,  # noqa: E731
+                                 "registers": regs}
+    assert kernels.parse_ptxas(log) == {
+        "step_bd_interval": {"4/RigidBodyAniso": props(128, 3000)},
+        "step_bd_attempt": {"2/RigidBody": props(96, 900)},
+        "step_everystep_attempt": {"4/smoother": props(255, 400), "3/filter": props(200, 0)},
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["step_bd_interval-1", "step_bd_interval-100000",
+                                    "step_bd_attempt"])
+@pytest.mark.parametrize("nu", [2, 3, 4])
+@pytest.mark.parametrize("problem", ["anisotropic", "rigid_body"])
+def test_blockdiag_kernels_k6_match_twin_on_the_card(cuda_device, problem, nu, kernel):
+    step, state, t_next, inputs = _start_bd(problem, nu, batch=1000, device=cuda_device)
+    name, _, cap = kernel.partition("-")
+    kw = dict(max_attempts=int(cap)) if cap else {}
+    before = kernels.LAUNCHES[name]
+    got = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+    assert kernels.LAUNCHES[name] == before + 1
+    want = getattr(kernels, name + "_plain")(step, state, t_next, **inputs, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):  # bit for bit
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    if cap == "100000":
+        assert bool(torch.all(got[0] >= t_next))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm_steps", [0, 20])
+@pytest.mark.parametrize("nu", [2, 3, 4])
+@pytest.mark.parametrize("strategy", ["smoother", "filter"])
+def test_everystep_kernel_k7_matches_twin_on_the_card(cuda_device, strategy, nu, warm_steps):
+    step, state, t1, inputs = _start_everystep(strategy, nu, batch=1000, warm_steps=warm_steps,
+                                               device=cuda_device)
+    before = kernels.LAUNCHES["step_everystep_attempt"]
+    got = kernels.step_everystep_attempt(step, state, t1, **inputs)
+    assert kernels.LAUNCHES["step_everystep_attempt"] == before + 1
+    want = kernels.step_everystep_attempt_plain(step, state, t1, **inputs)
+    torch.cuda.synchronize()
+    assert int(torch.sum(want[0] != state[0])) > 0  # some lanes accepted
+    for g, w in zip(got, want):  # bit for bit
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_k6_k7_refuse_a_vector_field_without_device_functor(cuda_device):
+    step, state, t_next, inputs = _start_bd("rigid_body", 4, batch=128, warm_steps=0,
+                                            device=cuda_device)
+    vf, _, _, params = problems.rigid_body()
+    bare_vf = lambda y, *, t, p: vf(y, t=t, p=p)  # noqa: E731
+    bare = batched_blockdiag.make_step_bd(bare_vf, params, nu=4, d=3)
+    for fn, kw in ((kernels.step_bd_interval, dict(max_attempts=1)), (kernels.step_bd_attempt, {})):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(bare, state, t_next, **inputs, **kw)
+    step, state, t1, inputs = _start_everystep("filter", 4, batch=128, warm_steps=0,
+                                               device=cuda_device)
+    bare = batched.make_step_ll(bare_vf, params, nu=4, d=3, strategy="filter")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernels.step_everystep_attempt(bare, state, t1, **inputs)
