@@ -96,9 +96,54 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
     the same span.  Reported: median of 3 solves, the attempts with emission
     and the backward sweep apart (CUDA events), mean valid slots, peak
     memory; one K7 launch against its plain version, timed.
-21. the kernel table line and the result line.
+21. combine_pit: K8 (``kernels.pit_combine``) against its plain version
+    ``pit_fused.combine_sqrt_ll`` on random elements from numpy seed 0, f32
+    and f64, every built (m, c) in {3, 4, 5} x {1, 2, 3}, P = 1024 and a
+    ragged P = 1000, and on the element pairs of two levels of the main row's
+    second window (captured from a solve of the row's first two windows): all
+    five outputs equal (maximum deviation 0.0).
+22. main_pit (K8): the crossover workload of
+    ``experiments/6_tpu_batched_sweep/pit_crossover.py`` at full width: rigid
+    body, tspan (0, 10), nu = 3, TS0, filter, dynamic calibration, float32,
+    uniform grid T = 16385, one IVP.  Rows: the sequential
+    ``ivpsolve.solve_fixed_grid`` (once, after a warm-up on 257 grid points);
+    ``parallel=True, form="sqrt", iterations=2, warmstart="rk:16"`` with
+    ``combine_engine="cuda"`` at window 1024 over the whole grid, and on the
+    grid's first 4,097 points with "ll" and None at window 1024 and "cuda" at
+    window 512 (most f32 windows fall back to the sequential filter, 4-6 s
+    each in eager PyTorch, so the rows beside the kernel's are cut in depth;
+    warm start and filter are causal, so the sequential row's first 4,097
+    points are their reference).  Each row is one solve after a warm-up on
+    its first two windows with the gate off.  Gates:
+    every output finite; the sequential row within 1e-2 (max abs) of
+    LSODA(1e-12) at the grid points (a CPU f32 run of the port measured
+    2.31e-3); each parallel row within 1e-2 of the sequential ``u`` relative
+    to its maximum; "cuda" equal to "ll" in every output on four windows
+    solved with the gate off (``fallback_rtol=None``: every answer the
+    prefix' own; the "cuda" row's first 4,097 points against the "ll" row are
+    reported beside it); no "cuda" row in which every window fell back to the
+    sequential filter.  Reported per
+    row: ``window_diverged`` (count), ``window_delta`` (max),
+    ``speedup_vs_seq``, K8 launches, and where a "cuda" solve's time goes
+    (the warm start alone; two windows of sweeps with the gate off).  One f64
+    pair on the first 2 windows (T = 2049, the same dt): window 1024 with
+    "cuda" within 1e-6 of the f64 sequential row.
+23. launch_pit: one K8 launch on the element pairs of the last level of the
+    main row's second window (m = 4, c = 3, P = 1024) against its plain
+    version (plain, kernel, kernel, plain), CUDA events.
+24. batched_qr: K9 (``batched_qr.batched_qr_r``) against its plain version
+    (equal) and against ``batched_qr_r_reference`` (atol 2e-5, Grams 2e-4) at
+    (130, 10, 5), (128, 6, 6), (64, 4, 2) and (32768, 10, 5); at the last the
+    times of K9, of the plain version and of ``torch.linalg.qr(mode="r")`` with
+    the diagonal's sign fixed (the library call; the port never uses it).
+25. qr_packing: K10 and K11 (``qr_packing.bench_kernel``) against their plain
+    versions at iters 1 and 3 and m = n in {10, 8, 6} (equal), against each
+    other on the upper triangle (rtol 2e-4, atol 2e-5), then timed at
+    m = n = 10, iters 200, B = 8192 (the reference's size), 32,768 and
+    262,144: millions of QRs per second and ``packed_over_cols``.
+26. the kernel table line and the result line.
 
-Each path of phases 4, 6, 8, 9, 11, 13, 15, 18 and 20 runs with the launch
+Each path of phases 4, 6, 8, 9, 11, 13, 15, 18, 20 and 22 runs with the launch
 counts set to 0 just before it and read just after; a kernel of the path
 that did not launch fails the run.  Kernel-against-plain comparisons run outside those
 windows.  Each kernel's ``bound_ms`` is the larger of its state's bytes
@@ -106,7 +151,10 @@ windows.  Each kernel's ``bound_ms`` is the larger of its state's bytes
 operations of the accepted attempts of the timed launch over 67 TFLOP/s
 (the QRs, triangular solves and products of an attempt, counted from the
 shapes in ``_attempt_flops``; rejected attempts are not counted, so the bound
-is a lower one).
+is a lower one).  K8-K11: each input read once and each output written once,
+against the operations of the algorithm (``_combine_flops``; ``_qr_flops``
+per QR, the same count for K10 and K11); K9-K11 are on no solve path, their
+``launches`` are those of their phases.
 """
 
 from __future__ import annotations
@@ -180,7 +228,16 @@ KERNELS = {  # wrapper -> (id, source, the TPU kernel it replaces)
                         "odecheckpts_tpu/batched_blockdiag.py:488"),
     "step_everystep_attempt": ("K7", "odecheckpts_torch/csrc/step_everystep_attempt.cu",
                                "odecheckpts_tpu/batched_everystep.py:238"),
+    "pit_combine": ("K8", "odecheckpts_torch/csrc/pit_combine.cu",
+                    "odecheckpts_tpu/pit_fused.py:198"),
+    "batched_qr_r": ("K9", "odecheckpts_torch/csrc/batched_qr.cu",
+                     "odecheckpts_tpu/pallas_kernels.py:88"),
+    "qr_packing_cols": ("K10", "odecheckpts_torch/csrc/qr_packing.cu",
+                        "experiments/6_tpu_batched_sweep/qr_packing_bench.py:103"),
+    "qr_packing_masked": ("K11", "odecheckpts_torch/csrc/qr_packing.cu",
+                          "experiments/6_tpu_batched_sweep/qr_packing_bench.py:131"),
 }
+STANDALONE = ("batched_qr_r", "qr_packing_cols", "qr_packing_masked")  # on no solve path
 # the dense row (experiments/4_brusselator/dense_ts1_tpu.py:76-99)
 DENSE_N = 2
 DENSE_RTOL = 1e-5
@@ -203,6 +260,22 @@ ES_TOL = 1e-4
 ES_TSPAN = (0.0, 10.0)
 ES_MAX_STEPS = 256
 ES_SMOOTHED_FACTOR = 10.0
+# the fixed-grid row (experiments/6_tpu_batched_sweep/pit_crossover.py:62-73, 111-154)
+PIT_NU = 3
+PIT_T = 16_385
+PIT_TSPAN = (0.0, 10.0)
+PIT_KW = dict(parallel=True, form="sqrt", iterations=2, warmstart="rk:16")
+# (window, combine_engine, windows solved): the kernel's row at full width; its plain
+# twin's, window 512 and engine None on the grid's first 4,097 points
+PIT_ROWS = ((1024, "cuda", None), (1024, "ll", 4), (512, "cuda", 8), (1024, None, 4))
+PIT_REL_GATE = 1e-2
+PIT_LSODA_BOUND = 1e-2  # max abs; a CPU f32 run of the port measured 2.31e-3
+PIT_F64_WINDOWS = 2
+PIT_F64_GATE = 1e-6
+PIT_SEQ_WARM_T = 257
+QR_SHAPES = ((130, 10, 5), (128, 6, 6), (64, 4, 2), (32_768, 10, 5))
+PACKING_ITERS = 200
+PACKING_BATCHES = (8_192, 32_768, 262_144)
 # the H100 SXM's published peaks: f32 outside the tensor cores and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -243,7 +316,12 @@ def phase_build():
             "step_hi_interval": (4, 5), "step_hi_attempt": (4, 5),
             "step_dense_interval": dense, "step_dense_attempt": dense,
             "step_bd_interval": bd, "step_bd_attempt": bd,
-            "step_everystep_attempt": everystep}
+            "step_everystep_attempt": everystep,
+            "pit_combine": tuple(f"{t}/{m}/{c}" for t in ("f32", "f64") for m in kernels.PIT_COMBINE_M
+                                 for c in kernels.PIT_COMBINE_C),
+            "batched_qr_r": tuple(f"{m}/{n}" for m, n in kernels.BATCHED_QR_SHAPES),
+            "qr_packing_cols": tuple(f"{m}/{n}" for m, n in kernels.QR_PACKING_SHAPES),
+            "qr_packing_masked": tuple(f"{m}/{n}" for m, n in kernels.QR_PACKING_SHAPES)}
     missing = [(k, nu) for k, nus in want.items() for nu in nus
                if "registers" not in ptxas.get(k, {}).get(nu, {})]
     if missing:
@@ -1580,6 +1658,385 @@ def phase_launch_everystep(device, row):
     return _timing("step_everystep_attempt", times, state, 15, nu=4, d=3)
 
 
+def _combine_flops(m, c):
+    """Operations of one sqrt combine (``pit_fused.combine_sqrt_ll``): eight
+    (m, m, m) and twelve (m, m, c) products at 2 per multiply-add, four
+    (2m, m) QRs, one Gram solve with m and two with c right-hand sides
+    (2 m^2 each), two right solves (m^3 each); the additions of the results
+    are left out, so this is a lower count."""
+    return (16 * m**3 + 24 * m * m * c + 4 * _qr_flops(2 * m, m, m) + 2 * m**3 + 4 * m * m * c
+            + 2 * m**3)
+
+
+def _max_dev(got, want, torch):
+    return max(float(torch.max(torch.abs(g - w))) if g.numel() else 0.0
+               for g, w in zip(got, want))
+
+
+def _pit_problem(dtype, device, num_points=PIT_T):
+    """The crossover workload: vf, init in ``dtype`` on ``device``, solver and
+    the uniform grid's first ``num_points`` points (numpy float64)."""
+    import torch
+
+    from odecheckpts_torch import ivpsolvers, problems, taylor
+    from odecheckpts_torch.ssm.base import Normal
+
+    vf_p, u0s, _, params = problems.rigid_body(time_span=PIT_TSPAN)
+
+    def vf(u, *, t):
+        return vf_p(u, t=t, p=params)
+
+    prior = ivpsolvers.prior_ibm(num_derivatives=PIT_NU, ode_shape=(3,))
+    solver = ivpsolvers.solver_dynamic(
+        ivpsolvers.strategy_filter(prior, ivpsolvers.correction_ts0()))
+    tcoeffs = taylor.odejet_padded_scan(lambda u: vf(u, t=PIT_TSPAN[0]), u0s, num=PIT_NU)
+    rv, scale = solver.initial_condition(tcoeffs, 1.0)
+    init = (Normal(rv.mean.to(device=device, dtype=dtype),
+                   rv.cholesky.to(device=device, dtype=dtype)),
+            scale.to(device=device, dtype=dtype))
+    grid = np.linspace(PIT_TSPAN[0], PIT_TSPAN[1], PIT_T)[:num_points]
+    return vf, init, solver, torch.tensor(grid, dtype=dtype, device=device)
+
+
+def _capture_second_window(device):
+    """The element pairs that K8 is given on the first and on the last level
+    of the final sweep of the main row's second window, from a solve of the
+    row's first two windows; each a pair of 5-tuples at m = 4, c = 3,
+    P = 1024."""
+    import torch
+
+    from odecheckpts_torch import ivpsolve, kernels
+
+    vf, init, solver, grid = _pit_problem(torch.float32, device, 2 * 1024 + 1)
+    calls, launch = [], kernels.pit_combine  # the gate off: no window is solved twice
+
+    def recording(e_i, e_j):
+        calls.append((e_i, e_j))
+        return launch(e_i, e_j)
+
+    kernels.pit_combine = recording
+    try:
+        ivpsolve.solve_fixed_grid(vf, init, grid=grid, solver=solver, window=1024,
+                                  combine_engine="cuda", fallback_rtol=None, **PIT_KW)
+    finally:
+        kernels.pit_combine = launch
+    torch.cuda.synchronize()
+    levels = 10  # log2(1024); two sweeps a window
+    if len(calls) != 2 * 2 * levels:
+        raise AssertionError(f"two windows of two sweeps launch K8 {4 * levels} times, "
+                             f"saw {len(calls)}")
+    return {"first_level": calls[3 * levels], "last_level": calls[4 * levels - 1]}
+
+
+def phase_combine_pit(device, captured):
+    """K8 against its plain version: every built size, both types, a full
+    and a ragged width, and the captured pairs of the main row."""
+    import torch
+
+    from odecheckpts_torch import kernels
+
+    rng = np.random.default_rng(SEED)
+    cases = [(f"{'f32' if dt == torch.float32 else 'f64'}/{m}/{c}/{p}", dt, m, c, p)
+             for dt in (torch.float32, torch.float64) for m in kernels.PIT_COMBINE_M
+             for c in kernels.PIT_COMBINE_C for p in (1024, 1000)]
+    devs = {}
+    for label, dt, m, c, p in cases:
+        shapes = ((m, m, p), (m, c, p), (m, m, p), (m, c, p), (m, m, p))
+        e_i, e_j = (tuple(torch.tensor(rng.standard_normal(s), dtype=dt, device=device)
+                          for s in shapes) for _ in range(2))
+        devs[label] = _max_dev(kernels.pit_combine(e_i, e_j),
+                               kernels.pit_combine_plain(e_i, e_j), torch)
+    for label, (e_i, e_j) in captured.items():
+        devs[f"main_row/{label}"] = _max_dev(kernels.pit_combine(e_i, e_j),
+                                             kernels.pit_combine_plain(e_i, e_j), torch)
+    torch.cuda.synchronize()
+    worst = max(devs.values())
+    failed = [k for k, v in devs.items() if not v == 0.0]
+    emit({"phase": "combine_pit", "kernel": "K8", "cases": len(devs), "max_abs_dev": worst,
+          "nonzero": {k: devs[k] for k in failed}})
+    if failed:
+        raise AssertionError(f"K8 differs from its plain version in {failed}")
+    return {"pit_combine": worst}
+
+
+def _pit_outputs(sol):
+    return (sol.u, sol.u_std, sol.output_scale, sol.posterior.init.mean,
+            sol.posterior.init.cholesky)
+
+
+def phase_main_pit(device):
+    """The fixed-grid rows: sequential, and parallel in time on K8."""
+    import scipy.integrate
+    import torch
+
+    from odecheckpts_torch import ivpsolve, kernels
+
+    vf, init, solver, grid = _pit_problem(torch.float32, device)
+    p1, p2, p3 = -2.0, 1.25, -0.5
+    t_eval = grid.double().cpu().numpy()
+    truth = scipy.integrate.solve_ivp(
+        lambda _t, y: [p1 * y[1] * y[2], p2 * y[0] * y[2], p3 * y[0] * y[1]],
+        (t_eval[0], t_eval[-1]), [1.0, 0.0, 0.9], t_eval=t_eval, rtol=1e-12, atol=1e-12,
+        method="LSODA").y.T
+
+    ivpsolve.solve_fixed_grid(vf, init, grid=grid[:PIT_SEQ_WARM_T], solver=solver)  # warm-up
+    t_seq, seq = _timed(lambda: ivpsolve.solve_fixed_grid(vf, init, grid=grid, solver=solver))
+    u_seq = seq.u.double()
+    err_truth = float(np.max(np.abs(u_seq.cpu().numpy() - truth)))
+    seq_ok = (bool(torch.all(torch.isfinite(seq.u))) and tuple(seq.u.shape) == (PIT_T, 3)
+              and err_truth < PIT_LSODA_BOUND)
+    emit({"phase": "main_pit", "row": "sequential", "dtype": "float32", "T": PIT_T,
+          "seconds": t_seq, "max_abs_err_vs_lsoda": err_truth, "bound": PIT_LSODA_BOUND,
+          "steps_per_sec": (PIT_T - 1) / t_seq})
+    failed = [] if seq_ok else [("sequential", err_truth)]
+
+    def parallel(window, engine, grid_=grid, init_=init, fallback_rtol=1.0):
+        return ivpsolve.solve_fixed_grid(vf, init_, grid=grid_, solver=solver, window=window,
+                                         combine_engine=engine, fallback_rtol=fallback_rtol,
+                                         return_diagnostics=True, **PIT_KW)
+
+    outs = {}
+    for window, engine, cut in PIT_ROWS:
+        num = PIT_T if cut is None else cut * window + 1  # the sequential filter is causal
+        u_ref, share = u_seq[:num], (num - 1) / (PIT_T - 1)
+        # warm-up: the first two windows, the gate off (the fallback's steps are
+        # the sequential row's, warm already)
+        parallel(window, engine, grid[: 2 * window + 1], fallback_rtol=None)
+        before = kernels.LAUNCHES["pit_combine"]
+        seconds, (sol, diag) = _timed(lambda: parallel(window, engine, grid[:num]))
+        launches = kernels.LAUNCHES["pit_combine"] - before
+        rel = float(torch.max(torch.abs(sol.u.double() - u_ref)) / torch.max(torch.abs(u_ref)))
+        diverged = int(torch.sum(diag["window_diverged"]))
+        finite = all(bool(torch.all(torch.isfinite(x))) for x in _pit_outputs(sol))
+        fallback_row = diverged == diag["num_windows"]
+        err = float(np.max(np.abs(sol.u.double().cpu().numpy() - truth[:num])))
+        emit({"phase": "main_pit", "row": "parallel", "dtype": "float32", "T": num,
+              "window": window, "combine_engine": engine, "seconds": seconds,
+              "sequential_seconds": t_seq * share, "speedup_vs_seq": t_seq * share / seconds,
+              "rel_vs_seq": rel, "window_diverged": diverged,
+              "num_windows": diag["num_windows"],
+              "window_delta_max": float(torch.max(diag["window_delta"])),
+              "all_windows_finite": bool(torch.all(diag["window_finite"])),
+              "fallback_row": fallback_row, "k8_launches_per_solve": launches,
+              "max_abs_err_vs_lsoda": err})
+        outs[(window, engine, cut)] = sol
+        sweeps_levels = 2 * diag["num_windows"] * (window.bit_length() - 1)
+        ok = finite and rel <= PIT_REL_GATE and tuple(sol.u.shape) == (num, 3)
+        if engine == "cuda":
+            ok = ok and not fallback_row and launches == sweeps_levels
+        else:
+            ok = ok and launches == 0
+        if not ok:
+            failed.append((window, engine, cut, rel, finite, launches, fallback_row))
+    # "cuda" against "ll": four windows with the gate off, where every window's
+    # answer is the prefix' own (gated); and the full row's first 4,097 points
+    # against the cut "ll" row (reported: warm start and filter are causal, but
+    # the two solves batch the warm start's products over grids of other lengths)
+    names = ("u", "u_std", "output_scale", "mean", "cholesky")
+    num = 4 * 1024 + 1
+    ungated = [_pit_outputs(parallel(1024, e, grid[:num], fallback_rtol=None)[0])
+               for e in ("cuda", "ll")]
+    same = {
+        "rows": {n: bool(torch.equal(a[:num], b)) for n, a, b in zip(
+            names, _pit_outputs(outs[(1024, "cuda", None)]), _pit_outputs(outs[(1024, "ll", 4)]))},
+        "gate_off": {n: bool(torch.all((a == b) | (torch.isnan(a) & torch.isnan(b))))
+                     for n, a, b in zip(names, *ungated)},
+    }
+    emit({"phase": "main_pit", "check": "cuda_equals_ll", "window": 1024, "points": num,
+          "equal": same,
+          "gate_off_finite": bool(all(torch.all(torch.isfinite(x)) for x in ungated[0]))})
+    if not all(same["gate_off"].values()):
+        failed.append(("cuda != ll", same))
+
+    # where a "cuda" solve's time goes: the warm start alone, and two windows
+    # of sweeps with the gate off (no fallback, no host read)
+    from odecheckpts_torch import parallel_time
+
+    t_warm, _ = _timed(lambda: parallel_time._warmstart_rk(
+        vf, solver.ssm, init[0].mean, grid, 1, PIT_NU, stride=16, method="rk4"))
+    two = grid[: 2 * 1024 + 1]
+    t_two, _ = _timed(lambda: ivpsolve.solve_fixed_grid(
+        vf, init, grid=two, solver=solver, window=1024, combine_engine="cuda",
+        fallback_rtol=None, **PIT_KW))
+    t_two_warm, _ = _timed(lambda: parallel_time._warmstart_rk(
+        vf, solver.ssm, init[0].mean, two, 1, PIT_NU, stride=16, method="rk4"))
+    emit({"phase": "main_pit", "split": "cuda, window 1024", "warmstart_seconds": t_warm,
+          "sweeps_seconds_per_window": (t_two - t_two_warm) / 2,
+          "sequential_seconds_per_window": t_seq * 1024 / (PIT_T - 1)})
+
+    # the double instantiation on the path: the first PIT_F64_WINDOWS windows
+    num = PIT_F64_WINDOWS * 1024 + 1
+    vf, init64, solver, grid64 = _pit_problem(torch.float64, device, num)
+    t_seq64, seq64 = _timed(
+        lambda: ivpsolve.solve_fixed_grid(vf, init64, grid=grid64, solver=solver))
+    before = kernels.LAUNCHES["pit_combine"]
+    t_par64, (sol64, diag64) = _timed(lambda: parallel(1024, "cuda", grid64, init64))
+    rel64 = float(torch.max(torch.abs(sol64.u - seq64.u)) / torch.max(torch.abs(seq64.u)))
+    diverged64 = int(torch.sum(diag64["window_diverged"]))
+    emit({"phase": "main_pit", "row": "parallel", "dtype": "float64", "T": num, "window": 1024,
+          "combine_engine": "cuda", "seconds": t_par64, "sequential_seconds": t_seq64,
+          "speedup_vs_seq": t_seq64 / t_par64, "rel_vs_seq": rel64,
+          "window_diverged": diverged64, "num_windows": diag64["num_windows"],
+          "window_delta_max": float(torch.max(diag64["window_delta"])),
+          "k8_launches_per_solve": kernels.LAUNCHES["pit_combine"] - before,
+          "max_abs_err_vs_lsoda": float(np.max(np.abs(sol64.u.cpu().numpy() - truth[:num])))})
+    if not (rel64 <= PIT_F64_GATE and bool(torch.all(torch.isfinite(sol64.u)))
+            and diverged64 < diag64["num_windows"] and sol64.u.dtype == torch.float64):
+        failed.append(("float64", rel64, diverged64))
+    if failed:
+        raise AssertionError(f"fixed-grid rows failed their gates: {failed}")
+
+
+def _event_timing(times, nbytes, flops):
+    return {"ms": min(times["kernel"][0], times["kernel2"][0]),
+            "plain_ms": min(times["plain"][0], times["plain2"][0]), "bytes": nbytes,
+            "flops": flops}
+
+
+def phase_launch_pit(device, captured):
+    """One launch of K8 at the main row's shapes against its plain version."""
+    import torch
+
+    from odecheckpts_torch import kernels
+
+    e_i, e_j = captured["last_level"]
+    m, c, pairs = e_i[0].shape[0], e_i[1].shape[1], e_i[0].shape[-1]
+    times = _time_pair((
+        ("plain", lambda: kernels.pit_combine_plain(e_i, e_j)),
+        ("kernel", lambda: kernels.pit_combine(e_i, e_j)),
+        ("kernel2", lambda: kernels.pit_combine(e_i, e_j)),
+        ("plain2", lambda: kernels.pit_combine_plain(e_i, e_j)),
+    ))
+    dev = _max_dev(times["kernel"][1], times["plain"][1], torch)
+    nbytes = 3 * sum(x.numel() * x.element_size() for x in e_i)  # 10 in, 5 out
+    info = _event_timing(times, nbytes, pairs * _combine_flops(m, c))
+    emit({"phase": "one_launch", "kernel": "K8", "form": "pit_combine", "m": m, "c": c,
+          "pairs": pairs, "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
+          "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev,
+          "bytes": nbytes, "flops": info["flops"]})
+    if dev != 0.0:
+        raise AssertionError(f"one launch of K8 differs from its plain version by {dev}")
+    return info
+
+
+def _library_qr_r(x, torch):
+    """The one-call yardstick of K9: ``torch.linalg.qr`` with the diagonal's
+    sign fixed (timed here, used nowhere in the port)."""
+    r = torch.linalg.qr(x, mode="r").R
+    diag = torch.diagonal(r, dim1=-2, dim2=-1)
+    one = torch.ones_like(diag)
+    return r * torch.where(diag >= 0, one, -one)[..., :, None]
+
+
+def phase_batched_qr(device):
+    """K9 against its plain version and the reference; its time beside the
+    plain version's and the library call's."""
+    import torch
+
+    from odecheckpts_torch import batched_qr, kernels
+
+    rng = np.random.default_rng(SEED)
+    worst, failed = 0.0, []
+    for shape in QR_SHAPES:
+        x = torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=device)
+        got = batched_qr.batched_qr_r(x)
+        want = kernels.batched_qr_r_plain(x)
+        ref = batched_qr.batched_qr_r_reference(x)
+        torch.cuda.synchronize()
+        dev = float(torch.max(torch.abs(got - want)))
+        dev_ref = float(torch.max(torch.abs(got - ref)))
+        gram = float(torch.max(torch.abs(got.transpose(-1, -2) @ got - x.transpose(-1, -2) @ x)))
+        worst = max(worst, dev)
+        emit({"phase": "batched_qr", "kernel": "K9", "shape": list(shape), "max_abs_dev": dev,
+              "max_abs_dev_vs_reference": dev_ref, "gram_dev": gram})
+        if dev != 0.0 or not dev_ref <= 2e-5 or not gram <= 2e-4:
+            failed.append((shape, dev, dev_ref, gram))
+    if failed:
+        raise AssertionError(f"K9 failed (shape, vs plain, vs reference, gram): {failed}")
+    batch, m, n = QR_SHAPES[-1]
+    times = _time_pair((
+        ("plain", lambda: kernels.batched_qr_r_plain(x)),
+        ("library", lambda: _library_qr_r(x, torch)),
+        ("kernel", lambda: kernels.batched_qr_r(x)),
+        ("kernel2", lambda: kernels.batched_qr_r(x)),
+        ("library2", lambda: _library_qr_r(x, torch)),
+        ("plain2", lambda: kernels.batched_qr_r_plain(x)),
+    ))
+    lib_dev = float(torch.max(torch.abs(times["library"][1] - times["kernel"][1])))
+    info = _event_timing(times, batch * (m * n + min(m, n) * n) * 4, batch * _qr_flops(m, n, n))
+    info["library_ms"] = min(times["library"][0], times["library2"][0])
+    emit({"phase": "one_launch", "kernel": "K9", "form": "batched_qr_r", "shape": [batch, m, n],
+          "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
+          "plain_ms": [times["plain"][0], times["plain2"][0]],
+          "library_ms": [times["library"][0], times["library2"][0]],
+          "library_max_abs_dev": lib_dev})
+    if not lib_dev <= 2e-5:
+        raise AssertionError(f"torch.linalg.qr with the sign fixed is {lib_dev} off K9")
+    return {"batched_qr_r": worst}, info
+
+
+def phase_qr_packing(device):
+    """K10 and K11 against their plain versions and each other, then timed."""
+    import torch
+
+    from odecheckpts_torch import kernels, qr_packing
+
+    rng = np.random.default_rng(SEED)
+    worst = {"qr_packing_cols": 0.0, "qr_packing_masked": 0.0}
+    failed = []
+    for size in (10, 8, 6):
+        x = torch.tensor(rng.standard_normal((size, size, 1024)), dtype=torch.float32,
+                         device=device)
+        outs = {}
+        for iters in (1, 3):
+            for variant in ("cols", "masked"):
+                name = f"qr_packing_{variant}"
+                got = qr_packing.bench_kernel(variant, size, size, iters)(x)
+                want = getattr(kernels, name + "_plain")(x, iters)
+                torch.cuda.synchronize()
+                dev = float(torch.max(torch.abs(got - want)))
+                worst[name] = max(worst[name], dev)
+                outs[(variant, iters)] = got
+                if dev != 0.0:
+                    failed.append((name, size, iters, dev))
+        tri_c = torch.triu(torch.movedim(outs[("cols", 1)], -1, 0))
+        tri_m = torch.triu(torch.movedim(outs[("masked", 1)], -1, 0))
+        close = bool(torch.all(torch.abs(tri_m - tri_c) <= 2e-5 + 2e-4 * torch.abs(tri_c)))
+        emit({"phase": "qr_packing", "m": size, "n": size, "max_abs_dev": dict(worst),
+              "variants_agree_on_upper_triangle": close})
+        if not close:
+            failed.append(("cols vs masked", size))
+    if failed:
+        raise AssertionError(f"K10 / K11 failed: {failed}")
+
+    timing = {}
+    for batch in PACKING_BATCHES:
+        x = torch.tensor(rng.standard_normal((10, 10, batch)), dtype=torch.float32, device=device)
+        run_c = qr_packing.bench_kernel("cols", 10, 10, PACKING_ITERS)
+        run_m = qr_packing.bench_kernel("masked", 10, 10, PACKING_ITERS)
+        run_c(x), run_m(x)  # warm-up
+        times = _time_pair((("cols", lambda: run_c(x)), ("masked", lambda: run_m(x)),
+                            ("masked2", lambda: run_m(x)), ("cols2", lambda: run_c(x))))
+        ms_c = min(times["cols"][0], times["cols2"][0])
+        ms_m = min(times["masked"][0], times["masked2"][0])
+        emit({"phase": "qr_packing", "timed": True, "m": 10, "n": 10, "iters": PACKING_ITERS,
+              "batch": batch, "cols_ms": ms_c, "masked_ms": ms_m,
+              "cols_qr_per_sec_millions": batch * PACKING_ITERS / ms_c / 1e3,
+              "masked_qr_per_sec_millions": batch * PACKING_ITERS / ms_m / 1e3,
+              "packed_over_cols": ms_m / ms_c})
+        if batch == PACKING_BATCHES[0]:  # the reference's size: the kernel table's row
+            plain = _time_pair((
+                ("cols", lambda: kernels.qr_packing_cols_plain(x, PACKING_ITERS)),
+                ("masked", lambda: kernels.qr_packing_masked_plain(x, PACKING_ITERS))))
+            nbytes = 2 * x.numel() * 4
+            flops = batch * PACKING_ITERS * _qr_flops(10, 10, 10)
+            timing["qr_packing_cols"] = {"ms": ms_c, "plain_ms": plain["cols"][0],
+                                         "bytes": nbytes, "flops": flops}
+            timing["qr_packing_masked"] = {"ms": ms_m, "plain_ms": plain["masked"][0],
+                                           "bytes": nbytes, "flops": flops}
+    return worst, timing
+
+
 def main():
     device, _smi = phase_device()
     import torch
@@ -1617,6 +2074,19 @@ def main():
     worst.update(phase_attempt_everystep(device))
     row_es, counts_es = _path(["step_everystep_attempt"], lambda: phase_main_everystep(device))
     timing["step_everystep_attempt"] = phase_launch_everystep(device, row_es)
+    del row_es
+    captured = _capture_second_window(device)
+    worst.update(phase_combine_pit(device, captured))
+    _, counts_pit = _path(["pit_combine"], lambda: phase_main_pit(device))
+    timing["pit_combine"] = phase_launch_pit(device, captured)
+    del captured
+    (worst_qr, timing["batched_qr_r"]), counts_qr = _path(["batched_qr_r"],
+                                                          lambda: phase_batched_qr(device))
+    (worst_packing, timing_packing), counts_packing = _path(
+        ["qr_packing_cols", "qr_packing_masked"], lambda: phase_qr_packing(device))
+    worst.update(worst_qr)
+    worst.update(worst_packing)
+    timing.update(timing_packing)
 
     launches = {"step_ll_interval": counts_ll["step_ll_interval"],
                 "step_hi_interval": counts_hi["step_hi_interval"],
@@ -1626,14 +2096,21 @@ def main():
                 "step_dense_attempt": counts_attempt_dense["step_dense_attempt"],
                 "step_bd_interval": counts_bd["step_bd_interval"],
                 "step_bd_attempt": counts_attempt_bd["step_bd_attempt"],
-                "step_everystep_attempt": counts_es["step_everystep_attempt"]}
+                "step_everystep_attempt": counts_es["step_everystep_attempt"],
+                "pit_combine": counts_pit["pit_combine"],
+                "batched_qr_r": counts_qr["batched_qr_r"],
+                "qr_packing_cols": counts_packing["qr_packing_cols"],
+                "qr_packing_masked": counts_packing["qr_packing_masked"]}
     rows = []
     for name, (_kid, source, replaces) in KERNELS.items():
         bound_ms, bound_by = _bound(timing[name])
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": worst[name],
                      "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": timing[name].get("library_ms")})
+        if name in STANDALONE:
+            rows[-1]["note"] = "no solve path launches it: the launches of its phase"
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,11 +1,13 @@
-// Helpers shared by the lanes-last step kernels (K1-K7): NaN-propagating
+// Helpers shared by the lanes-last kernels (K1-K8, K10): NaN-propagating
 // min/max, lanes-last loads and stores, the column-list Householder QR of
 // odecheckpts_tpu/batched.py:_qr_r_cols / batched_hi.py:_qr_r_cols_partial
 // (unrolled, and with runtime loops for K5's large column lists) and the
 // triangular solve of the reverted blocks.
 //
 // Everything here rounds each operation on its own: the sources are built
-// with -fmad=false and without --use_fast_math (see kernels.py).
+// with -fmad=false and without --use_fast_math (see kernels.py).  The loads,
+// the stores and the unrolled QR take float or double (K8 runs in both); the
+// scalar type is deduced from the arrays.
 
 #pragma once
 
@@ -18,6 +20,20 @@ namespace {
 
 constexpr int THREADS = 128;
 
+// The scalar type's smallest normal number and its square root.
+template <class T>
+struct Num;
+template <>
+struct Num<float> {
+  static constexpr float tiny = FLT_MIN;
+  static __device__ __forceinline__ float sqrt(float x) { return sqrtf(x); }
+};
+template <>
+struct Num<double> {
+  static constexpr double tiny = DBL_MIN;
+  static __device__ __forceinline__ double sqrt(double x) { return ::sqrt(x); }
+};
+
 // Maxima and minima propagate NaN as jnp.maximum / torch.maximum do.
 __device__ __forceinline__ float maxp(float a, float b) {
   return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
@@ -28,16 +44,16 @@ __device__ __forceinline__ float minp(float a, float b) {
 
 // Lanes-last layout: element (i, k) of lane b of an (R, C, B) array sits at
 // x[(i * C + k) * B + b], so neighbouring threads touch neighbouring words.
-template <int R, int C>
-__device__ __forceinline__ void load(float (&x)[R][C], const float* src, int64_t b, int64_t B) {
+template <class T, int R, int C>
+__device__ __forceinline__ void load(T (&x)[R][C], const T* src, int64_t b, int64_t B) {
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int k = 0; k < C; ++k) x[i][k] = src[(i * C + k) * B + b];
 }
 
-template <int R, int C>
-__device__ __forceinline__ void store(const float (&x)[R][C], float* dst, int64_t b, int64_t B) {
+template <class T, int R, int C>
+__device__ __forceinline__ void store(const T (&x)[R][C], T* dst, int64_t b, int64_t B) {
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
@@ -56,31 +72,31 @@ __device__ __forceinline__ void copy_to(float (&dst)[R][C], const float (&src)[R
 // reflections j < min(NR, M - 1), each applied to columns j..NC-1.  NR = NC
 // is _qr_r_cols; NR < NC is _qr_r_cols_partial, whose first NR rows of every
 // column are final.  No rescaling and no sign normalization.
-template <int M, int NC, int NR = NC>
-__device__ __forceinline__ void qr_r_cols(float (&cols)[NC][M]) {
+template <int M, int NC, int NR = NC, class T = float>
+__device__ __forceinline__ void qr_r_cols(T (&cols)[NC][M]) {
   constexpr int J = NR < M - 1 ? NR : M - 1;
 #pragma unroll
   for (int j = 0; j < J; ++j) {
-    float colm[M];
+    T colm[M];
 #pragma unroll
-    for (int r = 0; r < M; ++r) colm[r] = cols[j][r] * (r >= j ? 1.0f : 0.0f);
-    float norm2 = colm[0] * colm[0];
+    for (int r = 0; r < M; ++r) colm[r] = cols[j][r] * (r >= j ? T(1) : T(0));
+    T norm2 = colm[0] * colm[0];
 #pragma unroll
     for (int r = 1; r < M; ++r) norm2 = norm2 + colm[r] * colm[r];
-    const float norm = sqrtf(norm2 + FLT_MIN);
-    float head = colm[0] * (j == 0 ? 1.0f : 0.0f);
+    const T norm = Num<T>::sqrt(norm2 + Num<T>::tiny);
+    T head = colm[0] * (j == 0 ? T(1) : T(0));
 #pragma unroll
-    for (int r = 1; r < M; ++r) head = head + colm[r] * (r == j ? 1.0f : 0.0f);
-    const float sign = head >= 0.0f ? 1.0f : -1.0f;
-    const float alpha = -sign * norm;
-    float v[M];
+    for (int r = 1; r < M; ++r) head = head + colm[r] * (r == j ? T(1) : T(0));
+    const T sign = head >= T(0) ? T(1) : T(-1);
+    const T alpha = -sign * norm;
+    T v[M];
 #pragma unroll
-    for (int r = 0; r < M; ++r) v[r] = colm[r] - (r == j ? 1.0f : 0.0f) * alpha;
-    const float vnorm2 = norm2 + alpha * alpha - 2.0f * head * alpha;
-    const float inv = vnorm2 > FLT_MIN ? 2.0f / vnorm2 : 0.0f;
+    for (int r = 0; r < M; ++r) v[r] = colm[r] - (r == j ? T(1) : T(0)) * alpha;
+    const T vnorm2 = norm2 + alpha * alpha - T(2) * head * alpha;
+    const T inv = vnorm2 > Num<T>::tiny ? T(2) / vnorm2 : T(0);
 #pragma unroll
     for (int c = j; c < NC; ++c) {
-      float coeff = v[0] * cols[c][0];
+      T coeff = v[0] * cols[c][0];
 #pragma unroll
       for (int r = 1; r < M; ++r) coeff = coeff + v[r] * cols[c][r];
 #pragma unroll

@@ -13,12 +13,20 @@ shape.  ``to_torch``
 turns nested tuples of numpy arrays or floats (a state, or the parameters
 ``(-2, 1.25, -0.5)`` as 0-dim tensors) into tensors on a device,
 ``to_numpy`` turns nested tuples of tensors back.
+
+The fixed-grid path carries an initial condition, a ``Solution`` with its
+``MarkovSeq`` stacks, parallel-in-time filtering elements and a diagnostics
+dict: ``init_to_torch``, ``solution_to_numpy``, ``elements_to_torch`` /
+``elements_to_numpy`` (step-leading numpy on the outside, step-leading or
+lanes-last tensors inside) and ``diagnostics_to_numpy`` carry those.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .ssm.base import Normal
 
 
 def _rebuild(tree, items):
@@ -89,3 +97,56 @@ def state_to_numpy(state):
     """A lanes-last state (17 or 12 arrays) back to numpy arrays."""
     _check_state(state)
     return to_numpy(tuple(state))
+
+
+def init_to_torch(init, *, device="cpu"):
+    """``((mean, cholesky), output_scale)`` as numpy arrays (the reference's
+    ``solver.initial_condition``) -> ``(Normal, scale)`` tensors on ``device``,
+    dtypes kept."""
+    (mean, chol), scale = init
+    return Normal(*to_torch((mean, chol), device=device)), to_torch(scale, device=device)
+
+
+def solution_to_numpy(sol):
+    """A fixed-grid ``Solution`` as a dict of numpy arrays: ``t``, ``u``,
+    ``u_std``, ``output_scale``, the stacked marginals ``mean`` / ``cholesky``
+    and, for a strategy with reversal, the stacked backward conditionals
+    ``cond_matrix`` / ``cond_mean`` / ``cond_cholesky`` (else None)."""
+    out = {k: to_numpy(getattr(sol, k)) for k in ("t", "u", "u_std", "output_scale")}
+    out["mean"], out["cholesky"] = to_numpy(tuple(sol.posterior.init))
+    cond = sol.posterior.conditional
+    out["cond_matrix"] = None if cond is None else to_numpy(cond.matrix)
+    out["cond_mean"] = None if cond is None else to_numpy(cond.noise.mean)
+    out["cond_cholesky"] = None if cond is None else to_numpy(cond.noise.cholesky)
+    return out
+
+
+def _check_elements(els):
+    if len(els) != 5:
+        raise ValueError(f"a filtering element is (A, b, U, eta, Z), got {len(els)} arrays")
+
+
+def elements_to_torch(els, *, lanes_last=False, device="cpu"):
+    """Step-leading numpy elements ((P, m, m), (P, m, c), ...) -> tensors on
+    ``device``, step-leading or (``lanes_last``) with the step axis last and
+    contiguous, as ``pit_fused`` and the kernel take them."""
+    _check_elements(els)
+    out = to_torch(tuple(els), device=device)
+    if lanes_last:
+        out = tuple(torch.movedim(x, 0, -1).contiguous() for x in out)
+    return out
+
+
+def elements_to_numpy(els, *, lanes_last=False):
+    """Element tensors (step-leading, or lanes-last if ``lanes_last``) back
+    to step-leading numpy arrays."""
+    _check_elements(els)
+    if lanes_last:
+        els = tuple(torch.movedim(x, -1, 0) for x in els)
+    return to_numpy(tuple(els))
+
+
+def diagnostics_to_numpy(diag):
+    """The diagnostics dict of ``solve_fixed_grid(parallel=True,
+    return_diagnostics=True)``: tensors to numpy arrays, ints kept."""
+    return {k: to_numpy(v) if isinstance(v, torch.Tensor) else v for k, v in diag.items()}

@@ -3,9 +3,10 @@ counterpart of ``odecheckpts_tpu.ivpsolvers``).
 
 Ported so far: the IBM prior on the isotropic, the dense and the blockdiag
 backend, the TS0 and TS1 corrections, the filter, smoother and fixedpoint
-strategies and dynamic calibration -- the configurations of the batched
-paths.  Every config object is a frozen
-dataclass.
+strategies, the none and the dynamic calibration, and the single-solve
+building blocks ``linearize`` / ``error_and_scale`` / ``correct`` on the
+isotropic backend (the fixed-grid solves of ``ivpsolve`` and
+``parallel_time``).  Every config object is a frozen dataclass.
 """
 
 from __future__ import annotations
@@ -56,10 +57,8 @@ def _correction(method, ode_order, error_unit, error_calibration):
         raise NotImplementedError(
             "ode_order != 1 is not ported yet: ROADMAP queue 1 item 3a"
         )
-    if error_unit != "qoi":
-        raise NotImplementedError(
-            f"error_unit={error_unit!r} is not ported yet: ROADMAP queue 1 item 3a"
-        )
+    if error_unit not in ("qoi", "residual"):
+        raise ValueError(f"error_unit must be 'qoi' or 'residual', got {error_unit!r}")
     return Correction(method, ode_order, error_unit, error_calibration)
 
 
@@ -111,7 +110,7 @@ def strategy_fixedpoint(prior, correction: Correction) -> Strategy:
     return Strategy(prior, correction, FIXEDPOINT)
 
 
-DYNAMIC = "dynamic"
+NONE, DYNAMIC, MLE = "none", "dynamic", "mle"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +129,61 @@ class Solver:
         return rv, scale
 
 
+def solver(strategy: Strategy) -> Solver:
+    """Uncalibrated solver: the prior output scale is used as given."""
+    return Solver(strategy, NONE)
+
+
 def solver_dynamic(strategy: Strategy) -> Solver:
     """Per-step (quasi-MLE) output-scale calibration."""
     return Solver(strategy, DYNAMIC)
+
+
+def solver_mle(strategy: Strategy) -> Solver:
+    """Global MLE calibration, applied post hoc to the posterior: not ported."""
+    raise NotImplementedError(
+        "solver_mle (post-hoc rescaling of the posterior) is not ported yet: "
+        "ROADMAP queue 1 item 9"
+    )
+
+
+def _isotropic_only(ssm, what):
+    if ssm.name != "isotropic":
+        raise NotImplementedError(
+            f"{what} on the {ssm.name} backend (h_q_unit / h_l_rows / correct_affine, the "
+            "blockdiag single-solve methods) is not ported yet: ROADMAP queue 1 items 7 and 9"
+        )
+
+
+def linearize(strategy: Strategy, vf, m_pred, t):
+    """Residual ``z = u^(o) - vf(u, ..., u^(o-1), t)`` of the ODE constraint
+    at the predicted mean, and the Jacobians (TS0: none).  ``m_pred`` may
+    carry leading batch axes if ``vf`` takes them."""
+    ssm = strategy.ssm
+    o = strategy.correction.ode_order
+    if strategy.correction.method != "ts0":
+        raise NotImplementedError(
+            "the TS1 linearization of a single solve (Jacobians by torch.func.jacfwd) comes "
+            "with the dense adapter: ROADMAP queue 1 item 9"
+        )
+    args = tuple(ssm.select_deriv(m_pred, i) for i in range(o))
+    z = ssm.select_deriv(m_pred, o) - vf(*args, t=t)
+    return z, ()
+
+
+def error_and_scale(strategy: Strategy, z, jacobians, cache):
+    """Per-step MLE output scale (sigma-hat) and local error estimate."""
+    del jacobians
+    ssm = strategy.ssm
+    _isotropic_only(ssm, "error_and_scale")
+    return ssm.error_and_scale_deriv(
+        z, cache, strategy.correction.ode_order, unit=strategy.correction.error_unit
+    )
+
+
+def correct(strategy: Strategy, rv_pred, z, jacobians):
+    """Square-root correction of the predicted state on the ODE constraint."""
+    del jacobians
+    ssm = strategy.ssm
+    _isotropic_only(ssm, "correct")
+    return ssm.correct_deriv(rv_pred, z, strategy.correction.ode_order)

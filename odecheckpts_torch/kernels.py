@@ -12,7 +12,13 @@ K5  ``step_dense_attempt``      ``csrc/step_dense_attempt.cu``      ``batched_de
 K6  ``step_bd_interval``        ``csrc/step_bd.cu``                 ``batched_blockdiag._pallas_interval(make_step_bd_ll)``
 K6  ``step_bd_attempt``         ``csrc/step_bd_attempt.cu``         ``batched_blockdiag._pallas_step(make_step_bd_ll)``
 K7  ``step_everystep_attempt``  ``csrc/step_everystep_attempt.cu``  ``batched_everystep._pallas_step(make_step_ll)``
+K8  ``pit_combine``             ``csrc/pit_combine.cu``             ``pit_fused._pallas_combine`` (body ``combine_sqrt_ll``)
+K9  ``batched_qr_r``            ``csrc/batched_qr.cu``              ``pallas_kernels.batched_qr_r``
+K10 ``qr_packing_cols``         ``csrc/qr_packing.cu``              ``qr_packing_bench._bench_kernel("cols", ...)``
+K11 ``qr_packing_masked``       ``csrc/qr_packing.cu``              ``qr_packing_bench._bench_kernel("masked", ...)``
 ==  ==========================  ==================================  =======================================================
+
+(``qr_packing_bench``: ``experiments/6_tpu_batched_sweep/qr_packing_bench.py``.)
 
 K1, K2 and the interval forms of K5 and K6 run a whole checkpoint interval
 (the accept/reject loop of every lane) in one launch; K3, K4 and the attempt
@@ -23,6 +29,10 @@ save-every-step driver.  The twins are ``batched.StepLL`` (f32; K1, K3 and,
 with its strategy, K7), ``batched_hi.StepHi`` (df32 pairs),
 ``batched_dense.StepDense`` (f32, dense covariance, TS1 or TS0) and
 ``batched_blockdiag.StepBD`` (f32, one factor and one scale per dimension).
+K8 is one level of the parallel-in-time prefix (the sqrt combine of a window's
+element pairs, float or double; twin ``pit_fused.combine_sqrt_ll``); K9-K11
+are standalone: the batched QR and the two variants of its layout
+microbenchmark (``batched_qr``, ``qr_packing``).
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``nvcc`` process per ``.cu`` file, all started together, then linked into
@@ -67,6 +77,7 @@ LAUNCHES = {
     "step_dense_interval": 0, "step_dense_attempt": 0,
     "step_bd_interval": 0, "step_bd_attempt": 0,
     "step_everystep_attempt": 0,
+    "pit_combine": 0, "batched_qr_r": 0, "qr_packing_cols": 0, "qr_packing_masked": 0,
 }
 
 # (kernel, device functor of the step's vector field) -> (C symbol, ODE dim)
@@ -88,6 +99,19 @@ _FUNCTORS = {
     ("step_bd_attempt", "rigid_body_anisotropic"):
         ("odeckpt_step_bd_attempt_rigid_body_anisotropic", 3),
     ("step_everystep_attempt", "rigid_body"): ("odeckpt_step_everystep_attempt_rigid_body", 3),
+}
+# what K8-K11 are instantiated for: K8's state dimension m = nu + 1 and mean
+# columns c, the (m, n) of K9 and of K10 / K11
+PIT_COMBINE_M, PIT_COMBINE_C = (3, 4, 5), (1, 2, 3)
+BATCHED_QR_SHAPES = ((10, 5), (6, 6), (4, 2), (6, 3), (8, 4), (12, 6))
+QR_PACKING_SHAPES = ((10, 10), (8, 8), (6, 6))
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# C symbol -> argument types of the entries that take no step functor
+_ENTRIES = {
+    "odeckpt_pit_combine": [_INT, _INT, _INT, _PTR, _PTR, ctypes.c_longlong, _INT, _PTR],
+    "odeckpt_batched_qr": [_INT, _INT, _PTR, _PTR, ctypes.c_longlong, _INT, _PTR],
+    "odeckpt_qr_packing_cols": [_INT, _INT, _INT, _PTR, _PTR, ctypes.c_longlong, _INT, _PTR],
+    "odeckpt_qr_packing_masked": [_INT, _INT, _INT, _PTR, _PTR, ctypes.c_longlong, _INT, _PTR],
 }
 # K7's strategy argument (the template parameter of step_ll.cuh's attempt)
 STRATEGY_CODES = {"fixedpoint": 0, "smoother": 1, "filter": 2}
@@ -123,7 +147,16 @@ def _build_key():
 def _ptxas_key(symbol):
     """(kernel, template key) of a mangled step-kernel symbol: nu for K1-K4,
     ``"<nu>/<ts1 or ts0>/<functor>"`` for K5, ``"<nu>/<functor>"`` for K6,
-    ``"<nu>/<strategy>"`` for K7; None for other symbols."""
+    ``"<nu>/<strategy>"`` for K7; ``"<f32 or f64>/<m>/<c>"`` for K8 and
+    ``"<m>/<n>"`` for K9-K11, under their wrappers' names; None for other
+    symbols."""
+    m = re.search(r"pit_combineI([fd])Li(\d+)ELi(\d+)E", symbol)
+    if m is not None:
+        return "pit_combine", f"{'f32' if m.group(1) == 'f' else 'f64'}/{m.group(2)}/{m.group(3)}"
+    m = re.search(r"(batched_qr|qr_packing_cols|qr_packing_masked)ILi(\d+)ELi(\d+)E", symbol)
+    if m is not None:
+        name = "batched_qr_r" if m.group(1) == "batched_qr" else m.group(1)
+        return name, f"{m.group(2)}/{m.group(3)}"
     m = re.search(r"(step_(?:ll|hi|dense|bd|everystep)_(?:interval|attempt))ILi(\d+)E", symbol)
     if m is None:
         return None
@@ -154,7 +187,9 @@ def parse_ptxas(log):
     output: ``{kernel: {key: {"registers": r, "spill_stores": s,
     "spill_loads": l, "stack": f}}}``, keyed by nu for K1-K4 and by
     ``"<nu>/<ts1 or ts0>/<functor>"`` for K5 (``"4/ts1/Brusselator"``),
-    ``"<nu>/<functor>"`` for K6 and ``"<nu>/<strategy>"`` for K7."""
+    ``"<nu>/<functor>"`` for K6, ``"<nu>/<strategy>"`` for K7,
+    ``"<f32 or f64>/<m>/<c>"`` for K8 (``"f32/4/3"``) and ``"<m>/<n>"`` for
+    K9-K11."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)", line)
@@ -204,6 +239,10 @@ class _Library:
         for (kernel, functor), (symbol, _) in _FUNCTORS.items():
             fn = getattr(self.lib, symbol)
             fn.argtypes = _argtypes(kernel, functor)
+            fn.restype = ctypes.c_int
+        for symbol, argtypes in _ENTRIES.items():
+            fn = getattr(self.lib, symbol)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         self.lib.odeckpt_error_string.argtypes = [ctypes.c_int]
         self.lib.odeckpt_error_string.restype = ctypes.c_char_p
@@ -312,16 +351,101 @@ def step_hi_interval_plain(step, state, t_next, *, max_attempts, **inputs):
                         max_attempts=max_attempts, **inputs)
 
 
+def pit_combine_plain(e_i, e_j):
+    """Plain version of K8: the twin ``pit_fused.combine_sqrt_ll``."""
+    from . import pit_fused
+
+    return pit_fused.combine_sqrt_ll(e_i, e_j)
+
+
+def _sum_rows(x):
+    """Sum over axis 0 in row order (the kernels' order), kept as size 1."""
+    acc = x[0:1]
+    for r in range(1, x.shape[0]):
+        acc = acc + x[r : r + 1]
+    return acc
+
+
+def householder_masked_ll(x, *, mask_eliminated):
+    """Masked full-matrix Householder on one lanes-last (m, n, B) stack: the
+    reflections j < min(n, m - 1), each a zero-masked full column applied to
+    all n columns; ``sqrt(norm2 + tiny)``, no rescaling, no sign
+    normalization.  With ``mask_eliminated`` the coefficient of column c is
+    multiplied by ``c >= j`` (K11,
+    ``experiments/6_tpu_batched_sweep/qr_packing_bench.py:42-70``); without it
+    the eliminated columns take their (rounding-level) update too (K9,
+    ``odecheckpts_tpu/pallas_kernels.py:28-60``)."""
+    m, n = x.shape[0], x.shape[1]
+    eps = torch.finfo(x.dtype).tiny
+    rows = torch.arange(m, device=x.device).reshape(m, 1, 1)
+    cols = torch.arange(n, device=x.device).reshape(1, n, 1)
+    for j in range(min(n, m - 1)):
+        below = (rows >= j).to(x.dtype)
+        is_j = (rows == j).to(x.dtype)
+        colm = x[:, j : j + 1] * below  # (m, 1, B)
+        norm2 = _sum_rows(colm * colm)
+        norm = torch.sqrt(norm2 + eps)
+        head = _sum_rows(colm * is_j)
+        one = torch.ones_like(head)
+        alpha = -torch.where(head >= 0, one, -one) * norm
+        v = colm - is_j * alpha
+        vnorm2 = norm2 + alpha * alpha - 2.0 * head * alpha
+        safe = vnorm2 > eps
+        inv = torch.where(safe, torch.full_like(vnorm2, 2.0) / torch.where(safe, vnorm2, one),
+                          torch.zeros_like(vnorm2))
+        coeff = _sum_rows(v * x)  # (1, n, B)
+        if mask_eliminated:
+            coeff = coeff * (cols >= j).to(x.dtype)
+        x = x - (inv * v) * coeff
+    return x
+
+
+def batched_qr_r_plain(x):
+    """Plain version of K9: R of every (m, n) matrix of ``x`` (B, m, n), the
+    first min(m, n) rows with the diagonal's sign normalized."""
+    m, n = x.shape[-2], x.shape[-1]
+    k = min(m, n)
+    r = householder_masked_ll(torch.movedim(x, 0, -1), mask_eliminated=False)[:k]
+    diag = torch.stack([r[i, i] for i in range(k)])
+    one = torch.ones_like(diag)
+    return torch.movedim(r * torch.where(diag >= 0, one, -one)[:, None], -1, 0)
+
+
+def _perturbation(k, dtype):
+    """1e-6 * k as the kernels form it: both factors rounded to float32."""
+    return float(torch.tensor(1e-6, dtype=dtype) * torch.tensor(float(k), dtype=dtype))
+
+
+def qr_packing_cols_plain(x, iters):
+    """Plain version of K10: ``iters`` column-list QRs (``batched._qr_r_cols``)
+    of the lanes-last (m, n, B) ``x``, each after adding 1e-6 k."""
+    from .batched import _qr_r_cols
+
+    m, n = x.shape[0], x.shape[1]
+    cols = x.transpose(0, 1)
+    for k in range(iters):
+        cols = _qr_r_cols(cols + _perturbation(k, x.dtype), m, n, torch.finfo(x.dtype).tiny)
+    return cols.transpose(0, 1).contiguous()
+
+
+def qr_packing_masked_plain(x, iters):
+    """Plain version of K11: ``iters`` masked full-matrix QRs of the
+    lanes-last (m, n, B) ``x``, each after adding 1e-6 k."""
+    for k in range(iters):
+        x = householder_masked_ll(x + _perturbation(k, x.dtype), mask_eliminated=True)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 
 
-def _check_cuda_inputs(kernel, shapes, tensors):
+def _check_cuda_inputs(kernel, shapes, tensors, dtype=torch.float32):
     device = tensors[0].device
     for i, (x, want) in enumerate(zip(tensors, shapes)):
-        if x.device != device or x.dtype != torch.float32:
+        if x.device != device or x.dtype != dtype:
             raise ValueError(
-                f"{kernel} takes float32 tensors on one CUDA device; input {i} is "
+                f"{kernel} takes {dtype} tensors on one CUDA device; input {i} is "
                 f"{x.dtype} on {x.device}"
             )
         if tuple(x.shape) != tuple(want):
@@ -482,3 +606,121 @@ def step_everystep_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor,
     if state[0].device.type == "cpu":
         return step_everystep_attempt_plain(step, state, t_next, **inputs)
     return _launch("step_everystep_attempt", step, state, t_next, inputs)
+
+
+def _require_cuda(kernel, device):
+    if device.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA tensors (or its plain version on CPU), got {device}")
+
+
+def _stream_args(device):
+    """(device index, current stream) as the C entries take them."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_rc(kernel, lib, rc):
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: {lib.error_string(rc)} ({rc})")
+    LAUNCHES[kernel] += 1
+
+
+def pit_combine(e_i, e_j):
+    """K8: the sqrt combine of every lane's element pair, earlier elements
+    ``e_i`` with later ``e_j``; each a tuple (A, b, U, eta, Z) of lanes-last
+    (m, m, P), (m, c, P), (m, m, P), (m, c, P), (m, m, P) tensors, float32 or
+    float64.  One launch; five new output tensors.  Built for m in {3, 4, 5}
+    and c in {1, 2, 3}.  On CPU tensors the plain version runs; on CUDA
+    tensors the kernel runs or this raises."""
+    if len(e_i) != 5 or len(e_j) != 5:
+        raise ValueError("pit_combine takes two elements of five arrays (A, b, U, eta, Z)")
+    device = e_i[0].device
+    if device.type == "cpu":
+        return pit_combine_plain(e_i, e_j)
+    _require_cuda("pit_combine", device)
+    if e_i[0].dim() != 3:
+        raise NotImplementedError(
+            "pit_combine takes (m, m, P) and (m, c, P) operands; batch axes between the matrix "
+            "axes and the lanes come with the blockdiag adapter: ROADMAP queue 1 item 7"
+        )
+    dtype = e_i[0].dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"pit_combine takes float32 or float64 operands, got {dtype}")
+    m, pairs, c = e_i[0].shape[0], e_i[0].shape[-1], e_i[1].shape[1]
+    if m not in PIT_COMBINE_M or c not in PIT_COMBINE_C:
+        raise ValueError(
+            f"pit_combine is built for m in {PIT_COMBINE_M} and c in {PIT_COMBINE_C}, "
+            f"got m={m}, c={c}"
+        )
+    shapes = [(m, m, pairs), (m, c, pairs), (m, m, pairs), (m, c, pairs), (m, m, pairs)] * 2
+    _check_cuda_inputs("pit_combine", shapes, (*e_i, *e_j), dtype)
+    outs = tuple(torch.empty_like(x) for x in e_i)
+    if pairs == 0:
+        return outs
+    lib = library()
+    ins_ptr = (ctypes.c_void_p * 10)(*(x.data_ptr() for x in (*e_i, *e_j)))
+    outs_ptr = (ctypes.c_void_p * 5)(*(x.data_ptr() for x in outs))
+    rc = lib.lib.odeckpt_pit_combine(
+        m, c, int(dtype == torch.float64), ctypes.addressof(ins_ptr),
+        ctypes.addressof(outs_ptr), pairs, *_stream_args(device))
+    _check_rc("pit_combine", lib, rc)
+    return outs
+
+
+def batched_qr_r(x):
+    """K9: R factors of a batch of small matrices, ``x`` (B, m, n) float32 ->
+    (B, min(m, n), n), diag(R) >= 0.  The wrapper moves the batch axis last
+    for the kernel and back.  Built for the (m, n) of ``BATCHED_QR_SHAPES``.
+    On CPU tensors the plain version runs; on CUDA tensors the kernel runs or
+    this raises."""
+    if x.dim() != 3:
+        raise ValueError(f"batched_qr_r takes a (B, m, n) tensor, got shape {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return batched_qr_r_plain(x)
+    _require_cuda("batched_qr_r", x.device)
+    batch, m, n = x.shape
+    if (m, n) not in BATCHED_QR_SHAPES:
+        raise ValueError(f"batched_qr_r is built for (m, n) in {BATCHED_QR_SHAPES}, got {(m, n)}")
+    x_ll = torch.movedim(x, 0, -1).contiguous()
+    _check_cuda_inputs("batched_qr_r", [(m, n, batch)], (x_ll,))
+    out = torch.empty((min(m, n), n, batch), dtype=x.dtype, device=x.device)
+    if batch:
+        lib = library()
+        rc = lib.lib.odeckpt_batched_qr(m, n, x_ll.data_ptr(), out.data_ptr(), batch,
+                                        *_stream_args(x.device))
+        _check_rc("batched_qr_r", lib, rc)
+    return torch.movedim(out, -1, 0)
+
+
+def _qr_packing(kernel, plain, x, iters):
+    if x.dim() != 3:
+        raise ValueError(f"{kernel} takes a lanes-last (m, n, B) tensor, got {tuple(x.shape)}")
+    if not 0 <= int(iters) < 2**31:
+        raise ValueError(f"iters must fit an int32, got {iters}")
+    if x.device.type == "cpu":
+        return plain(x, iters)
+    _require_cuda(kernel, x.device)
+    m, n, batch = x.shape
+    if (m, n) not in QR_PACKING_SHAPES:
+        raise ValueError(f"{kernel} is built for (m, n) in {QR_PACKING_SHAPES}, got {(m, n)}")
+    _check_cuda_inputs(kernel, [(m, n, batch)], (x,))
+    out = torch.empty_like(x)
+    if batch:
+        lib = library()
+        rc = getattr(lib.lib, f"odeckpt_{kernel}")(m, n, int(iters), x.data_ptr(), out.data_ptr(),
+                                                  batch, *_stream_args(x.device))
+        _check_rc(kernel, lib, rc)
+    return out
+
+
+def qr_packing_cols(x, iters):
+    """K10: ``iters`` column-list QRs of every lane's (m, n) matrix of the
+    lanes-last float32 ``x`` (m, n, B), each after adding 1e-6 k; the last one
+    is returned.  Built for the (m, n) of ``QR_PACKING_SHAPES``."""
+    return _qr_packing("qr_packing_cols", qr_packing_cols_plain, x, iters)
+
+
+def qr_packing_masked(x, iters):
+    """K11: as ``qr_packing_cols`` with the masked full-matrix QR, every
+    reflection applied to all n columns under the ``active`` mask."""
+    return _qr_packing("qr_packing_masked", qr_packing_masked_plain, x, iters)

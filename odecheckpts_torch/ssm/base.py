@@ -7,6 +7,7 @@ may carry leading batch (and time) dimensions.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -37,4 +38,22 @@ class MarkovSeq(NamedTuple):
 
     init: Normal
     conditional: Optional[Conditional]
+    ssm: Any = None
+
+
+@dataclasses.dataclass
+class Solution:
+    """Result of an IVP solve on a grid: times ``t`` (T,), the solution ``u``
+    (T, d) and its marginal standard deviation ``u_std``, the output scale
+    used at every step, the posterior as a ``MarkovSeq`` stacked over the
+    grid (entry 0 of the conditionals is the identity at t0), and the step
+    counts."""
+
+    t: torch.Tensor
+    u: torch.Tensor
+    u_std: torch.Tensor
+    output_scale: torch.Tensor
+    marginals: Optional[Normal]
+    posterior: MarkovSeq
+    num_steps: torch.Tensor
     ssm: Any = None

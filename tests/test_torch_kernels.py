@@ -1,5 +1,5 @@
-"""The kernel wrappers' contract (K1-K7), and each kernel against its twin
-on the card.
+"""The kernel wrappers' contract (K1-K7), and each kernel (K1-K11) against
+its twin or plain version on the card.
 
 This file imports no JAX, so the tests that need the card run where only
 the port is installed:
@@ -596,3 +596,90 @@ def test_k6_k7_refuse_a_vector_field_without_device_functor(cuda_device):
     bare = batched.make_step_ll(bare_vf, params, nu=4, d=3, strategy="filter")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kernels.step_everystep_attempt(bare, state, t1, **inputs)
+
+
+def _elements_ll(seed, p, m, c, dtype, device):
+    rng = np.random.default_rng(seed)
+    shapes = ((m, m, p), (m, c, p), (m, m, p), (m, c, p), (m, m, p))
+    return tuple(torch.tensor(rng.standard_normal(s), dtype=dtype, device=device) for s in shapes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs", [1024, 1000])
+@pytest.mark.parametrize("c", [1, 2, 3])
+@pytest.mark.parametrize("m", [3, 4, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pit_combine_k8_matches_its_plain_version_on_the_card(cuda_device, dtype, m, c, pairs):
+    e_i = _elements_ll(70, pairs, m, c, dtype, cuda_device)
+    e_j = _elements_ll(71, pairs, m, c, dtype, cuda_device)
+    before = kernels.LAUNCHES["pit_combine"]
+    got = kernels.pit_combine(e_i, e_j)
+    assert kernels.LAUNCHES["pit_combine"] == before + 1
+    want = kernels.pit_combine_plain(e_i, e_j)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):  # bit for bit
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_pit_combine_k8_refuses_what_it_is_not_built_for(cuda_device):
+    els = _elements_ll(72, 8, 6, 1, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="built for"):
+        kernels.pit_combine(els, els)
+    els = _elements_ll(72, 8, 4, 3, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="not contiguous"):
+        kernels.pit_combine(tuple(x.transpose(0, 1) if x.shape[0] == x.shape[1] else x
+                                  for x in els), els)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        kernels.pit_combine(tuple(x.half() for x in els), tuple(x.half() for x in els))
+    blocked = tuple(x[:, :, None, :].contiguous() for x in els)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        kernels.pit_combine(blocked, blocked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(130, 10, 5), (128, 6, 6), (64, 4, 2), (1000, 6, 3),
+                                   (1000, 8, 4), (1000, 12, 6)])
+def test_batched_qr_k9_matches_its_plain_version_on_the_card(cuda_device, shape):
+    from odecheckpts_torch import batched_qr
+
+    x = torch.tensor(np.random.default_rng(73).standard_normal(shape), dtype=torch.float32,
+                     device=cuda_device)
+    before = kernels.LAUNCHES["batched_qr_r"]
+    got = batched_qr.batched_qr_r(x)
+    assert kernels.LAUNCHES["batched_qr_r"] == before + 1
+    want = kernels.batched_qr_r_plain(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)  # bit for bit
+    ref = batched_qr.batched_qr_r_reference(x)
+    torch.testing.assert_close(got, ref, rtol=0, atol=2e-5)  # the reference's gate
+    with pytest.raises(ValueError, match="built for"):
+        batched_qr.batched_qr_r(x[:, :3, :2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [1, 3])
+@pytest.mark.parametrize("size", [10, 8, 6])
+@pytest.mark.parametrize("variant", ["cols", "masked"])
+def test_qr_packing_k10_k11_match_their_plain_versions_on_the_card(cuda_device, variant, size,
+                                                                   iters):
+    from odecheckpts_torch import qr_packing
+
+    x = torch.tensor(np.random.default_rng(74).standard_normal((size, size, 1000)),
+                     dtype=torch.float32, device=cuda_device)
+    name = f"qr_packing_{variant}"
+    before = kernels.LAUNCHES[name]
+    got = qr_packing.bench_kernel(variant, size, size, iters)(x)
+    assert kernels.LAUNCHES[name] == before + 1
+    want = getattr(kernels, name + "_plain")(x, iters)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)  # bit for bit
+
+
+@pytest.mark.cuda
+def test_qr_packing_main_runs_the_reference_size_on_the_card(cuda_device):
+    from odecheckpts_torch import qr_packing
+
+    out = qr_packing.main(batch=8192, iters=20, nu=4, device=cuda_device)
+    assert (out["m"], out["n"]) == (10, 10) and len(out["rows"]) == 2
+    assert all(row["ms"] > 0 for row in out["rows"]) and out["packed_over_cols"] > 0
