@@ -8,9 +8,13 @@ dt0 0.1, atol 1e-3 rtol), gated against LSODA(1e-12) truth on 256 lanes:
 RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
 
 1. device: versions and the card's name and power limit; full-f32 matmuls.
-2. build: compiles K1-K7 (odecheckpts_torch/csrc/, one nvcc per source, in
+2. build: compiles K1-K11 (odecheckpts_torch/csrc/, one nvcc per source, in
    parallel) and reports the build time and ptxas registers and spills per
-   kernel and nu.
+   kernel and nu; for every K5 entry also its launch geometry as the C
+   launch function reports it (lanes per block, threads, dynamic shared
+   memory per block, resident blocks per SM from the occupancy API), which
+   must equal ``kernels.dense_geometry``'s, with no spills on the main path
+   (Brusselator) and at most DENSE_MAX_STACK bytes of stack or spills in any.
 3. one attempt, kernel against twin, 4,096 lanes, from the Taylor-initialized
    and a mid-solve state: K1 and K3 at nu = 2, 3, 4 (17 arrays), K2 and K4
    at nu = 4, 5 (12 arrays).
@@ -53,10 +57,13 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
     smoothed values must be within 20 rtol.
 12. interval_dense: the row's second interval on K5 against its plain
     version (plain, kernel, kernel, plain), CUDA events, 32,768 lanes: every
-    array equal.
+    array equal, and the two kernel runs equal to each other (lanes of one
+    block end at different attempts: a race would show here); the same
+    interval at a second tile of DENSE_ALT_LANES lanes a block (two runs),
+    also equal: both geometries' times are reported.
 13. attempt_engine_dense: ``engine="cuda"`` (K5's attempt form) gives the
     cuda-loop row's per-lane step counts and outputs exactly; one launch
-    against its plain version, timed.
+    against its plain version, timed, and the two kernel runs equal.
 14. attempt_bd: one attempt of K6 (interval form with max_attempts=1, and
     attempt form) against the blockdiag twin, 4,096 lanes, initial and
     mid-interval state (with random backward conditionals), anisotropic and
@@ -279,6 +286,10 @@ PACKING_BATCHES = (8_192, 32_768, 262_144)
 # the H100 SXM's published peaks: f32 outside the tensor cores and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# K5: the largest stack frame its entries may have (the lane's arrays live in
+# shared memory), and the second tile that phase 12 measures beside the default
+DENSE_MAX_STACK = 512
+DENSE_ALT_LANES = 12
 
 
 def emit(obj):
@@ -326,7 +337,37 @@ def phase_build():
                if "registers" not in ptxas.get(k, {}).get(nu, {})]
     if missing:
         raise RuntimeError(f"ptxas reported no kernel for {missing}:\n{lib.log}")
-    return ptxas
+    return phase_build_dense(ptxas)
+
+
+def phase_build_dense(ptxas):
+    """K5's ptxas counts beside the launch geometry its C launch functions
+    report; fails if that geometry is not ``kernels.dense_geometry``'s, if
+    no block fits on an SM, on spills in a main-path entry (Brusselator) or
+    above DENSE_MAX_STACK bytes in any, or on a stack frame above
+    DENSE_MAX_STACK.  Returns the geometry of each form's main-path entry
+    (Brusselator, TS1)."""
+    from odecheckpts_torch import kernels
+
+    main, bad = {}, []
+    for name in ("step_dense_interval", "step_dense_attempt"):
+        for functor, d in (("Brusselator", 4), ("RigidBody", 3)):
+            for corr in ("ts1", "ts0"):
+                key = f"4/{corr}/{functor}"
+                geometry = kernels.step_dense_geometry(name, d, corr == "ts1", 0)
+                info = {**ptxas[name][key], **geometry}
+                emit({"phase": "build_dense", "kernel": "K5", "form": name, "entry": key, **info})
+                want = kernels.dense_geometry(5 * d, d, kernel=name)
+                spills = info.get("spill_stores", 0) + info.get("spill_loads", 0)
+                if (any(geometry[k] != v for k, v in want.items()) or geometry["blocks_per_sm"] < 1
+                        or (spills and functor == "Brusselator") or spills > DENSE_MAX_STACK
+                        or info.get("stack", 0) > DENSE_MAX_STACK):
+                    bad.append((name, key, info, want))
+                if key == "4/ts1/Brusselator":
+                    main[name] = info
+    if bad:
+        raise AssertionError(f"K5's geometry or ptxas counts are off: {bad}")
+    return main
 
 
 def _ensemble(batch, torch, device):
@@ -1151,17 +1192,30 @@ def phase_interval_dense(device, loop):
 
     times = _time_pair((("plain", run(kernels.step_dense_interval_plain)),
                         ("kernel", run(kernels.step_dense_interval)),
-                        ("kernel2", run(kernels.step_dense_interval)),
-                        ("plain2", run(kernels.step_dense_interval_plain))))
+                        ("kernel2", run(kernels.step_dense_interval))))
+    alt = kernels.step_dense_geometry("step_dense_interval", 4, True, DENSE_ALT_LANES)
+    try:
+        alt_times = _time_pair((("alt", run(kernels.step_dense_interval)),
+                                ("alt2", run(kernels.step_dense_interval))))
+    finally:
+        default = kernels.step_dense_geometry("step_dense_interval", 4, True, 0)
+    times.update(_time_pair((("plain2", run(kernels.step_dense_interval_plain)),)))
     k_out, p_out = times["kernel"][1], times["plain"][1]
     other = int(torch.sum(k_out[15] != p_out[15]))
     equal = all(bool(torch.equal(a, b)) for a, b in zip(k_out, p_out))
+    runs = [times["kernel2"][1], alt_times["alt"][1], alt_times["alt2"][1]]
+    repeat = all(bool(torch.equal(a, b)) for out in runs for a, b in zip(out, k_out))
+    geometries = [{**g, "kernel_ms": ms} for g, ms in (
+        (default, [times["kernel"][0], times["kernel2"][0]]),
+        (alt, [alt_times["alt"][0], alt_times["alt2"][0]]))]
     emit({"phase": "interval_dense", "kernel": "K5", "rtol": DENSE_RTOL, "batch": BATCH,
           "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
           "plain_ms": [times["plain"][0], times["plain2"][0]],
-          "lanes_with_other_step_counts": other, "arrays_equal": equal})
-    if other or not equal:
-        raise AssertionError(f"K5 and its plain version differ over an interval ({other} lanes)")
+          "lanes_with_other_step_counts": other, "arrays_equal": equal,
+          "kernel_runs_equal": repeat, "geometries": geometries})
+    if other or not equal or not repeat:
+        raise AssertionError(f"K5 and its plain version differ over an interval ({other} lanes), "
+                             f"or two kernel runs differ ({not repeat})")
     return _timing("step_dense_interval", times, state, 15, nu=4, d=4)
 
 
@@ -1197,12 +1251,15 @@ def phase_attempt_engine_dense(device, loop):
     ))
     dev = max(float(torch.max(torch.abs(a - b)))
               for a, b in zip(times["kernel"][1], times["plain"][1]))
+    repeat = all(bool(torch.equal(a, b)) for a, b in zip(times["kernel"][1], times["kernel2"][1]))
     emit({"phase": "one_launch", "kernel": "K5", "form": "step_dense_attempt", "batch": BATCH,
           "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
-          "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev})
-    if dev != 0.0:
+          "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev,
+          "kernel_runs_equal": repeat})
+    if dev != 0.0 or not repeat:
         raise AssertionError(
-            f"one launch of K5's attempt form differs from its plain version by {dev}")
+            f"one launch of K5's attempt form differs from its plain version by {dev}, or two "
+            f"launches differ ({not repeat})")
     return counts, _timing("step_dense_attempt", times, state, 15, nu=4, d=4)
 
 
@@ -2041,7 +2098,7 @@ def main():
     device, _smi = phase_device()
     import torch
 
-    phase_build()
+    dense_geometry = phase_build()
     worst = phase_attempt(device)
     worst.update(phase_attempt_hi(device))
 
@@ -2111,6 +2168,10 @@ def main():
                      "library_ms": timing[name].get("library_ms")})
         if name in STANDALONE:
             rows[-1]["note"] = "no solve path launches it: the launches of its phase"
+        if name in dense_geometry:
+            g = dense_geometry[name]
+            rows[-1].update(smem_bytes=g["smem_bytes"], lanes_per_block=g["lanes_per_block"],
+                            blocks_per_sm=g["blocks_per_sm"])
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,8 @@
 // Helpers shared by the lanes-last kernels (K1-K8, K10): NaN-propagating
 // min/max, lanes-last loads and stores, the column-list Householder QR of
 // odecheckpts_tpu/batched.py:_qr_r_cols / batched_hi.py:_qr_r_cols_partial
-// (unrolled, and with runtime loops for K5's large column lists) and the
-// triangular solve of the reverted blocks.
+// (unrolled) and the triangular solve of the reverted blocks.  K5's
+// warp-cooperative forms of the QR and the solve are in step_dense.cuh.
 //
 // Everything here rounds each operation on its own: the sources are built
 // with -fmad=false and without --use_fast_math (see kernels.py).  The loads,
@@ -132,76 +132,6 @@ __device__ __forceinline__ void tri_solve_upper(const float (&cols)[M][M], float
       x[i][k] = ok ? acc / dd : 0.0f;
     }
   }
-}
-
-// qr_r_cols with runtime loops over the reflections and the columns: the
-// same arithmetic in the same order, for the column lists of the dense step
-// (K5: up to 40 x 40), which are too large to unroll and live in local
-// memory.
-template <int M, int NC, int NR = NC>
-__device__ __forceinline__ void qr_r_cols_loop(float (&cols)[NC][M]) {
-  constexpr int J = NR < M - 1 ? NR : M - 1;
-#pragma unroll 1
-  for (int j = 0; j < J; ++j) {
-    float v[M];
-#pragma unroll
-    for (int r = 0; r < M; ++r) v[r] = cols[j][r] * (r >= j ? 1.0f : 0.0f);  // colm
-    float norm2 = v[0] * v[0];
-#pragma unroll
-    for (int r = 1; r < M; ++r) norm2 = norm2 + v[r] * v[r];
-    const float norm = sqrtf(norm2 + FLT_MIN);
-    float head = v[0] * (j == 0 ? 1.0f : 0.0f);
-#pragma unroll
-    for (int r = 1; r < M; ++r) head = head + v[r] * (r == j ? 1.0f : 0.0f);
-    const float sign = head >= 0.0f ? 1.0f : -1.0f;
-    const float alpha = -sign * norm;
-#pragma unroll
-    for (int r = 0; r < M; ++r) v[r] = v[r] - (r == j ? 1.0f : 0.0f) * alpha;
-    const float vnorm2 = norm2 + alpha * alpha - 2.0f * head * alpha;
-    const float inv = vnorm2 > FLT_MIN ? 2.0f / vnorm2 : 0.0f;
-#pragma unroll 1
-    for (int c = j; c < NC; ++c) {
-      float coeff = v[0] * cols[c][0];
-#pragma unroll
-      for (int r = 1; r < M; ++r) coeff = coeff + v[r] * cols[c][r];
-#pragma unroll
-      for (int r = 0; r < M; ++r) cols[c][r] = cols[c][r] - inv * v[r] * coeff;
-    }
-  }
-}
-
-// X = R_yy^-1 R_yx from a reverted column list, stored transposed:
-// xt[k][i] = X[i][k], with R_yy[i][j] = cols[j][i] (i, j < N) and
-// R_yx[i][k] = cols[N + k][i] (batched.py:_tri_solve_upper_ll, runtime
-// loops).  A diagonal below eps^2 zeroes its row of X.
-template <int N, int K, int M, int NC>
-__device__ __forceinline__ void tri_solve_upper_t(const float (&cols)[NC][M], float (&xt)[K][N]) {
-  const float eps2 = FLT_EPSILON * FLT_EPSILON;
-#pragma unroll 1
-  for (int i = N - 1; i >= 0; --i) {
-    const float dd = cols[i][i];
-    const bool ok = fabsf(dd) > eps2;
-#pragma unroll 1
-    for (int k = 0; k < K; ++k) {
-      float acc = cols[N + k][i];
-      for (int j = i + 1; j < N; ++j) acc = acc - cols[j][i] * xt[k][j];
-      xt[k][i] = ok ? acc / dd : 0.0f;
-    }
-  }
-}
-
-// Lanes-last loads and stores of E floats a lane with a runtime loop:
-// element e of lane b sits at x[e * B + b].
-template <int E>
-__device__ __forceinline__ void load_flat(float* x, const float* src, int64_t b, int64_t B) {
-#pragma unroll 4
-  for (int e = 0; e < E; ++e) x[e] = src[e * B + b];
-}
-
-template <int E>
-__device__ __forceinline__ void store_flat(const float* x, float* dst, int64_t b, int64_t B) {
-#pragma unroll 4
-  for (int e = 0; e < E; ++e) dst[e * B + b] = x[e];
 }
 
 // Launch grid of one lane per thread.

@@ -1,8 +1,9 @@
 // The f32 step of K5 (step_dense.cu, step_dense_attempt.cu): one adaptive
-// attempt of the dense-covariance TS1 / TS0 fixedpoint solver, one IVP lane
-// per thread.  The plain PyTorch twin is
-// odecheckpts_torch/batched_dense.py:StepDense; the reference is
-// odecheckpts_tpu/batched_dense.py:make_step_dense_ll (114-484).
+// attempt of the dense-covariance TS1 / TS0 fixedpoint solver, one warp per
+// IVP lane, the lane's state and working arrays in shared memory.  The plain
+// PyTorch twin is odecheckpts_torch/batched_dense.py:StepDense; the
+// reference is odecheckpts_tpu/batched_dense.py:make_step_dense_ll
+// (114-484).
 //
 // The arithmetic follows the reference operation by operation and in the
 // same order (sums in row or column order as the twin's loops take them),
@@ -22,15 +23,35 @@
 // kernel cannot); the twin calls the vector field's jac, written in the
 // same order of operations.
 //
-// A lane's state is 17 arrays, 6 (nd, nd) + 4 (nd) + 7 scalars = 2,487
-// floats at nd = 20, and an attempt's working arrays (the 40 x 40 revert
-// column list, which the correction and fixedpoint column lists reuse,
-// l_pred, gain, bwd_L_step) add ~2,900 more: far beyond 255 registers, so
-// all of it lives in per-thread local memory, which the hardware interleaves
-// by thread (a warp's accesses to one element coalesce).  A rejected or
-// frozen attempt needs only its error estimate, so the covariance work runs
-// only on accepted attempts; the outputs are those of the reference's
-// compute-then-select.
+// What bounds it, and the design.  A lane's state is 17 arrays, 2,487 floats
+// at nd = 20, and an accepted attempt works on a (40, 40) column list: far
+// beyond a thread's registers.  Held per thread (the first design), all of
+// it lived in local memory and streamed through L2 and device memory at
+// every pass of a QR.  Here the 32 threads of a warp share one lane, whose
+// arrays sit in shared memory (DenseLayout, 18,272 bytes at nd = 20), and a block
+// holds a tile of consecutive lanes, which it loads and stores cooperatively
+// (each element of the tile's lanes is one run of consecutive words).  The
+// work is split only across independent outputs, so every sum keeps the
+// twin's order and the kernel stays bit for bit with it:
+//   * QR: every thread computes reflection j's vector from column j
+//     (broadcast reads, identical arithmetic), then each thread updates whole
+//     columns c >= j, its dot product in row order;
+//   * triangular solves: one thread per right-hand side;
+//   * products and elementwise passes: one thread per output element;
+//   * maxima (exact in any order): per-thread partials and warp shuffles;
+//   * the per-lane scalar work (extrapolation, vf, jac, sigma, error, PI
+//     control, accept / reject): every thread of the warp, redundantly, so
+//     every branch is warp-uniform and needs no broadcast.
+// The warp synchronizes only with itself (__syncwarp): lanes of one block
+// take different numbers of attempts.  What bounds it now is the warp's
+// instruction throughput and shared-memory traffic per reflection (the 2nd-term
+// norm and each column's 2nd-term dot product stay serial) and the 12 lanes
+// an SM's shared memory holds (step_dense.cu).  A rejected
+// or frozen attempt needs only its error estimate, so the covariance work
+// runs only on accepted attempts; the outputs are those of the reference's
+// compute-then-select.  An accepted attempt writes the new arrays into the
+// lane's second copy and flips which copy is current, instead of copying the
+// current state into the previous one.
 
 #pragma once
 
@@ -83,89 +104,226 @@ struct Brusselator {
   }
 };
 
-template <int ND>
-struct LaneDense {
-  float t, scale, t_prev, dt, errn_prev, nsteps, mle;
-  float mean[ND], chol[ND][ND], bwdG[ND][ND], bwd_m[ND], bwd_L[ND][ND];
-  float mean_prev[ND], chol_prev[ND][ND], bwdG_prev[ND][ND], bwd_m_prev[ND], bwd_L_prev[ND][ND];
-};
+constexpr int WARP = 32;
+constexpr unsigned FULL = 0xffffffffu;
+// Launch geometry (kernels.dense_geometry mirrors it): a block is a tile of
+// a form's default number of lanes (step_dense.cu, step_dense_attempt.cu),
+// one warp each, or fewer if SMEM_PER_BLOCK does not hold them after the
+// constants.  A launch takes at most DENSE_LANES_MAX (the launch bounds).
+constexpr int DENSE_LANES_MAX = 12;
+constexpr int SMEM_PER_BLOCK = 232448;
+constexpr int CONST_FLOATS = 64;  // Consts::a and Consts::lq, per block
 
-// An attempt's working arrays; the three QR column lists share storage.
+// The stride of a QR column list of M rows: whole float4s, an odd number of
+// them, so that a column is read and written 16 bytes at a time and the
+// eight threads of a quarter warp, one column each, hit distinct banks.
+__host__ __device__ constexpr int col_stride(int m) {
+  return (m + 3) / 4 % 2 == 1 ? (m + 3) / 4 * 4 : (m + 3) / 4 * 4 + 4;
+}
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+// Where a lane's arrays sit in its slice of shared memory (floats).  The QR
+// column lists (one region: revert and fixedpoint with 2nd rows of stride
+// LDR, sigma and correction with nd rows of stride LDC, and the correction's
+// gain; the revert's gain replaces R_yx in its right half and outlives the
+// correction and fixedpoint lists, which use the left half), the QR's
+// Householder vector, its squares and inv * vector, two copies of the five
+// arrays that an accepted attempt replaces (the current and the previous
+// state), and the lane's small vectors and scalars.  (nd, nd) matrices have rows of odd stride LDS, so that threads
+// walking one row each hit distinct banks.
 template <int ND, int D>
-struct WorkDense {
-  union {
-    float rev[2 * ND][2 * ND];  // revert QR: cols[c][r] = R[r][c]
-    float cor[D + ND][ND];      // correction QR
-    float fp[ND][2 * ND];       // fixedpoint QR
-  };
-  float l_pred[ND][ND], gain[ND][ND], bwd_L_step[ND][ND];
+struct DenseLayout {
+  static constexpr int M = 2 * ND, MP = round4(M);
+  static constexpr int LDS = ND | 1, LDR = col_stride(M), LDC = col_stride(ND);
+  static constexpr int MAT = ND * LDS;
+  static constexpr int MEAN = 0, CHOL = ND, BWDG = ND + MAT, BWDM = ND + 2 * MAT,
+                       BWDL = 2 * ND + 2 * MAT, BUF = 2 * ND + 3 * MAT;
+  static constexpr int WORK = 0, VEC = WORK + M * LDR, STATE = VEC + 3 * MP,
+                       GAIN = WORK + ND * LDR, MPRED = STATE + 2 * BUF, BMSTEP = MPRED + ND,
+                       Z = BMSTEP + ND, ZN = Z + D, ZC = ZN + D, JAC = ZC + D, P = JAC + D * D,
+                       PINV = P + NMAX, SCAL = PINV + NMAX;
+  static constexpr int FLOATS = round4(SCAL + 8);
+  static constexpr int LDGC = D | 1;                   // rows of the correction gain
+  static constexpr int GAINC = WORK + (D + ND) * LDC;  // after the correction list
+  static_assert((D + ND) * LDC + ND * LDGC <= ND * LDR, "correction list and gain fit");
+  static_assert(ND <= WARP, "one thread per row of the gains");
 };
 
-template <int ND>
-__device__ __forceinline__ LaneInputs load_lane_dense(LaneDense<ND>& s, const Args& args,
-                                                      int64_t b, int64_t B) {
-  constexpr int V = ND, Q = ND * ND;
-  s.t = args.in[0][b];
-  load_flat<V>(s.mean, args.in[1], b, B);
-  load_flat<Q>(&s.chol[0][0], args.in[2], b, B);
-  load_flat<Q>(&s.bwdG[0][0], args.in[3], b, B);
-  load_flat<V>(s.bwd_m, args.in[4], b, B);
-  load_flat<Q>(&s.bwd_L[0][0], args.in[5], b, B);
-  s.scale = args.in[6][b];
-  s.t_prev = args.in[7][b];
-  load_flat<V>(s.mean_prev, args.in[8], b, B);
-  load_flat<Q>(&s.chol_prev[0][0], args.in[9], b, B);
-  load_flat<Q>(&s.bwdG_prev[0][0], args.in[10], b, B);
-  load_flat<V>(s.bwd_m_prev, args.in[11], b, B);
-  load_flat<Q>(&s.bwd_L_prev[0][0], args.in[12], b, B);
-  s.dt = args.in[13][b];
-  s.errn_prev = args.in[14][b];
-  s.nsteps = args.in[15][b];
-  s.mle = args.in[16][b];
-  return LaneInputs{args.in[17][b], args.in[18][b], args.in[19][b],
-                    args.in[20][b], args.in[21][b], args.in[22][b]};
+template <int ND, int D>
+constexpr int dense_lanes_fit(int lanes) {
+  constexpr int fit = (SMEM_PER_BLOCK - CONST_FLOATS * 4) / (DenseLayout<ND, D>::FLOATS * 4);
+  return fit < lanes ? fit : lanes;
 }
 
-template <int ND>
-__device__ __forceinline__ void store_lane_dense(const LaneDense<ND>& s, const Args& args,
-                                                 int64_t b, int64_t B) {
-  constexpr int V = ND, Q = ND * ND;
-  args.out[0][b] = s.t;
-  store_flat<V>(s.mean, args.out[1], b, B);
-  store_flat<Q>(&s.chol[0][0], args.out[2], b, B);
-  store_flat<Q>(&s.bwdG[0][0], args.out[3], b, B);
-  store_flat<V>(s.bwd_m, args.out[4], b, B);
-  store_flat<Q>(&s.bwd_L[0][0], args.out[5], b, B);
-  args.out[6][b] = s.scale;
-  args.out[7][b] = s.t_prev;
-  store_flat<V>(s.mean_prev, args.out[8], b, B);
-  store_flat<Q>(&s.chol_prev[0][0], args.out[9], b, B);
-  store_flat<Q>(&s.bwdG_prev[0][0], args.out[10], b, B);
-  store_flat<V>(s.bwd_m_prev, args.out[11], b, B);
-  store_flat<Q>(&s.bwd_L_prev[0][0], args.out[12], b, B);
-  args.out[13][b] = s.dt;
-  args.out[14][b] = s.errn_prev;
-  args.out[15][b] = s.nsteps;
-  args.out[16][b] = s.mle;
+template <int ND, int D>
+constexpr int dense_smem_bytes(int lanes) {
+  return (CONST_FLOATS + lanes * DenseLayout<ND, D>::FLOATS) * 4;
 }
 
-template <int E>
-__device__ __forceinline__ void copy_flat(float* dst, const float* src) {
-#pragma unroll 4
-  for (int e = 0; e < E; ++e) dst[e] = src[e];
+// The lane's scalars, held by every thread of its warp.
+struct DenseScalars {
+  float t, scale, t_prev, dt, errn_prev, nsteps, mle;
+  int cur;  // which copy holds the current state
+};
+
+// The largest of the warp's values, NaN-propagating (maxima are exact in any
+// order; a NaN anywhere gives a NaN everywhere).
+__device__ __forceinline__ float warp_maxp(float m) {
+#pragma unroll
+  for (int off = WARP / 2; off > 0; off >>= 1) m = maxp(m, __shfl_xor_sync(FULL, m, off));
+  return m;
 }
 
-// One accept/reject attempt (make_step_dense_ll's `step`), updating s in place.
+template <int M>
+__device__ __forceinline__ float col_absmax(const float* x) {
+  float m = fabsf(x[0]);
+#pragma unroll
+  for (int k = 1; k < M; ++k) m = maxp(m, fabsf(x[k]));
+  return m;
+}
+
+// M floats at p (16-byte aligned) to registers and back, 16 bytes at a time.
+template <int M>
+__device__ __forceinline__ void load_vec(float (&x)[M], const float* p) {
+#pragma unroll
+  for (int q = 0; q < M / 4; ++q) {
+    const float4 t = reinterpret_cast<const float4*>(p)[q];
+    x[4 * q] = t.x;
+    x[4 * q + 1] = t.y;
+    x[4 * q + 2] = t.z;
+    x[4 * q + 3] = t.w;
+  }
+#pragma unroll
+  for (int r = M / 4 * 4; r < M; ++r) x[r] = p[r];
+}
+
+template <int M>
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[M]) {
+#pragma unroll
+  for (int q = 0; q < M / 4; ++q)
+    reinterpret_cast<float4*>(p)[q] = make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+#pragma unroll
+  for (int r = M / 4 * 4; r < M; ++r) p[r] = x[r];
+}
+
+// lanes.cuh's column-list Householder QR on the warp: column c of M rows at
+// cols[c * ld] (ld from col_stride); `vec` holds 3 round4(M) floats of
+// scratch.  Reflection j: thread `lane` forms rows lane, lane + 32, ... of
+// the masked column j and their squares; every thread sums the squares in
+// row order (the twin's norm); the owners form the Householder vector v and
+// inv * v; then thread `lane` updates columns j + lane, j + lane + 32, ...,
+// its dot product in row order.
+template <int M, int NC, int NR = NC>
+__device__ __forceinline__ void qr_cols_warp(float* cols, int ld, float* vec, int lane) {
+  constexpr int J = NR < M - 1 ? NR : M - 1;
+  constexpr int Q = (M + WARP - 1) / WARP;  // rows a thread forms
+  float* sq = vec + round4(M);
+  float* ivec = sq + round4(M);
+#pragma unroll 1
+  for (int j = 0; j < J; ++j) {
+    const float* cj = cols + j * ld;
+    float colm[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int r = lane + q * WARP;
+      if (r < M) {
+        colm[q] = cj[r] * (r >= j ? 1.0f : 0.0f);
+        sq[r] = colm[q] * colm[q];
+      }
+    }
+    __syncwarp();
+    float s2[M];
+    load_vec<M>(s2, sq);
+    float norm2 = s2[0];
+#pragma unroll
+    for (int r = 1; r < M; ++r) norm2 = norm2 + s2[r];
+    const float norm = sqrtf(norm2 + FLT_MIN);
+    // The twin's head is the row-order sum of colm[r] * [r == j]: colm[j]
+    // plus signed zeros, or a NaN where colm holds a non-finite entry (and
+    // then norm2, alpha, vnorm2 and the vector are NaN or inv is 0 either
+    // way).  A zero's sign moves neither `sign` nor vnorm2 (norm2 + alpha^2
+    // >= FLT_MIN), so colm[j] gives every bit of what follows.
+    const float head = cj[j];
+    const float sign = head >= 0.0f ? 1.0f : -1.0f;
+    const float alpha = -sign * norm;
+    const float vnorm2 = norm2 + alpha * alpha - 2.0f * head * alpha;
+    const float inv = vnorm2 > FLT_MIN ? 2.0f / vnorm2 : 0.0f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int r = lane + q * WARP;
+      if (r < M) {
+        const float vr = colm[q] - (r == j ? 1.0f : 0.0f) * alpha;
+        vec[r] = vr;
+        ivec[r] = inv * vr;  // the twin's inv * v[r] * coeff is (inv * v[r]) * coeff
+      }
+    }
+    __syncwarp();  // column j is read by all before its owner changes it
+#pragma unroll 1
+    for (int c = j + lane; c < NC; c += WARP) {
+      float* cc = cols + c * ld;
+      float x[M], v[M];
+      load_vec<M>(x, cc);
+      load_vec<M>(v, vec);
+      float coeff = v[0] * x[0];
+#pragma unroll
+      for (int r = 1; r < M; ++r) coeff = coeff + v[r] * x[r];
+      load_vec<M>(v, ivec);
+#pragma unroll
+      for (int r = 0; r < M; ++r) x[r] = x[r] - v[r] * coeff;
+      store_vec<M>(cc, x);
+    }
+    __syncwarp();
+  }
+}
+
+// X = R_yy^-1 R_yx from a reverted column list (column c at cols[c * ld]),
+// stored transposed: xt[k * ldx + i] = X[i][k] (batched.py:
+// _tri_solve_upper_ll).  One thread per right-hand side k, which reads only
+// its own row of xt; that row may be its right-hand side, column N + k
+// (step i reads row i of it before it writes X[i][k] there).  A diagonal
+// below eps^2 zeroes its row of X.
+template <int N, int K>
+__device__ __forceinline__ void tri_solve_warp(const float* cols, int ld, float* xt, int ldx,
+                                               int lane) {
+  const float eps2 = FLT_EPSILON * FLT_EPSILON;
+  for (int k = lane; k < K; k += WARP) {
+    float* x = xt + k * ldx;
+    const float* rhs = cols + (N + k) * ld;
+#pragma unroll 1
+    for (int i = N - 1; i >= 0; --i) {
+      const float dd = cols[i * ld + i];
+      const bool ok = fabsf(dd) > eps2;
+      float acc = rhs[i];
+      for (int j = i + 1; j < N; ++j) acc = acc - cols[j * ld + i] * x[j];
+      x[i] = ok ? acc / dd : 0.0f;
+    }
+  }
+  __syncwarp();
+}
+
+// One accept/reject attempt (make_step_dense_ll's `step`) of the lane whose
+// arrays are at sm, run by all 32 threads of its warp; ca and clq are the
+// block's copies of c.a and c.lq.
 template <int NU, bool TS1, class VF>
-__device__ __forceinline__ void attempt_dense(LaneDense<(NU + 1) * VF::D>& s,
-                                              WorkDense<(NU + 1) * VF::D, VF::D>& w,
-                                              const Consts& c, const VF& vf,
-                                              const LaneInputs& in) {
+__device__ __forceinline__ void attempt_warp(float* sm, const float* ca, const float* clq,
+                                             DenseScalars& s, const Consts& c, const VF& vf,
+                                             const LaneInputs& in, int lane) {
   constexpr int N = NU + 1;
   constexpr int D = VF::D;
   constexpr int ND = N * D;
   constexpr int M = 2 * ND;
+  using Lay = DenseLayout<ND, D>;
+  constexpr int LDS = Lay::LDS, LDR = Lay::LDR;
   const float tiny_scale = in.tiny_scale;
+  const float* old = sm + Lay::STATE + s.cur * Lay::BUF;  // the state before the attempt
+  float* m_pred = sm + Lay::MPRED;
+  float* z_s = sm + Lay::Z;
+  float* jac_s = sm + Lay::JAC;
+  float* p_s = sm + Lay::P;
+  float* pinv_s = sm + Lay::PINV;
+  float* work = sm + Lay::WORK;
+  float* vec = sm + Lay::VEC;
+  __syncwarp();  // the previous attempt's reads are done
 
   const float dt = minp(maxp(s.dt, in.dt_floor), in.dt_max);
   float pows[N];
@@ -182,11 +340,7 @@ __device__ __forceinline__ void attempt_dense(LaneDense<(NU + 1) * VF::D>& s,
   const float t_new = s.t + dt;
 
   // -- extrapolate the mean: m_pred = P (A kron I) P^-1 m
-  float m_bar[ND], m_pred[ND];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int k = 0; k < D; ++k) m_bar[i * D + k] = s.mean[i * D + k] * p_inv[i];
+  float mp[ND];
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
@@ -194,22 +348,39 @@ __device__ __forceinline__ void attempt_dense(LaneDense<(NU + 1) * VF::D>& s,
       float acc = -0.0f;
 #pragma unroll
       for (int j = 0; j < N; ++j)
-        if (c.a[i * NMAX + j] != 0.0f) acc = acc + c.a[i * NMAX + j] * m_bar[j * D + k];
-      m_pred[i * D + k] = acc * p[i];
+        if (c.a[i * NMAX + j] != 0.0f) acc = acc + c.a[i * NMAX + j] * (old[j * D + k] * p_inv[j]);
+      mp[i * D + k] = acc * p[i];
     }
 
   // -- linearize at the predicted mean
   float fx[D], z[D], J[D][D];
-  vf(m_pred, t_new, fx);
+  vf(mp, t_new, fx);
 #pragma unroll
-  for (int k = 0; k < D; ++k) z[k] = m_pred[D + k] - fx[k];
-  if (TS1) vf.jac(m_pred, t_new, J);
+  for (int k = 0; k < D; ++k) z[k] = mp[D + k] - fx[k];
+  if (TS1) vf.jac(mp, t_new, J);
+  if (lane == 0) {
+#pragma unroll
+    for (int e = 0; e < ND; ++e) m_pred[e] = mp[e];
+#pragma unroll
+    for (int r = 0; r < D; ++r) {
+      z_s[r] = z[r];
+#pragma unroll
+      for (int k = 0; k < D; ++k) jac_s[r * D + k] = TS1 ? J[r][k] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      p_s[i] = p[i];
+      pinv_s[i] = p_inv[i];
+    }
+  }
+  __syncwarp();
 
   // -- sigma and the error: rows of H Q_unit^{1/2}, jointly row-normalized
-  // with z, as the column list of a (nd, d) QR
-  float rs[D][ND], zn[D];
-#pragma unroll 1
-  for (int r = 0; r < D; ++r) {
+  // with z, as the column list of a (nd, d) QR (column r by thread r)
+  float* rs = work;
+  if (lane < D) {
+    const int r = lane;
+    float* col = rs + r * Lay::LDC;
 #pragma unroll
     for (int kk = 0; kk < N; ++kk) {
       const float base = p[1] * c.lq[NMAX + kk];
@@ -218,26 +389,27 @@ __device__ __forceinline__ void attempt_dense(LaneDense<(NU + 1) * VF::D>& s,
         bool has = j == r;
         float acc = has ? base : 0.0f;
         if (TS1 && c.lq[kk] != 0.0f) {
-          const float term = (p[0] * c.lq[kk]) * J[r][j];
+          const float term = (p[0] * c.lq[kk]) * jac_s[r * D + j];
           acc = has ? acc - term : -term;
           has = true;
         }
-        rs[r][kk * D + j] = has ? acc : 0.0f;
+        col[kk * D + j] = has ? acc : 0.0f;
       }
     }
-    const float mag_r = maxp(row_absmax(rs[r]), tiny_scale);
+    const float mag_r = maxp(col_absmax<ND>(col), tiny_scale);
 #pragma unroll
-    for (int q = 0; q < ND; ++q) rs[r][q] = rs[r][q] / mag_r;
-    zn[r] = z[r] / mag_r;
+    for (int q = 0; q < ND; ++q) col[q] = col[q] / mag_r;
+    sm[Lay::ZN + r] = z_s[r] / mag_r;
   }
-  qr_r_cols_loop<ND, D>(rs);  // R_s[i][j] = rs[j][i]
+  __syncwarp();
+  qr_cols_warp<ND, D>(rs, Lay::LDC, vec, lane);  // R_s[i][j] = rs[j * LDC + i]
   float white[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {  // R_s^T w = z_n
-    float acc = zn[i];
+    float acc = sm[Lay::ZN + i];
 #pragma unroll
-    for (int j = 0; j < i; ++j) acc = acc - rs[i][j] * white[j];
-    float diag = rs[i][i];
+    for (int j = 0; j < i; ++j) acc = acc - rs[i * Lay::LDC + j] * white[j];
+    float diag = rs[i * Lay::LDC + i];
     diag = fabsf(diag) > FLT_MIN ? diag : FLT_MIN;
     white[i] = acc / diag;
   }
@@ -246,11 +418,11 @@ __device__ __forceinline__ void attempt_dense(LaneDense<(NU + 1) * VF::D>& s,
   for (int i = 1; i < D; ++i) ww = ww + white[i] * white[i];
   const float sigma = sqrtf(ww) / c.sqrt_d;
   const float err_u = sigma * (p[0] * c.lq_norm[0]);
-  float qe = err_u / (in.atol + in.rtol * fabsf(m_pred[0]));
+  float qe = err_u / (in.atol + in.rtol * fabsf(mp[0]));
   float e2 = qe * qe;
 #pragma unroll
   for (int r = 1; r < D; ++r) {
-    qe = err_u / (in.atol + in.rtol * fabsf(m_pred[r]));
+    qe = err_u / (in.atol + in.rtol * fabsf(mp[r]));
     e2 = e2 + qe * qe;
   }
   const float errn = c.kappa * sqrtf(e2 / static_cast<float>(D));
@@ -269,14 +441,11 @@ __device__ __forceinline__ void attempt_dense(LaneDense<(NU + 1) * VF::D>& s,
   if (!frozen) s.dt = dt_next;
   if (!accept) return;
 
-  // accepted: the current state becomes the previous one, and everything
-  // below reads the previous arrays and writes the current ones
+  // accepted: the current copy becomes the previous one; everything below
+  // reads `old` and writes the other copy, `nw`
+  float* nw = sm + Lay::STATE + (1 - s.cur) * Lay::BUF;
+  s.cur = 1 - s.cur;
   s.t_prev = s.t;
-  copy_flat<ND>(s.mean_prev, s.mean);
-  copy_flat<ND * ND>(&s.chol_prev[0][0], &s.chol[0][0]);
-  copy_flat<ND * ND>(&s.bwdG_prev[0][0], &s.bwdG[0][0]);
-  copy_flat<ND>(s.bwd_m_prev, s.bwd_m);
-  copy_flat<ND * ND>(&s.bwd_L_prev[0][0], &s.bwd_L[0][0]);
   s.t = t_new;
   s.scale = new_scale;
   s.errn_prev = errn_s;
@@ -286,151 +455,324 @@ __device__ __forceinline__ void attempt_dense(LaneDense<(NU + 1) * VF::D>& s,
   // -- extrapolate the covariance (preconditioned, jointly normalized).
   // Revert-QR column c < nd is [row c of (A kron I) l_bar_n; row c of
   // kron(Lq, I) lq_s], column nd + c is [row c of l_bar_n; 0]
-  float (&rev)[M][M] = w.rev;
+  float* rev = work;
   float mag = new_scale * c.max_lq;
-#pragma unroll 1
-  for (int i = 0; i < ND; ++i)
-#pragma unroll 4
-    for (int k = 0; k < ND; ++k) {
-      const float lb = minp(maxp(s.chol_prev[i][k] * p_inv[i / D], -c.clip), c.clip);
-      rev[ND + i][k] = lb;
-      mag = maxp(mag, fabsf(lb));
-    }
-  mag = maxp(mag * c.a_inf_norm, tiny_scale);
+  for (int e = lane; e < ND * ND; e += WARP) {
+    const int i = e / ND, k = e % ND;
+    const float lb = minp(maxp(old[Lay::CHOL + i * LDS + k] * pinv_s[i / D], -c.clip), c.clip);
+    rev[(ND + i) * LDR + k] = lb;
+    mag = maxp(mag, fabsf(lb));
+  }
+  mag = maxp(warp_maxp(mag) * c.a_inf_norm, tiny_scale);
   const float inv_mag = 1.0f / mag;
   const float lq_s = new_scale * inv_mag;
-#pragma unroll 1
-  for (int i = 0; i < ND; ++i)
-#pragma unroll 4
-    for (int k = 0; k < ND; ++k) {
-      rev[ND + i][k] = rev[ND + i][k] * inv_mag;
-      rev[ND + i][ND + k] = 0.0f;
-    }
-#pragma unroll 1
-  for (int i = 0; i < N; ++i)
-#pragma unroll 1
-    for (int a = 0; a < D; ++a) {
-      const int r = i * D + a;
-#pragma unroll 4
-      for (int k = 0; k < ND; ++k) {
-        float acc = -0.0f;
+  for (int e = lane; e < ND * ND; e += WARP) {  // the same elements as above
+    const int i = e / ND, k = e % ND;
+    rev[(ND + i) * LDR + k] = rev[(ND + i) * LDR + k] * inv_mag;
+    rev[(ND + i) * LDR + ND + k] = 0.0f;
+  }
+  __syncwarp();
+  for (int e = lane; e < ND * ND; e += WARP) {
+    const int r = e / ND, k = e % ND, i = r / D, a = r % D;
+    float acc = -0.0f;
 #pragma unroll
-        for (int j = 0; j < N; ++j)
-          if (c.a[i * NMAX + j] != 0.0f) acc = acc + c.a[i * NMAX + j] * rev[ND + j * D + a][k];
-        rev[r][k] = acc;
-      }
-#pragma unroll
-      for (int kk = 0; kk < N; ++kk)
-#pragma unroll
-        for (int jj = 0; jj < D; ++jj) {
-          const float l = c.lq[i * NMAX + kk];
-          rev[r][ND + kk * D + jj] = (jj == a && l != 0.0f) ? l * lq_s : 0.0f;
-        }
+    for (int j = 0; j < N; ++j) {
+      const float aij = ca[i * NMAX + j];
+      if (aij != 0.0f) acc = acc + aij * rev[(ND + j * D + a) * LDR + k];
     }
-  qr_r_cols_loop<M, M>(rev);
-  // gain[r][k] = X[k][r] for X = R_yy^-1 R_yx, then the preconditioner
-  tri_solve_upper_t<ND, ND>(rev, w.gain);
-  float bwd_m_step[ND];
-#pragma unroll 1
-  for (int r = 0; r < ND; ++r) {
-    const float pr = p[r / D];
-#pragma unroll 4
-    for (int k = 0; k < ND; ++k) {
-      w.l_pred[r][k] = (rev[r][k] * mag) * pr;
-      w.gain[r][k] = (w.gain[r][k] * pr) * p_inv[k / D];
-      w.bwd_L_step[r][k] = (rev[ND + r][ND + k] * mag) * pr;
-    }
-    float acc = w.gain[r][0] * m_pred[0];
-#pragma unroll 4
-    for (int j = 1; j < ND; ++j) acc = acc + w.gain[r][j] * m_pred[j];
-    bwd_m_step[r] = s.mean_prev[r] - acc;
+    rev[r * LDR + k] = acc;
+    const int kk = k / D, jj = k % D;
+    const float l = clq[i * NMAX + kk];
+    rev[r * LDR + ND + k] = (jj == a && l != 0.0f) ? l * lq_s : 0.0f;
+  }
+  __syncwarp();
+  qr_cols_warp<M, M>(rev, LDR, vec, lane);
+  // gain[r][k] = X[k][r] for X = R_yy^-1 R_yx (in place of R_yx: row r of
+  // the gain is column nd + r of the list), then the preconditioner; l_pred
+  // and bwd_L_step go into the new copy's chol and bwd_L, which nothing
+  // reads before they are replaced
+  float* gain = sm + Lay::GAIN;
+  float* l_pred = nw + Lay::CHOL;
+  float* bwd_L_step = nw + Lay::BWDL;
+  tri_solve_warp<ND, ND>(rev, LDR, gain, LDR, lane);
+  for (int e = lane; e < ND * ND; e += WARP) {
+    const int r = e / ND, k = e % ND;
+    const float pr = p_s[r / D];
+    l_pred[r * LDS + k] = (rev[r * LDR + k] * mag) * pr;
+    gain[r * LDR + k] = (gain[r * LDR + k] * pr) * pinv_s[k / D];
+    bwd_L_step[r * LDS + k] = (rev[(ND + r) * LDR + ND + k] * mag) * pr;
+  }
+  __syncwarp();
+  float* bwd_m_step = sm + Lay::BMSTEP;
+  if (lane < ND) {
+    const float* g = gain + lane * LDR;
+    float acc = g[0] * m_pred[0];
+#pragma unroll
+    for (int j = 1; j < ND; ++j) acc = acc + g[j] * m_pred[j];
+    bwd_m_step[lane] = old[Lay::MEAN + lane] - acc;
   }
 
   // -- TS0 / TS1 correction: one QR revert on (nd, d + nd); column r < d is
   // row r of H L (H = E_1 - J E_0), column d + c is row c of L
-  float (&cor)[D + ND][ND] = w.cor;
+  float* cor = work;
   float lmag = tiny_scale;
-#pragma unroll 1
-  for (int i = 0; i < ND; ++i)
-#pragma unroll 4
-    for (int k = 0; k < ND; ++k) lmag = maxp(lmag, fabsf(w.l_pred[i][k]));
+  for (int e = lane; e < ND * ND; e += WARP)
+    lmag = maxp(lmag, fabsf(l_pred[(e / ND) * LDS + e % ND]));
+  lmag = warp_maxp(lmag);
   const float inv_l = 1.0f / lmag;
-  float zc[D];
-#pragma unroll 1
-  for (int r = 0; r < D; ++r) {
+  if (lane < D) {
+    const int r = lane;
+    float* col = cor + r * Lay::LDC;
 #pragma unroll 4
     for (int q = 0; q < ND; ++q) {
-      float acc = w.l_pred[D + r][q];
+      float acc = l_pred[(D + r) * LDS + q];
       if (TS1) {
 #pragma unroll
-        for (int cc = 0; cc < D; ++cc) acc = acc - J[r][cc] * w.l_pred[cc][q];
+        for (int cc = 0; cc < D; ++cc) acc = acc - jac_s[r * D + cc] * l_pred[cc * LDS + q];
       }
-      cor[r][q] = acc;
+      col[q] = acc;
     }
-    const float hl_mag = maxp(row_absmax(cor[r]), tiny_scale);
+    const float hl_mag = maxp(col_absmax<ND>(col), tiny_scale);
 #pragma unroll 4
-    for (int q = 0; q < ND; ++q) cor[r][q] = (cor[r][q] / hl_mag) * inv_l;
-    zc[r] = z[r] / hl_mag;
+    for (int q = 0; q < ND; ++q) col[q] = (col[q] / hl_mag) * inv_l;
+    sm[Lay::ZC + r] = z_s[r] / hl_mag;
   }
-#pragma unroll 1
-  for (int i = 0; i < ND; ++i)
-#pragma unroll 4
-    for (int k = 0; k < ND; ++k) cor[D + i][k] = w.l_pred[i][k] * inv_l;
-  qr_r_cols_loop<ND, D + ND>(cor);
-  float gain_c[ND][D];  // gain_c[i][r] = X[r][i], X = R_yy^-1 R_yx
-  tri_solve_upper_t<D, ND>(cor, gain_c);
-#pragma unroll 1
-  for (int i = 0; i < ND; ++i) {
-    float delta = gain_c[i][0] * zc[0];
+  for (int e = lane; e < ND * ND; e += WARP) {
+    const int i = e / ND, k = e % ND;
+    cor[(D + i) * Lay::LDC + k] = l_pred[i * LDS + k] * inv_l;
+  }
+  __syncwarp();
+  qr_cols_warp<ND, D + ND>(cor, Lay::LDC, vec, lane);
+  float* gain_c = sm + Lay::GAINC;  // gain_c[i][r] = X[r][i], X = R_yy^-1 R_yx
+  tri_solve_warp<D, ND>(cor, Lay::LDC, gain_c, Lay::LDGC, lane);
+  if (lane < ND) {
+    const float* g = gain_c + lane * Lay::LDGC;
+    float delta = g[0] * sm[Lay::ZC];
 #pragma unroll
-    for (int r = 1; r < D; ++r) delta = delta + gain_c[i][r] * zc[r];
-    s.mean[i] = m_pred[i] - delta;
-#pragma unroll 4
-    for (int k = 0; k < ND; ++k) s.chol[i][k] = k < ND - D ? cor[D + i][D + k] * lmag : 0.0f;
+    for (int r = 1; r < D; ++r) delta = delta + g[r] * sm[Lay::ZC + r];
+    nw[Lay::MEAN + lane] = m_pred[lane] - delta;
+  }
+  for (int e = lane; e < ND * ND; e += WARP) {
+    const int i = e / ND, k = e % ND;
+    nw[Lay::CHOL + i * LDS + k] = k < ND - D ? cor[(D + i) * Lay::LDC + D + k] * lmag : 0.0f;
   }
 
   // -- fixedpoint accumulation
+  const float* bwdG_prev = old + Lay::BWDG;
   float mag_g = tiny_scale;
-#pragma unroll 1
-  for (int i = 0; i < ND; ++i) {
+  for (int e = lane; e < ND * ND; e += WARP) {
+    const int i = e / ND, k = e % ND;
+    const float* gi = bwdG_prev + i * LDS;
+    float acc = gi[0] * gain[k];
 #pragma unroll 4
-    for (int k = 0; k < ND; ++k) {
-      float acc = s.bwdG_prev[i][0] * w.gain[0][k];
-#pragma unroll 4
-      for (int j = 1; j < ND; ++j) acc = acc + s.bwdG_prev[i][j] * w.gain[j][k];
-      s.bwdG[i][k] = acc;
-      mag_g = maxp(mag_g, fabsf(s.bwdG_prev[i][k]));
-    }
-    float acc = s.bwdG_prev[i][0] * bwd_m_step[0];
-#pragma unroll 4
-    for (int j = 1; j < ND; ++j) acc = acc + s.bwdG_prev[i][j] * bwd_m_step[j];
-    s.bwd_m[i] = acc + s.bwd_m_prev[i];
+    for (int j = 1; j < ND; ++j) acc = acc + gi[j] * gain[j * LDR + k];
+    nw[Lay::BWDG + i * LDS + k] = acc;
+    mag_g = maxp(mag_g, fabsf(gi[k]));
   }
+  if (lane < ND) {
+    const float* gi = bwdG_prev + lane * LDS;
+    float acc = gi[0] * bwd_m_step[0];
+#pragma unroll
+    for (int j = 1; j < ND; ++j) acc = acc + gi[j] * bwd_m_step[j];
+    nw[Lay::BWDM + lane] = acc + old[Lay::BWDM + lane];
+  }
+  mag_g = warp_maxp(mag_g);
   const float inv_g = 1.0f / mag_g;
+  __syncwarp();  // the correction's lists are read; the region takes fp
   // fixedpoint QR column c is [row c of m1; row c of bl_g] / t3
-  float (&fp)[ND][M] = w.fp;
+  float* fp = work;
   float t3 = tiny_scale;
-#pragma unroll 1
-  for (int i = 0; i < ND; ++i)
-#pragma unroll 1
-    for (int k = 0; k < ND; ++k) {
-      float acc = (s.bwdG_prev[i][0] * inv_g) * w.bwd_L_step[0][k];
+  for (int e = lane; e < ND * ND; e += WARP) {
+    const int i = e / ND, k = e % ND;
+    const float* gi = bwdG_prev + i * LDS;
+    float acc = (gi[0] * inv_g) * bwd_L_step[k];
 #pragma unroll 4
-      for (int j = 1; j < ND; ++j) acc = acc + (s.bwdG_prev[i][j] * inv_g) * w.bwd_L_step[j][k];
-      fp[i][k] = acc;
-      fp[i][ND + k] = s.bwd_L_prev[i][k] * inv_g;
-      t3 = maxp(t3, maxp(fabsf(acc), fabsf(fp[i][ND + k])));
-    }
+    for (int j = 1; j < ND; ++j) acc = acc + (gi[j] * inv_g) * bwd_L_step[j * LDS + k];
+    const float bl = old[Lay::BWDL + i * LDS + k] * inv_g;
+    fp[i * LDR + k] = acc;
+    fp[i * LDR + ND + k] = bl;
+    t3 = maxp(t3, maxp(fabsf(acc), fabsf(bl)));
+  }
+  t3 = warp_maxp(t3);
   const float inv3 = 1.0f / t3;
-#pragma unroll 1
-  for (int i = 0; i < ND; ++i)
-#pragma unroll 4
-    for (int k = 0; k < M; ++k) fp[i][k] = fp[i][k] * inv3;
-  qr_r_cols_loop<M, ND>(fp);
-#pragma unroll 1
-  for (int i = 0; i < ND; ++i)
-#pragma unroll 4
-    for (int k = 0; k < ND; ++k) s.bwd_L[i][k] = (fp[i][k] * t3) * mag_g;
+  for (int e = lane; e < ND * ND; e += WARP) {  // the same elements as above
+    const int i = e / ND, k = e % ND;
+    fp[i * LDR + k] = fp[i * LDR + k] * inv3;
+    fp[i * LDR + ND + k] = fp[i * LDR + ND + k] * inv3;
+  }
+  __syncwarp();
+  qr_cols_warp<M, ND>(fp, LDR, vec, lane);
+  for (int e = lane; e < ND * ND; e += WARP) {
+    const int i = e / ND, k = e % ND;
+    nw[Lay::BWDL + i * LDS + k] = (fp[i * LDR + k] * t3) * mag_g;
+  }
+}
+
+// Element e of lane b of a lanes-last array sits at x[e * B + b].  A tile of
+// T consecutive lanes is loaded and stored by the whole block: thread
+// (e0, l) = (threadIdx.x / T, threadIdx.x % T) moves elements e0, e0 + 32,
+// ... of lane l, so consecutive threads touch consecutive words.
+template <int R, int C, int LD>
+__device__ __forceinline__ void tile_load(float* dst, const float* src, int64_t B, int64_t b,
+                                          int e0) {
+  for (int e = e0; e < R * C; e += WARP) dst[(e / C) * LD + e % C] = src[e * B + b];
+}
+
+template <int R, int C, int LD>
+__device__ __forceinline__ void tile_store(const float* src, float* dst, int64_t B, int64_t b,
+                                           int e0) {
+  for (int e = e0; e < R * C; e += WARP) dst[e * B + b] = src[(e / C) * LD + e % C];
+}
+
+// The 17 state arrays of the block's tile into shared memory (copy 0 the
+// current state, copy 1 the previous one), and the constants the warps
+// index at run time.  `nl` lanes of the tile exist (the ragged edge).
+template <int ND, int D>
+__device__ __forceinline__ void load_tile_dense(float* smem, const Args& args, const Consts& c,
+                                                int64_t B, int64_t b0, int nl) {
+  using Lay = DenseLayout<ND, D>;
+  constexpr int LDS = Lay::LDS;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < NMAX * NMAX; ++i) {
+      smem[i] = c.a[i];
+      smem[NMAX * NMAX + i] = c.lq[i];
+    }
+  }
+  const int T = blockDim.x / WARP, l = threadIdx.x % T, e0 = threadIdx.x / T;
+  if (l >= nl) return;
+  float* sm = smem + CONST_FLOATS + l * Lay::FLOATS;
+  const int64_t b = b0 + l;
+  for (int cp = 0; cp < 2; ++cp) {
+    float* buf = sm + Lay::STATE + cp * Lay::BUF;
+    const int a0 = cp == 0 ? 1 : 8;
+    tile_load<1, ND, ND>(buf + Lay::MEAN, args.in[a0], B, b, e0);
+    tile_load<ND, ND, LDS>(buf + Lay::CHOL, args.in[a0 + 1], B, b, e0);
+    tile_load<ND, ND, LDS>(buf + Lay::BWDG, args.in[a0 + 2], B, b, e0);
+    tile_load<1, ND, ND>(buf + Lay::BWDM, args.in[a0 + 3], B, b, e0);
+    tile_load<ND, ND, LDS>(buf + Lay::BWDL, args.in[a0 + 4], B, b, e0);
+  }
+  if (e0 == 0) {
+    float* scal = sm + Lay::SCAL;
+    scal[0] = args.in[0][b];
+    scal[1] = args.in[6][b];
+    scal[2] = args.in[7][b];
+    scal[3] = args.in[13][b];
+    scal[4] = args.in[14][b];
+    scal[5] = args.in[15][b];
+    scal[6] = args.in[16][b];
+    scal[7] = 0.0f;
+  }
+}
+
+template <int ND, int D>
+__device__ __forceinline__ void store_tile_dense(const float* smem, const Args& args, int64_t B,
+                                                 int64_t b0, int nl) {
+  using Lay = DenseLayout<ND, D>;
+  constexpr int LDS = Lay::LDS;
+  const int T = blockDim.x / WARP, l = threadIdx.x % T, e0 = threadIdx.x / T;
+  if (l >= nl) return;
+  const float* sm = smem + CONST_FLOATS + l * Lay::FLOATS;
+  const float* scal = sm + Lay::SCAL;
+  const int cur = scal[7] != 0.0f;
+  const int64_t b = b0 + l;
+  for (int cp = 0; cp < 2; ++cp) {
+    const float* buf = sm + Lay::STATE + (cp == 0 ? cur : 1 - cur) * Lay::BUF;
+    const int a0 = cp == 0 ? 1 : 8;
+    tile_store<1, ND, ND>(buf + Lay::MEAN, args.out[a0], B, b, e0);
+    tile_store<ND, ND, LDS>(buf + Lay::CHOL, args.out[a0 + 1], B, b, e0);
+    tile_store<ND, ND, LDS>(buf + Lay::BWDG, args.out[a0 + 2], B, b, e0);
+    tile_store<1, ND, ND>(buf + Lay::BWDM, args.out[a0 + 3], B, b, e0);
+    tile_store<ND, ND, LDS>(buf + Lay::BWDL, args.out[a0 + 4], B, b, e0);
+  }
+  if (e0 == 0) {
+    args.out[0][b] = scal[0];
+    args.out[6][b] = scal[1];
+    args.out[7][b] = scal[2];
+    args.out[13][b] = scal[3];
+    args.out[14][b] = scal[4];
+    args.out[15][b] = scal[5];
+    args.out[16][b] = scal[6];
+  }
+}
+
+// The whole dense kernel, both forms: load the tile, run each lane's
+// attempts on its warp (at most max_attempts, while t < t_next), store the
+// tile.  Barriers of the whole block come only before and after the loop.
+template <int NU, bool TS1, class VF>
+__device__ __forceinline__ void run_tile_dense(const Args& args, const Consts& c, const VF& vf,
+                                               int64_t B, int max_attempts) {
+  constexpr int D = VF::D;
+  constexpr int ND = (NU + 1) * D;
+  using Lay = DenseLayout<ND, D>;
+  extern __shared__ float dense_smem[];
+  const int T = blockDim.x / WARP;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * T;
+  const int nl = B - b0 < T ? static_cast<int>(B - b0) : T;
+  load_tile_dense<ND, D>(dense_smem, args, c, B, b0, nl);
+  __syncthreads();
+  const int w = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  if (w < nl) {
+    float* sm = dense_smem + CONST_FLOATS + w * Lay::FLOATS;
+    float* scal = sm + Lay::SCAL;
+    DenseScalars s{scal[0], scal[1], scal[2], scal[3], scal[4], scal[5], scal[6], 0};
+    const int64_t b = b0 + w;
+    const LaneInputs in{args.in[17][b], args.in[18][b], args.in[19][b],
+                        args.in[20][b], args.in[21][b], args.in[22][b]};
+    for (int k = 0; k < max_attempts && s.t < in.t_next; ++k)
+      attempt_warp<NU, TS1, VF>(sm, dense_smem, dense_smem + NMAX * NMAX, s, c, vf, in, lane);
+    __syncwarp();
+    if (lane == 0) {
+      scal[0] = s.t;
+      scal[1] = s.scale;
+      scal[2] = s.t_prev;
+      scal[3] = s.dt;
+      scal[4] = s.errn_prev;
+      scal[5] = s.nsteps;
+      scal[6] = s.mle;
+      scal[7] = static_cast<float>(s.cur);
+    }
+  }
+  __syncthreads();
+  store_tile_dense<ND, D>(dense_smem, args, B, b0, nl);
+}
+
+// The launch geometry of one form: lanes per block (the form's default, or
+// the override a caller set for measurement), threads, dynamic shared
+// memory, and resident blocks per SM.
+struct DenseGeometry {
+  int lanes, threads, smem, blocks_per_sm;
+};
+
+template <int ND, int D>
+DenseGeometry dense_geometry(int lanes_override, int lanes_default) {
+  const int lanes = lanes_override > 0 ? lanes_override : dense_lanes_fit<ND, D>(lanes_default);
+  return DenseGeometry{lanes, lanes * WARP, dense_smem_bytes<ND, D>(lanes), 0};
+}
+
+// Set the kernel's shared-memory limit to the geometry's and launch it on
+// ceil(batch / lanes) blocks.
+template <class Kernel, class... A>
+cudaError_t launch_dense(Kernel kernel, const DenseGeometry& g, long long batch, cudaStream_t st,
+                         A... args) {
+  if (g.lanes < 1 || g.lanes > DENSE_LANES_MAX || g.smem > SMEM_PER_BLOCK)
+    return cudaErrorInvalidConfiguration;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>((batch + g.lanes - 1) / g.lanes)), block(g.threads);
+  kernel<<<grid, block, g.smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// Resident blocks per SM of `kernel` at geometry g (the occupancy API).
+template <class Kernel>
+cudaError_t dense_occupancy(Kernel kernel, DenseGeometry& g) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&g.blocks_per_sm, kernel, g.threads,
+                                                       g.smem);
 }
 
 }  // namespace

@@ -112,9 +112,53 @@ _ENTRIES = {
     "odeckpt_batched_qr": [_INT, _INT, _PTR, _PTR, ctypes.c_longlong, _INT, _PTR],
     "odeckpt_qr_packing_cols": [_INT, _INT, _INT, _PTR, _PTR, ctypes.c_longlong, _INT, _PTR],
     "odeckpt_qr_packing_masked": [_INT, _INT, _INT, _PTR, _PTR, ctypes.c_longlong, _INT, _PTR],
+    "odeckpt_step_dense_interval_geometry": [_INT, _INT, _INT, _PTR],
+    "odeckpt_step_dense_attempt_geometry": [_INT, _INT, _INT, _PTR],
 }
 # K7's strategy argument (the template parameter of step_ll.cuh's attempt)
 STRATEGY_CODES = {"fixedpoint": 0, "smoother": 1, "filter": 2}
+# K5's launch geometry (step_dense.cuh): a block is a tile of DENSE_LANES
+# lanes of the form, one warp of DENSE_THREADS_PER_LANE threads each, or as
+# many as a block's shared memory holds; a launch takes at most
+# DENSE_LANES_MAX
+DENSE_LANES = {"step_dense_interval": 6, "step_dense_attempt": 12}
+DENSE_LANES_MAX, DENSE_THREADS_PER_LANE = 12, 32
+SMEM_PER_BLOCK = 232_448  # the H100's dynamic shared memory per block, bytes
+_DENSE_CONST_FLOATS, _NMAX = 64, 5
+
+
+def _col_stride(m):
+    """step_dense.cuh's col_stride: whole float4s, an odd number of them."""
+    quads = (m + 3) // 4
+    return 4 * quads if quads % 2 else 4 * quads + 4
+
+
+def dense_lane_floats(nd, d):
+    """Floats of one lane's slice of K5's shared memory (``DenseLayout`` in
+    step_dense.cuh): the QR column list (2nd columns of ``_col_stride(2nd)``;
+    the gain lives in its right half), the Householder vector, its squares
+    and inv * vector, two copies of the five replaced arrays ((nd, nd) rows
+    padded to an odd stride), the small vectors and the scalars."""
+    m = 2 * nd
+    lds, mp = nd | 1, (m + 3) // 4 * 4
+    mat = nd * lds
+    buf = 2 * nd + 3 * mat
+    used = m * _col_stride(m) + 3 * mp + 2 * buf + 2 * nd + 3 * d + d * d + 2 * _NMAX + 8
+    return (used + 3) // 4 * 4
+
+
+def dense_geometry(nd, d, lanes_per_block=None, kernel="step_dense_interval"):
+    """The launch geometry of K5's form ``kernel`` for state dimension
+    ``nd`` and ODE dimension ``d``, as its C launch function computes it:
+    lanes per block (the form's default tile unless ``lanes_per_block`` is
+    given), threads per lane and per block, and dynamic shared-memory bytes
+    per block."""
+    lane_bytes = 4 * dense_lane_floats(nd, d)
+    fit = (SMEM_PER_BLOCK - 4 * _DENSE_CONST_FLOATS) // lane_bytes
+    lanes = lanes_per_block or min(DENSE_LANES[kernel], fit)
+    return {"lanes_per_block": lanes, "threads_per_lane": DENSE_THREADS_PER_LANE,
+            "threads_per_block": DENSE_THREADS_PER_LANE * lanes,
+            "smem_bytes": 4 * _DENSE_CONST_FLOATS + lanes * lane_bytes}
 
 
 def _nvcc():
@@ -183,9 +227,11 @@ def _ptxas_key(symbol):
 
 
 def parse_ptxas(log):
-    """Registers and spill bytes per kernel and template from ``ptxas -v``
-    output: ``{kernel: {key: {"registers": r, "spill_stores": s,
-    "spill_loads": l, "stack": f}}}``, keyed by nu for K1-K4 and by
+    """Registers, spill bytes and static shared memory per kernel and template
+    from ``ptxas -v`` output: ``{kernel: {key: {"registers": r,
+    "spill_stores": s, "spill_loads": l, "stack": f}}}`` (and ``"smem": b``
+    where ptxas prints ``b bytes smem``; K5's shared memory is dynamic, see
+    ``dense_geometry``), keyed by nu for K1-K4 and by
     ``"<nu>/<ts1 or ts0>/<functor>"`` for K5 (``"4/ts1/Brusselator"``),
     ``"<nu>/<functor>"`` for K6, ``"<nu>/<strategy>"`` for K7,
     ``"<f32 or f64>/<m>/<c>"`` for K8 (``"f32/4/3"``) and ``"<m>/<n>"`` for
@@ -206,6 +252,9 @@ def parse_ptxas(log):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             entry["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            entry["smem"] = int(m.group(1))
     return out
 
 
@@ -465,7 +514,7 @@ def _launch(kernel, step, state, t_next, inputs, max_attempts=None):
         have = sorted(f for k, f in _FUNCTORS if k == kernel)
         raise NotImplementedError(
             f"{kernel}: the vector field has no device functor for this kernel (got "
-            f"{functor!r}; have {have}): ROADMAP queue 2, the vector-field contract"
+            f"{functor!r}; have {have}): ROADMAP queue 1 item 5"
         )
     symbol, dim = _FUNCTORS[(kernel, functor)]
     if step.d != dim:
@@ -572,6 +621,29 @@ def step_dense_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tin
     return _launch("step_dense_attempt", step, state, t_next, inputs)
 
 
+def step_dense_geometry(kernel, d, ts1=True, lanes_per_block=-1):
+    """K5's launch geometry on the current CUDA device, as the C launch
+    function of ``kernel`` ("step_dense_interval" or "step_dense_attempt")
+    has it for the functor of ODE dimension ``d`` (4: Brusselator, 3: rigid
+    body): ``dense_geometry``'s keys and ``blocks_per_sm`` (resident blocks,
+    from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  A
+    ``lanes_per_block`` > 0 makes that the tile of every later launch of the
+    form (for measuring one geometry against another), 0 restores the
+    default, -1 leaves it."""
+    if kernel not in ("step_dense_interval", "step_dense_attempt"):
+        raise ValueError(f"{kernel} is not a form of K5")
+    if not -1 <= int(lanes_per_block) <= DENSE_LANES_MAX:
+        raise ValueError(f"lanes_per_block must be in -1..{DENSE_LANES_MAX}, got {lanes_per_block}")
+    lib = library()
+    out = (ctypes.c_int * 4)()
+    rc = getattr(lib.lib, f"odeckpt_{kernel}_geometry")(int(d), int(ts1), int(lanes_per_block),
+                                                        ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"{kernel} geometry failed: {lib.error_string(rc)} ({rc})")
+    return {"lanes_per_block": out[0], "threads_per_lane": DENSE_THREADS_PER_LANE,
+            "threads_per_block": out[1], "smem_bytes": out[2], "blocks_per_sm": out[3]}
+
+
 def step_bd_interval(step, state, t_next, *, atol, rtol, dt_max, dt_floor,
                      tiny_scale, max_attempts):
     """K6, interval form: advance every lane of the blockdiag 17-array state
@@ -641,7 +713,7 @@ def pit_combine(e_i, e_j):
     if e_i[0].dim() != 3:
         raise NotImplementedError(
             "pit_combine takes (m, m, P) and (m, c, P) operands; batch axes between the matrix "
-            "axes and the lanes come with the blockdiag adapter: ROADMAP queue 1 item 7"
+            "axes and the lanes come with the blockdiag adapter: ROADMAP queue 1 item 3"
         )
     dtype = e_i[0].dtype
     if dtype not in (torch.float32, torch.float64):

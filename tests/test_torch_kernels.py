@@ -271,11 +271,11 @@ def _random_backward(state, rng, device):
     return tuple(out)
 
 
-def _start_dense(problem, correction, *, batch=64, warm_steps=10, device="cpu"):
+def _start_dense(problem, correction, *, batch=64, warm_steps=10, device="cpu", tol_lo=1e-6):
     """A lanes-last state of the dense engine (K5), advanced by the twin from
     the Taylor init toward the first checkpoint (with random backward
-    conditionals if advanced at all); returns (step, state, t_next,
-    inputs)."""
+    conditionals if advanced at all), tolerances geometric from 1e-3 to
+    ``tol_lo``; returns (step, state, t_next, inputs)."""
     if problem == "brusselator":
         vf, (y0,), _, params = problems.brusselator(2)
         dt0 = 0.01
@@ -285,7 +285,7 @@ def _start_dense(problem, correction, *, batch=64, warm_steps=10, device="cpu"):
     d = y0.shape[0]
     rng = np.random.default_rng(7)
     u0s = y0.numpy()[None] * (1.0 + 0.02 * rng.standard_normal((batch, d)))
-    tols = torch.tensor(np.geomspace(1e-3, 1e-6, batch), dtype=torch.float32, device=device)
+    tols = torch.tensor(np.geomspace(1e-3, tol_lo, batch), dtype=torch.float32, device=device)
     save_at = np.linspace(0.0, 10.0, 5).astype(np.float32)
     state, _, inputs = batched.initial_state(
         vf, torch.tensor(u0s, dtype=torch.float32, device=device), params, save_at=save_at,
@@ -371,6 +371,46 @@ def test_parse_ptxas_reads_the_dense_entries():
     }
 
 
+@pytest.mark.parametrize("nd, d", [(20, 4), (15, 3)])
+def test_dense_geometry_fits_a_block_and_covers_whole_sectors(nd, d):
+    """K5's tiles (step_dense.cuh) at both functors' sizes: one warp a lane;
+    the attempt form, whose time is its state's bytes, at least 8 lanes, so a
+    tile's run of one element fills a 32-byte sector; the interval form, which
+    moves its state once per launch, small enough that two blocks share an
+    SM's 233,472 bytes; the defaults and the largest tile fit the H100's
+    232,448 bytes a block; a lane's slice holds its whole 17-array state."""
+    attempt = kernels.dense_geometry(nd, d, kernel="step_dense_attempt")
+    interval = kernels.dense_geometry(nd, d, kernel="step_dense_interval")
+    assert attempt["lanes_per_block"] >= 8 and interval["lanes_per_block"] >= 4
+    assert 2 * (interval["smem_bytes"] + 1024) <= 233_472
+    for g in (attempt, interval, kernels.dense_geometry(nd, d, kernels.DENSE_LANES_MAX)):
+        assert g["threads_per_lane"] == 32 and g["threads_per_block"] == 32 * g["lanes_per_block"]
+        assert g["smem_bytes"] <= kernels.SMEM_PER_BLOCK == 232_448
+        assert g["threads_per_block"] <= 1024
+    assert kernels.dense_lane_floats(nd, d) >= 4 * nd * nd + 4 * nd + 7  # state read twice
+    assert attempt["smem_bytes"] == (219_520 if nd == 20 else 127_552)  # 256 + 12 * 18,272
+
+
+def test_dense_geometry_entry_refuses_other_kernels_and_tiles():
+    with pytest.raises(ValueError, match="not a form of K5"):
+        kernels.step_dense_geometry("step_ll_interval", 4)
+    with pytest.raises(ValueError, match="lanes_per_block"):
+        kernels.step_dense_geometry("step_dense_interval", 4, lanes_per_block=13)
+
+
+def test_parse_ptxas_reads_a_k5_entry_with_shared_memory():
+    name = ("_ZN12_GLOBAL__N_118step_dense_attemptILi4ELb1ENS_11BrusselatorILi2EEEEEvNS_4"
+            "ArgsENS_6ConstsET1_l")
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 126 registers, used 1 barriers, 16 bytes smem, 648 bytes cmem[0]",
+    ])
+    assert kernels.parse_ptxas(log) == {"step_dense_attempt": {"4/ts1/Brusselator": {
+        "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 126, "smem": 16}}}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["step_dense_interval-1", "step_dense_interval-100000",
                                     "step_dense_attempt"])
@@ -390,6 +430,39 @@ def test_dense_kernels_k5_match_twin_on_the_card(cuda_device, problem, correctio
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     if cap == "100000":
         assert bool(torch.all(got[0] >= t_next))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [0, 1, 3, 5])
+@pytest.mark.parametrize("kernel", ["step_dense_interval-40", "step_dense_attempt"])
+@pytest.mark.parametrize("problem", ["brusselator", "rigid_body"])
+def test_dense_kernels_k5_ragged_wide_tolerances_and_repeatable_on_the_card(
+        cuda_device, problem, kernel, lanes):
+    """K5 on 1,001 lanes (no tile divides it) whose tolerances span 1e-3 to
+    1e-7, so that lanes of one block end at very different attempts (the
+    interval form stops at 40, where the loosest lanes have reached the
+    checkpoint and the tightest have not); at the default tile (0) and
+    others: equal to the twin, and two launches on one input equal to each
+    other (races show as run-to-run differences)."""
+    step, state, t_next, inputs = _start_dense(problem, "ts1", batch=1001, device=cuda_device,
+                                               tol_lo=1e-7)
+    name, _, cap = kernel.partition("-")
+    kw = dict(max_attempts=int(cap)) if cap else {}
+    d = step.d
+    kernels.step_dense_geometry(name, d, True, lanes)
+    try:
+        first = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+        second = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+    finally:
+        kernels.step_dense_geometry(name, d, True, 0)
+    want = getattr(kernels, name + "_plain")(step, state, t_next, **inputs, **kw)
+    torch.cuda.synchronize()
+    for a, b, w in zip(first, second, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    if cap:
+        steps = (first[15] - state[15])[0]
+        assert float(steps.max()) > 2 * float(steps.min())  # lanes end far apart
 
 
 @pytest.mark.cuda
@@ -633,7 +706,7 @@ def test_pit_combine_k8_refuses_what_it_is_not_built_for(cuda_device):
     with pytest.raises(ValueError, match="float32 or float64"):
         kernels.pit_combine(tuple(x.half() for x in els), tuple(x.half() for x in els))
     blocked = tuple(x[:, :, None, :].contiguous() for x in els)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         kernels.pit_combine(blocked, blocked)
 
 
