@@ -14,7 +14,13 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
    launch function reports it (lanes per block, threads, dynamic shared
    memory per block, resident blocks per SM from the occupancy API), which
    must equal ``kernels.dense_geometry``'s, with no spills on the main path
-   (Brusselator) and at most DENSE_MAX_STACK bytes of stack or spills in any.
+   (Brusselator) and at most DENSE_MAX_STACK bytes of stack or spills in any;
+   for every K6 entry (both forms, both functors, nu = 2, 3, 4) its
+   registers, spills, stack, static shared memory, machine instructions
+   (``cuobjdump -sass``) and launch geometry (threads per lane, lanes per
+   block, static and dynamic shared memory per block, blocks per SM), which
+   must equal ``kernels.bd_geometry``'s, with no spills and at most
+   BD_MAX_STACK bytes of stack.
 3. one attempt, kernel against twin, 4,096 lanes, from the Taylor-initialized
    and a mid-solve state: K1 and K3 at nu = 2, 3, 4 (17 arrays), K2 and K4
    at nu = 4, 5 (12 arrays).
@@ -83,10 +89,13 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
     ratio that is the reason the blockdiag engine exists.
 17. interval_bd: the row's second interval on K6 against its plain version
     (plain, kernel, kernel, plain), CUDA events, 32,768 lanes: every array
-    equal.
+    equal, and the two kernel runs equal to each other (lanes of one block
+    end at different attempts: a race would show here).
 18. attempt_engine_bd: ``engine="cuda"`` (K6's attempt form) gives the
     cuda-loop row's per-lane step counts and outputs exactly; one launch
-    against its plain version, timed.
+    against its plain version, timed, the two kernel runs equal; the
+    interval form from the same state at BD_CAPS attempts, timed: what a
+    launch costs besides its attempts.
 19. attempt_everystep: one attempt of K7 against ``StepLL(strategy=...)``,
     smoother and filter, 4,096 lanes, nu = 2, 3, 4, initial and mid-solve
     state: all 17 arrays equal.
@@ -290,6 +299,11 @@ PEAK_BYTES_PER_S = 3.35e12
 # shared memory), and the second tile that phase 12 measures beside the default
 DENSE_MAX_STACK = 512
 DENSE_ALT_LANES = 12
+# K6: the largest stack frame its entries may have (a thread's arrays live in
+# registers or shared memory)
+BD_MAX_STACK = 64
+# the attempt caps at which phase 18 times K6's interval form from one state
+BD_CAPS = (1, 2, 4, 8)
 
 
 def emit(obj):
@@ -337,7 +351,33 @@ def phase_build():
                if "registers" not in ptxas.get(k, {}).get(nu, {})]
     if missing:
         raise RuntimeError(f"ptxas reported no kernel for {missing}:\n{lib.log}")
-    return phase_build_dense(ptxas)
+    return {**phase_build_dense(ptxas), **phase_build_bd(ptxas, _sass_instructions(lib.path))}
+
+
+def _sass_instructions(path):
+    """Machine instructions of each step kernel of the library at ``path``
+    (``cuobjdump -sass``), keyed as ``parse_ptxas`` keys them; empty where
+    the toolkit has no cuobjdump."""
+    import re
+    from pathlib import Path
+
+    from odecheckpts_torch import kernels
+
+    tool = Path(kernels._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            key = kernels._ptxas_key(fn.group(1))
+            if key:
+                counts.setdefault(key[0], {})[key[1]] = 0
+        elif key and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            counts[key[0]][key[1]] += 1
+    return counts
 
 
 def phase_build_dense(ptxas):
@@ -367,6 +407,37 @@ def phase_build_dense(ptxas):
                     main[name] = info
     if bad:
         raise AssertionError(f"K5's geometry or ptxas counts are off: {bad}")
+    return main
+
+
+def phase_build_bd(ptxas, sass):
+    """K6's ptxas counts and machine instructions beside the launch geometry
+    its C launch functions report, for every entry; fails if that geometry
+    is not
+    ``kernels.bd_geometry``'s, if no block fits on an SM, on any spill or on a
+    stack frame above BD_MAX_STACK.  Returns the geometry of each form's
+    main-path entry (nu = 4, anisotropic rigid body)."""
+    from odecheckpts_torch import kernels
+
+    main, bad = {}, []
+    for name in ("step_bd_interval", "step_bd_attempt"):
+        for functor, cname in (("rigid_body_anisotropic", "RigidBodyAniso"),
+                               ("rigid_body", "RigidBody")):
+            for nu in (2, 3, 4):
+                key = f"{nu}/{cname}"
+                geometry = kernels.step_bd_geometry(name, nu, functor)
+                info = {**ptxas[name][key], **geometry,
+                        "sass_instructions": sass.get(name, {}).get(key)}
+                emit({"phase": "build_bd", "kernel": "K6", "form": name, "entry": key, **info})
+                want = kernels.bd_geometry(nu, 3)
+                spills = info.get("spill_stores", 0) + info.get("spill_loads", 0)
+                if (any(geometry[k] != v for k, v in want.items())
+                        or geometry["blocks_per_sm"] < 1 or spills
+                        or info.get("stack", 0) > BD_MAX_STACK):
+                    bad.append((name, key, info, want))
+        main[name] = kernels.step_bd_geometry(name, 4, "rigid_body_anisotropic")
+    if bad:
+        raise AssertionError(f"K6's geometry or ptxas counts are off: {bad}")
     return main
 
 
@@ -1480,13 +1551,24 @@ def phase_interval_bd(device, loop):
     k_out, p_out = times["kernel"][1], times["plain"][1]
     other = int(torch.sum(k_out[15] != p_out[15]))
     equal = all(bool(torch.equal(a, b)) for a, b in zip(k_out, p_out))
+    repeat = _runs_equal(times, k_out, torch)
     emit({"phase": "interval_bd", "kernel": "K6", "tol": BD_TOL, "batch": BATCH,
           "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
           "plain_ms": [times["plain"][0], times["plain2"][0]],
-          "lanes_with_other_step_counts": other, "arrays_equal": equal})
-    if other or not equal:
-        raise AssertionError(f"K6 and its plain version differ over an interval ({other} lanes)")
+          "lanes_with_other_step_counts": other, "arrays_equal": equal,
+          "kernel_runs_equal": repeat})
+    if other or not equal or not repeat:
+        raise AssertionError(f"K6 and its plain version differ over an interval ({other} lanes), "
+                             f"or two kernel runs differ ({not repeat})")
     return _timing("step_bd_interval", times, state, 15, nu=4, d=3)
+
+
+def _runs_equal(times, k_out, torch):
+    """Whether the kernel's second run in ``times`` equals its first bit for
+    bit (NaN where the first has NaN)."""
+    return all(bool(torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0)))
+               and bool(torch.equal(torch.isnan(a), torch.isnan(b)))
+               for a, b in zip(times["kernel2"][1], k_out))
 
 
 def phase_attempt_engine_bd(device, loop):
@@ -1512,20 +1594,36 @@ def phase_attempt_engine_bd(device, loop):
                              f"counts, outputs equal {same}")
 
     step, state, t_next, inputs = _bd_start(loop)
+
+    def kernel():
+        return kernels.step_bd_attempt(step, state, t_next, **inputs)
+
     times = _time_pair((
         ("plain", lambda: kernels.step_bd_attempt_plain(step, state, t_next, **inputs)),
-        ("kernel", lambda: kernels.step_bd_attempt(step, state, t_next, **inputs)),
-        ("kernel2", lambda: kernels.step_bd_attempt(step, state, t_next, **inputs)),
-        ("plain2", lambda: kernels.step_bd_attempt_plain(step, state, t_next, **inputs)),
-    ))
+        ("kernel", kernel), ("kernel2", kernel),
+        ("plain2", lambda: kernels.step_bd_attempt_plain(step, state, t_next, **inputs))))
     dev = max(float(torch.max(torch.abs(a - b)))
               for a, b in zip(times["kernel"][1], times["plain"][1]))
+    repeat = _runs_equal(times, times["kernel"][1], torch)
     emit({"phase": "one_launch", "kernel": "K6", "form": "step_bd_attempt", "batch": BATCH,
           "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
-          "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev})
-    if dev != 0.0:
+          "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev,
+          "kernel_runs_equal": repeat})
+    if dev != 0.0 or not repeat:
         raise AssertionError(
-            f"one launch of K6's attempt form differs from its plain version by {dev}")
+            f"one launch of K6's attempt form differs from its plain version by {dev}, or two "
+            f"launches differ ({not repeat})")
+    caps = {}
+    for cap in BD_CAPS:
+        def interval(cap=cap):
+            return kernels.step_bd_interval(step, state, t_next, **inputs, max_attempts=cap)
+
+        pair = _time_pair((("a", interval), ("b", interval)))
+        caps[cap] = min(pair["a"][0], pair["b"][0])
+    per_attempt = (caps[BD_CAPS[-1]] - caps[BD_CAPS[0]]) / (BD_CAPS[-1] - BD_CAPS[0])
+    emit({"phase": "launch_cost_bd", "kernel": "K6", "batch": BATCH,
+          "interval_ms_by_cap": caps, "per_attempt_ms": per_attempt,
+          "fixed_ms": caps[BD_CAPS[0]] - BD_CAPS[0] * per_attempt})
     return counts, _timing("step_bd_attempt", times, state, 15, nu=4, d=3)
 
 
@@ -2098,7 +2196,7 @@ def main():
     device, _smi = phase_device()
     import torch
 
-    dense_geometry = phase_build()
+    geometry = phase_build()
     worst = phase_attempt(device)
     worst.update(phase_attempt_hi(device))
 
@@ -2168,9 +2266,10 @@ def main():
                      "library_ms": timing[name].get("library_ms")})
         if name in STANDALONE:
             rows[-1]["note"] = "no solve path launches it: the launches of its phase"
-        if name in dense_geometry:
-            g = dense_geometry[name]
-            rows[-1].update(smem_bytes=g["smem_bytes"], lanes_per_block=g["lanes_per_block"],
+        if name in geometry:
+            g = geometry[name]
+            rows[-1].update(threads_per_lane=g["threads_per_lane"],
+                            lanes_per_block=g["lanes_per_block"], smem_bytes=g["smem_bytes"],
                             blocks_per_sm=g["blocks_per_sm"])
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,7 @@ are ``batched.solve_intervals`` on ``ssm/blockdiag``.
 
 Ported configuration: fixedpoint, dynamic calibration, ``ode_order=1``,
 ``error_unit="qoi"``, ``num_derivatives`` in {2, 3, 4}.  Everything else
-raises ``NotImplementedError`` naming ROADMAP queue 1 item 3a.
+raises ``NotImplementedError`` naming ROADMAP queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -231,7 +231,7 @@ def _check_config(*, strategy, calibration, ode_order, error_unit, num_derivativ
             implementations=("blockdiag",),
         )
     except NotImplementedError as e:
-        raise NotImplementedError(f"{e} (on the blockdiag engine, item 7)") from None
+        raise NotImplementedError(f"{e} (on the blockdiag engine, item 5)") from None
 
 
 def make_step_bd(vf, params, *, nu, d, strategy="fixedpoint", calibration="dynamic",

@@ -1,6 +1,7 @@
 // K6, interval form: one whole checkpoint interval of the blockdiag TS0
-// fixedpoint solver, one IVP lane per thread.  The step body, the layout
-// chosen and the notes on its arithmetic are in step_bd.cuh.
+// fixedpoint solver, one thread per (IVP lane, channel), a tile of 32 lanes
+// in D warps a block.  The step body (run_bd) and the notes on its
+// layout and arithmetic are in step_bd.cuh.
 //
 // Replaces odecheckpts_tpu/batched_blockdiag.py:481,
 // _pallas_interval(make_step_bd_ll), the Pallas kernel of
@@ -8,31 +9,45 @@
 // odecheckpts_torch/batched_blockdiag.py:StepBD; kernels.py binds this file
 // through ctypes.
 //
-// What bounds it on the H100: as K1, each lane's dependent chain of scalar
-// operations, d channels long, on a state that lives in local memory (521
-// floats a lane at nu = 4, d = 3); the state's bytes are read once and
-// written once per launch, and rejected attempts touch neither device
-// memory nor the covariance arithmetic.
+// What bounds it on the H100: how many warps an SM keeps in flight against
+// each thread's dependent chain of scalar operations (an accepted attempt
+// at nu = 4 is ~2,900 operations of the algorithm per channel, several
+// thousand instructions of unrolled code, every multiply and add issued on
+// its own under -fmad=false).  The working arrays of an accepted attempt
+// take up to 168 registers a thread, which leaves four tiles, twelve warps,
+// an SM; a tile's slots and inputs take 36,480 bytes of shared memory at
+// nu = 4 (PERF.md, chip_smoke.py phase 2).  The state is read once per
+// launch and written once, besides the previous values an accepted attempt
+// stores; rejected attempts touch neither device memory nor the covariance
+// arithmetic.
 //
-// Why a per-thread loop gives the Pallas kernel's results: see step_ll.cu.
-// A lane with t >= t_next is frozen inside the step (`accept` carries
-// `~frozen`, `dt` keeps `dt_st` under `upd`, batched_blockdiag.py:231-255),
-// so looping per lane until t >= t_next or k reaches max_attempts leaves
-// every lane in the state the tile loop leaves it in.
+// Why the warp loop gives the Pallas kernel's results: the Pallas kernel
+// loops over a lane TILE while any lane of the tile has t < t_next.  A lane
+// with t >= t_next is frozen inside the step (`accept` carries `~frozen`,
+// `dt` keeps `dt_st` under `upd`, batched_blockdiag.py:231-255), and a lane
+// that reaches t_next never leaves it.  Here every warp loops while any of
+// its lanes has t < t_next (and k < max_attempts), and a lane that does not
+// is left as it is (NaN t included, as the first design's per-lane loop
+// left it), so each lane makes exactly the attempts of a per-lane loop
+// until t >= t_next or k reaches max_attempts.  The D warps of a tile hold
+// the same lanes with bit-identical lane scalars, so they agree on every
+// loop test and reach the exchange's block barrier equally often.
 
 #include "step_bd.cuh"
 
 namespace {
 
 template <int NU, class VF>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(bd_threads_per_block(VF::D), BD_MIN_BLOCKS)
     step_bd_interval(Args args, Consts c, VF vf, int64_t B, int max_attempts) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (b >= B) return;  // the ragged edge of the last block
-  LaneBD<NU + 1, VF::D> s;
-  const LaneInputs in = load_lane_bd(s, args, b, B);
-  for (int k = 0; k < max_attempts && s.t < in.t_next; ++k) attempt_bd<NU, VF>(s, c, vf, in);
-  store_lane_bd(s, args, b, B);
+  run_bd<NU, VF, true>(args, c, vf, B, max_attempts);
+}
+
+template <int NU, class VF>
+cudaError_t launch_nu(cudaStream_t st, const Args& args, const Consts& c, VF vf, int64_t B,
+                      int max_attempts) {
+  return launch_bd(step_bd_interval<NU, VF>, VF::D, bd_smem_bytes<NU, VF::D>(), B, st, args, c,
+                   vf, B, max_attempts);
 }
 
 template <class VF>
@@ -43,16 +58,24 @@ int launch(int nu, const void* in_ptrs, const void* out_ptrs, const void* consts
   unpack(args, c, in_ptrs, out_ptrs, consts);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid = lanes_grid(batch), block(THREADS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t B = batch;
   switch (nu) {
-    case 2: step_bd_interval<2, VF><<<grid, block, 0, st>>>(args, c, vf, B, max_attempts); break;
-    case 3: step_bd_interval<3, VF><<<grid, block, 0, st>>>(args, c, vf, B, max_attempts); break;
-    case 4: step_bd_interval<4, VF><<<grid, block, 0, st>>>(args, c, vf, B, max_attempts); break;
+    case 2: err = launch_nu<2>(st, args, c, vf, batch, max_attempts); break;
+    case 3: err = launch_nu<3>(st, args, c, vf, batch, max_attempts); break;
+    case 4: err = launch_nu<4>(st, args, c, vf, batch, max_attempts); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+template <class VF>
+int report(int nu, int* out) {
+  switch (nu) {
+    case 2: return bd_report<VF>(step_bd_interval<2, VF>, bd_smem_bytes<2, VF::D>(), out);
+    case 3: return bd_report<VF>(step_bd_interval<3, VF>, bd_smem_bytes<3, VF::D>(), out);
+    case 4: return bd_report<VF>(step_bd_interval<4, VF>, bd_smem_bytes<4, VF::D>(), out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -74,4 +97,13 @@ extern "C" int odeckpt_step_bd_interval_rigid_body_anisotropic(
     int max_attempts, float p1, float p2, float p3, float p4, int device, void* stream) {
   return launch(nu, in_ptrs, out_ptrs, consts, batch, max_attempts,
                 make_functor<RigidBodyAniso>(p1, p2, p3, p4), device, stream);
+}
+
+// The launch geometry of this form for nu and the functor (1: anisotropic
+// rigid body, 0: rigid body) on the current device: out = threads per lane,
+// lanes per block, threads per block, shared-memory bytes per block (static
+// and dynamic), resident blocks per SM (occupancy API), registers per
+// thread, local (stack) bytes per thread.
+extern "C" int odeckpt_step_bd_interval_geometry(int nu, int anisotropic, int* out) {
+  return anisotropic ? report<RigidBodyAniso>(nu, out) : report<RigidBody>(nu, out);
 }

@@ -114,6 +114,8 @@ _ENTRIES = {
     "odeckpt_qr_packing_masked": [_INT, _INT, _INT, _PTR, _PTR, ctypes.c_longlong, _INT, _PTR],
     "odeckpt_step_dense_interval_geometry": [_INT, _INT, _INT, _PTR],
     "odeckpt_step_dense_attempt_geometry": [_INT, _INT, _INT, _PTR],
+    "odeckpt_step_bd_interval_geometry": [_INT, _INT, _PTR],
+    "odeckpt_step_bd_attempt_geometry": [_INT, _INT, _PTR],
 }
 # K7's strategy argument (the template parameter of step_ll.cuh's attempt)
 STRATEGY_CODES = {"fixedpoint": 0, "smoother": 1, "filter": 2}
@@ -159,6 +161,23 @@ def dense_geometry(nd, d, lanes_per_block=None, kernel="step_dense_interval"):
     return {"lanes_per_block": lanes, "threads_per_lane": DENSE_THREADS_PER_LANE,
             "threads_per_block": DENSE_THREADS_PER_LANE * lanes,
             "smem_bytes": 4 * _DENSE_CONST_FLOATS + lanes * lane_bytes}
+
+
+# K6's launch geometry (step_bd.cuh): a thread per (lane, channel), a block
+# is a tile of 32 consecutive lanes in d warps, warp = channel.
+_BD_WARP = 32
+
+
+def bd_geometry(nu, d):
+    """The launch geometry of K6 (both forms) for nu and ODE dimension ``d``,
+    as its C launch functions compute it: threads per lane, lanes and
+    threads per block, and shared-memory bytes per block: the tile's
+    exchange buffer and each thread's channel's mean, chol, bwdG, bwd_m and
+    bwd_L (2n + 3n^2 floats) and its lane's 6 inputs."""
+    threads, n = d * _BD_WARP, nu + 1
+    floats = 2 * 2 * d * _BD_WARP + (2 * n + 3 * n * n + 6) * threads
+    return {"threads_per_lane": d, "lanes_per_block": _BD_WARP, "threads_per_block": threads,
+            "smem_bytes": 4 * floats}
 
 
 def _nvcc():
@@ -230,8 +249,8 @@ def parse_ptxas(log):
     """Registers, spill bytes and static shared memory per kernel and template
     from ``ptxas -v`` output: ``{kernel: {key: {"registers": r,
     "spill_stores": s, "spill_loads": l, "stack": f}}}`` (and ``"smem": b``
-    where ptxas prints ``b bytes smem``; K5's shared memory is dynamic, see
-    ``dense_geometry``), keyed by nu for K1-K4 and by
+    where ptxas prints ``b bytes smem``: K6's static shared memory; K5's is
+    dynamic, see ``dense_geometry``), keyed by nu for K1-K4 and by
     ``"<nu>/<ts1 or ts0>/<functor>"`` for K5 (``"4/ts1/Brusselator"``),
     ``"<nu>/<functor>"`` for K6, ``"<nu>/<strategy>"`` for K7,
     ``"<f32 or f64>/<m>/<c>"`` for K8 (``"f32/4/3"``) and ``"<m>/<n>"`` for
@@ -662,6 +681,27 @@ def step_bd_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_s
     if state[0].device.type == "cpu":
         return step_bd_attempt_plain(step, state, t_next, **inputs)
     return _launch("step_bd_attempt", step, state, t_next, inputs)
+
+
+def step_bd_geometry(kernel, nu=4, functor="rigid_body_anisotropic"):
+    """K6's launch geometry on the current CUDA device, as the C launch
+    function of ``kernel`` ("step_bd_interval" or "step_bd_attempt") has it
+    for nu and the device functor: ``bd_geometry``'s keys, ``blocks_per_sm``
+    (resident blocks, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    ``registers`` and ``local_bytes`` per thread."""
+    if kernel not in ("step_bd_interval", "step_bd_attempt"):
+        raise ValueError(f"{kernel} is not a form of K6")
+    if functor not in ("rigid_body", "rigid_body_anisotropic"):
+        raise ValueError(f"K6 has no device functor {functor!r}")
+    lib = library()
+    out = (ctypes.c_int * 7)()
+    rc = getattr(lib.lib, f"odeckpt_{kernel}_geometry")(
+        int(nu), int(functor == "rigid_body_anisotropic"), ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"{kernel} geometry failed: {lib.error_string(rc)} ({rc})")
+    keys = ("threads_per_lane", "lanes_per_block", "threads_per_block", "smem_bytes",
+            "blocks_per_sm", "registers", "local_bytes")
+    return dict(zip(keys, out))
 
 
 def step_everystep_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_scale):

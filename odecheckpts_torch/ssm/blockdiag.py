@@ -12,7 +12,7 @@ kernel launches call (state construction, the unpreconditioned
 extrapolation of the interpolation, the conditionals of the smoothing
 pass).  The generic single-solve surface (``extrapolate_mean`` / ``_cov``,
 ``error_and_scale_deriv``, ``correct_deriv``, ``condition_qoi``, sampling)
-is ROADMAP queue 1 item 9.
+is ROADMAP queue 1 item 3.
 """
 
 from __future__ import annotations

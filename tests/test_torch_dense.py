@@ -447,7 +447,7 @@ def test_ts1_with_d_above_1_reaches_the_dense_engine(monkeypatch):
 
 @pytest.mark.parametrize("option, item", [
     # blockdiag is ported (TS0 only): an option its engine lacks names both items
-    (dict(implementation="blockdiag", correction="ts0", strategy="filter"), "item 7"),
+    (dict(implementation="blockdiag", correction="ts0", strategy="filter"), "item 5"),
     (dict(strategy="filter"), "item 3a"),
     (dict(calibration="none"), "item 3a"),
     (dict(ode_order=2), "item 3a"),

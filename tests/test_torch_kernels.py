@@ -484,10 +484,11 @@ def test_dense_kernels_refuse_a_vector_field_without_device_functor(cuda_device)
 # K6 (blockdiag, interval and attempt form) and K7 (save every step)
 
 
-def _start_bd(problem, nu, *, batch=64, warm_steps=20, device="cpu"):
+def _start_bd(problem, nu, *, batch=64, warm_steps=20, device="cpu", tol_hi=1e-2, tol_lo=1e-6):
     """A lanes-last state of the blockdiag engine (K6), advanced by the twin
     from the Taylor init toward the first checkpoint (with random backward
-    conditionals if advanced at all); returns (step, state, t_next, inputs)."""
+    conditionals if advanced at all), tolerances geometric from ``tol_hi`` to
+    ``tol_lo``; returns (step, state, t_next, inputs)."""
     if problem == "anisotropic":
         vf, (y0,), _, params = problems.rigid_body_anisotropic()
         dt0 = 0.01
@@ -496,7 +497,7 @@ def _start_bd(problem, nu, *, batch=64, warm_steps=20, device="cpu"):
         dt0 = 0.1
     rng = np.random.default_rng(8)
     u0s = y0.numpy()[None] * (1.0 + 0.05 * rng.standard_normal((batch, 3)))
-    tols = torch.tensor(np.geomspace(1e-2, 1e-6, batch), dtype=torch.float32, device=device)
+    tols = torch.tensor(np.geomspace(tol_hi, tol_lo, batch), dtype=torch.float32, device=device)
     save_at = np.linspace(0.0, 10.0, 5).astype(np.float32)
     state, _, inputs = batched_blockdiag.initial_state(
         vf, torch.tensor(u0s, dtype=torch.float32, device=device), params, save_at=save_at,
@@ -617,24 +618,90 @@ def test_parse_ptxas_reads_the_blockdiag_and_everystep_entries():
     }
 
 
+@pytest.mark.parametrize("functor", ["rigid_body", "rigid_body_anisotropic"])
+@pytest.mark.parametrize("nu", [2, 3, 4])
+def test_bd_geometry_fits_a_block_in_whole_warps(nu, functor):
+    """K6's tile (step_bd.cuh), the same in both forms and for both functors
+    (d = 3): a block is 32 lanes in d whole warps, and its shared memory
+    fits the H100's 232,448 bytes a block and the launch bounds' 4 tiles an
+    SM of 233,472 bytes: the tile's exchange buffer and each thread's
+    channel's mean, chol, bwdG, bwd_m and bwd_L (2n + 3n^2 floats) and its
+    lane's 6 inputs."""
+    d = kernels._FUNCTORS[("step_bd_interval", functor)][1]
+    assert d == kernels._FUNCTORS[("step_bd_attempt", functor)][1] == 3
+    n = nu + 1
+    g = kernels.bd_geometry(nu, d)
+    assert g["threads_per_block"] % 32 == 0 and g["threads_per_block"] <= 128
+    assert (g["threads_per_lane"], g["lanes_per_block"]) == (3, 32)
+    assert g["threads_per_block"] == g["threads_per_lane"] * g["lanes_per_block"]
+    assert g["smem_bytes"] <= kernels.SMEM_PER_BLOCK == 232_448
+    assert 4 * (g["smem_bytes"] + 1024) <= 233_472
+    assert g["smem_bytes"] == 4 * (2 * 2 * 3 * 32 + (2 * n + 3 * n * n + 6) * 96)
+
+
+def test_bd_geometry_entry_refuses_other_kernels_and_functors():
+    with pytest.raises(ValueError, match="not a form of K6"):
+        kernels.step_bd_geometry("step_dense_interval")
+    with pytest.raises(ValueError, match="device functor"):
+        kernels.step_bd_geometry("step_bd_attempt", functor="brusselator")
+
+
+def test_parse_ptxas_reads_k6_entries_with_shared_memory():
+    def entry(name, regs, smem):
+        return [
+            f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {name}",
+            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+            f"ptxas info    : Used {regs} registers, used 1 barriers, {smem} bytes smem, "
+            "656 bytes cmem[0]",
+        ]
+
+    log = "\n".join(
+        entry("_ZN12_GLOBAL__N_116step_bd_intervalILi4ENS_14RigidBodyAnisoEEEvNS_4ArgsENS_6"
+              "ConstsET0_li", 168, 1536)
+        + entry("_ZN12_GLOBAL__N_115step_bd_attemptILi3ENS_9RigidBodyEEEvNS_4ArgsENS_6"
+                "ConstsET0_l", 120, 1536)
+    )
+    props = lambda regs, smem: {"stack": 0, "spill_stores": 0, "spill_loads": 0,  # noqa: E731
+                                "registers": regs, "smem": smem}
+    assert kernels.parse_ptxas(log) == {
+        "step_bd_interval": {"4/RigidBodyAniso": props(168, 1536)},
+        "step_bd_attempt": {"3/RigidBody": props(120, 1536)},
+    }
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["step_bd_interval-1", "step_bd_interval-100000",
-                                    "step_bd_attempt"])
+@pytest.mark.parametrize("kernel", ["step_bd_interval-1", "step_bd_interval-40",
+                                    "step_bd_interval-100000", "step_bd_attempt"])
 @pytest.mark.parametrize("nu", [2, 3, 4])
 @pytest.mark.parametrize("problem", ["anisotropic", "rigid_body"])
 def test_blockdiag_kernels_k6_match_twin_on_the_card(cuda_device, problem, nu, kernel):
-    step, state, t_next, inputs = _start_bd(problem, nu, batch=1000, device=cuda_device)
+    """K6 on 1,001 lanes (not a whole number of 32-lane tiles) whose
+    tolerances span 1e-3 to 1e-7, so that lanes of one block end their
+    interval at very different attempts (at 40 attempts the loosest have
+    reached the checkpoint and the tightest have not): equal to the twin bit
+    for bit, and two launches on one input equal to each other (races show
+    as run-to-run differences)."""
+    step, state, t_next, inputs = _start_bd(problem, nu, batch=1001, device=cuda_device,
+                                            tol_hi=1e-3, tol_lo=1e-7)
     name, _, cap = kernel.partition("-")
     kw = dict(max_attempts=int(cap)) if cap else {}
-    before = kernels.LAUNCHES[name]
-    got = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
-    assert kernels.LAUNCHES[name] == before + 1
     want = getattr(kernels, name + "_plain")(step, state, t_next, **inputs, **kw)
+    before = kernels.LAUNCHES[name]
+    first = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+    second = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+    assert kernels.LAUNCHES[name] == before + 2
     torch.cuda.synchronize()
-    for g, w in zip(got, want):  # bit for bit
-        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    for a, b, w in zip(first, second, want):  # bit for bit
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(a, w, rtol=0, atol=0, equal_nan=True)
+    steps = (want[15] - state[15])[0]
     if cap == "100000":
-        assert bool(torch.all(got[0] >= t_next))
+        assert bool(torch.all(want[0] >= t_next))
+        assert float(steps.max()) > 2 * float(steps.min())  # lanes end far apart
+    elif cap == "40":
+        assert float(steps.min()) < 40 and float(steps.max()) == 40
 
 
 @pytest.mark.cuda
