@@ -20,10 +20,13 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
    (``cuobjdump -sass``) and launch geometry (threads per lane, lanes per
    block, static and dynamic shared memory per block, blocks per SM), which
    must equal ``kernels.bd_geometry``'s, with no spills and at most
-   BD_MAX_STACK bytes of stack.
+   BD_MAX_STACK bytes of stack; for every K2 and K4 entry (nu = 4, 5) the
+   same report against ``kernels.hi_geometry`` (a thread per lane: their
+   spills are reported, not gated).
 3. one attempt, kernel against twin, 4,096 lanes, from the Taylor-initialized
    and a mid-solve state: K1 and K3 at nu = 2, 3, 4 (17 arrays), K2 and K4
-   at nu = 4, 5 (12 arrays).
+   at nu = 4, 5 (12 arrays; every array equal, and two launches on one input
+   equal to each other).
 4. f32 main path (K1): ``batched.solve_save_at_batched(engine="cuda-loop")``
    at rtol 1e-1..1e-4, parity and tuned (nu, kappa) schedules; exactly 4
    launches per solve; the median of 3 timed solves after one warm-up.
@@ -34,10 +37,15 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
    per solve; median of 3 timed solves after one warm-up; the f64 Taylor
    init timed on its own.
 7. df32 twin on the card: the rtol 1e-5 parity row through
-   ``engine="torch"`` and one interval of K2 against its plain version.
+   ``engine="torch"`` and one interval of K2 against its plain version
+   (plain, kernel, kernel, plain): every array equal, and the two kernel
+   runs equal to each other; the first interval of the rtol 1e-9 tuned row
+   (nu = 5) on K2, twice, timed, the two runs equal.
 8. per-attempt engines: K3 (``engine="cuda"``, rtol 1e-3 parity) and K4
    (rtol 1e-7 parity) give the step counts and outputs of K1 and K2; one
-   launch of each against its plain version, timed.
+   launch of each against its plain version, timed (K4: every array equal,
+   two launches equal); K2 from K4's state at HI_CAPS attempts, timed: what
+   a launch costs besides its attempts (``launch_cost_hi``).
 9. routed: ``batched_hi.make_routed_solver(engine="cuda-loop")`` on 32,768
    lanes whose rtol cycles through 1e-1..1e-9, split as the bench splits
    them (rtol >= 1e-4 to f32); every truth lane within 10 max(rtol, 3e-7);
@@ -304,6 +312,8 @@ DENSE_ALT_LANES = 12
 BD_MAX_STACK = 64
 # the attempt caps at which phase 18 times K6's interval form from one state
 BD_CAPS = (1, 2, 4, 8)
+# the attempt caps at which phase 8 times K2 from K4's state
+HI_CAPS = (1, 2, 4, 8)
 
 
 def emit(obj):
@@ -351,7 +361,9 @@ def phase_build():
                if "registers" not in ptxas.get(k, {}).get(nu, {})]
     if missing:
         raise RuntimeError(f"ptxas reported no kernel for {missing}:\n{lib.log}")
-    return {**phase_build_dense(ptxas), **phase_build_bd(ptxas, _sass_instructions(lib.path))}
+    sass = _sass_instructions(lib.path)
+    return {**phase_build_dense(ptxas), **phase_build_bd(ptxas, sass),
+            **phase_build_hi(ptxas, sass)}
 
 
 def _sass_instructions(path):
@@ -438,6 +450,29 @@ def phase_build_bd(ptxas, sass):
         main[name] = kernels.step_bd_geometry(name, 4, "rigid_body_anisotropic")
     if bad:
         raise AssertionError(f"K6's geometry or ptxas counts are off: {bad}")
+    return main
+
+
+def phase_build_hi(ptxas, sass):
+    """K2's and K4's ptxas counts and machine instructions beside the launch
+    geometry their C launch functions report, for nu = 4 and 5; fails if
+    that geometry is not ``kernels.hi_geometry``'s or if no block fits on an
+    SM.  Returns the geometry of each form at nu = 4 (the rows of phases
+    6-8)."""
+    from odecheckpts_torch import kernels
+
+    main, bad = {}, []
+    for name in ("step_hi_interval", "step_hi_attempt"):
+        for nu in (4, 5):
+            geometry = kernels.step_hi_geometry(name, nu)
+            info = {**ptxas[name][nu], **geometry, "sass_instructions": sass.get(name, {}).get(nu)}
+            emit({"phase": "build_hi", "kernel": KERNELS[name][0], "form": name, "nu": nu, **info})
+            want = kernels.hi_geometry(nu)
+            if any(geometry[k] != v for k, v in want.items()) or geometry["blocks_per_sm"] < 1:
+                bad.append((name, nu, info, want))
+        main[name] = kernels.step_hi_geometry(name, 4)
+    if bad:
+        raise AssertionError(f"K2's or K4's geometry is off: {bad}")
     return main
 
 
@@ -540,22 +575,34 @@ def phase_attempt_hi(device):
             mid = kernels.attempt_plain(step, mid, t_next, **inputs)
         for label, start in (("init", state), ("mid", mid)):
             want = kernels.attempt_plain(step, start, t_next, **inputs)
-            for name, got in (
-                ("step_hi_interval", kernels.step_hi_interval(step, start, t_next, max_attempts=1,
-                                                              **inputs)),
-                ("step_hi_attempt", kernels.step_hi_attempt(step, start, t_next, **inputs)),
+            for name, run in (
+                ("step_hi_interval", lambda s=start: kernels.step_hi_interval(
+                    step, s, t_next, max_attempts=1, **inputs)),
+                ("step_hi_attempt", lambda s=start: kernels.step_hi_attempt(
+                    step, s, t_next, **inputs)),
             ):
+                got, again = run(), run()
                 torch.cuda.synchronize()
                 devs, bad, w = _deviations(STATE_NAMES_HI, got, want, torch, pairs=(0, 2, 7))
                 worst[name] = max(worst[name], w)
+                unequal = [n for n, g, x in zip(STATE_NAMES_HI, got, want)
+                           if not _same_bits(g, x, torch)]
+                repeat = all(_same_bits(a, b, torch) for a, b in zip(got, again))
                 emit({"phase": "attempt_hi", "kernel": KERNELS[name][0], "nu": nu,
-                      "state": label, "max_abs_and_rel_dev": devs})
-                if bad:
+                      "state": label, "max_abs_and_rel_dev": devs, "arrays_unequal": unequal,
+                      "launches_equal": repeat})
+                if bad or unequal or not repeat:
                     raise AssertionError(
-                        f"{KERNELS[name][0]} and its twin disagree beyond rel "
-                        f"{ATTEMPT_RTOL_TOL} at nu={nu} ({label}) in {bad}"
+                        f"{KERNELS[name][0]} and its twin disagree at nu={nu} ({label}) in "
+                        f"{unequal or bad}, or two launches differ ({not repeat})"
                     )
     return worst
+
+
+def _same_bits(a, b, torch):
+    """Whether two arrays are equal, NaN where the other has NaN."""
+    return (bool(torch.equal(torch.isnan(a), torch.isnan(b)))
+            and bool(torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))))
 
 
 def _truth(u0_rows, save_at):
@@ -831,12 +878,39 @@ def phase_twin_hi(device, truth, u0s, kernel_out):
     interval = {"kernel_ms": [times["kernel"][0], times["kernel2"][0]],
                 "plain_ms": [times["plain"][0], times["plain2"][0]],
                 "lanes_with_other_step_counts": int(torch.sum(k_out[11] != p_out[11])),
-                "max_abs_dev_mean_hi": float(torch.max(torch.abs(k_out[2] - p_out[2])))}
+                "max_abs_dev_mean_hi": float(torch.max(torch.abs(k_out[2] - p_out[2]))),
+                "arrays_equal": all(_same_bits(a, b, torch) for a, b in zip(k_out, p_out)),
+                "kernel_runs_equal": _runs_equal(times, k_out, torch)}
     emit({"phase": "interval", "kernel": "K2", "rtol": rtol, "nu": nu, "batch": BATCH,
           **interval})
-    if interval["lanes_with_other_step_counts"]:
-        raise AssertionError("K2 and its plain version differ in step counts over an interval")
-    return _timing("step_hi_interval", times, state, 11, nu=nu, d=3)
+    if (interval["lanes_with_other_step_counts"] or not interval["arrays_equal"]
+            or not interval["kernel_runs_equal"]):
+        raise AssertionError("K2 and its plain version differ over an interval, or two kernel "
+                             "runs differ")
+    timing = _timing("step_hi_interval", times, state, 11, nu=nu, d=3)
+
+    # the first interval of the rtol 1e-9 tuned row (nu = 5) on K2 alone: its
+    # plain version would take tens of seconds there
+    rtol_t = 1e-9
+    nu_t, kappa_t = SCHEDULES_HI["tuned"][rtol_t]
+    tols_t = torch.full((BATCH,), rtol_t, dtype=torch.float32, device=device)
+    state_t, inputs_t, t_next_t = _hi_state(u0s, tols_t, nu_t, torch)
+    step_t = batched_hi.make_step_hi(problems.rigid_body_df(), nu=nu_t, d=3,
+                                     error_calibration=kappa_t)
+
+    def tight():
+        return kernels.step_hi_interval(step_t, state_t, t_next_t, max_attempts=MAX_ATTEMPTS,
+                                        **inputs_t)
+
+    pair = _time_pair((("kernel", tight), ("kernel2", tight)))
+    repeat = _runs_equal(pair, pair["kernel"][1], torch)
+    accepted = float(torch.sum(pair["kernel"][1][11] - state_t[11]))
+    emit({"phase": "interval", "kernel": "K2", "rtol": rtol_t, "nu": nu_t, "kappa": kappa_t,
+          "batch": BATCH, "kernel_ms": [pair["kernel"][0], pair["kernel2"][0]],
+          "accepted_attempts": accepted, "kernel_runs_equal": repeat})
+    if not repeat:
+        raise AssertionError("two K2 runs of the rtol 1e-9 tuned interval differ")
+    return timing
 
 
 def phase_attempt_engines(device, truth, u0s, loop_ll, loop_hi):
@@ -904,9 +978,32 @@ def phase_attempt_engines(device, truth, u0s, loop_ll, loop_hi):
         dev = max(float(torch.max(torch.abs(a - b)))
                   for a, b in zip(times["kernel"][1], times["plain"][1]))
         one[name] = _timing(name, times, s, nsteps_at, nu=nu, d=3)
+        extra = {}
+        if name == "step_hi_attempt":
+            extra = {"arrays_equal": all(_same_bits(a, b, torch)
+                                         for a, b in zip(times["kernel"][1], times["plain"][1])),
+                     "kernel_runs_equal": _runs_equal(times, times["kernel"][1], torch)}
         emit({"phase": "one_launch", "kernel": KERNELS[name][0], "batch": BATCH,
               "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
-              "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev})
+              "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev, **extra})
+        if extra and not all(extra.values()):
+            raise AssertionError(f"one launch of K4 differs from its plain version, or two "
+                                 f"launches differ: {extra}")
+
+    # K2 from K4's state at HI_CAPS attempts: a fixed cost per launch and a
+    # cost per attempt
+    caps = {}
+    for cap in HI_CAPS:
+        def interval(cap=cap):
+            return kernels.step_hi_interval(step_hi, state_hi, t_next, **inputs_hi,
+                                            max_attempts=cap)
+
+        pair = _time_pair((("a", interval), ("b", interval)))
+        caps[cap] = min(pair["a"][0], pair["b"][0])
+    per_attempt = (caps[HI_CAPS[-1]] - caps[HI_CAPS[0]]) / (HI_CAPS[-1] - HI_CAPS[0])
+    emit({"phase": "launch_cost_hi", "kernel": "K2", "batch": BATCH, "nu": nu_hi,
+          "interval_ms_by_cap": caps, "per_attempt_ms": per_attempt,
+          "fixed_ms": caps[HI_CAPS[0]] - HI_CAPS[0] * per_attempt})
     return counts, one
 
 
@@ -1566,9 +1663,7 @@ def phase_interval_bd(device, loop):
 def _runs_equal(times, k_out, torch):
     """Whether the kernel's second run in ``times`` equals its first bit for
     bit (NaN where the first has NaN)."""
-    return all(bool(torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0)))
-               and bool(torch.equal(torch.isnan(a), torch.isnan(b)))
-               for a, b in zip(times["kernel2"][1], k_out))
+    return all(_same_bits(a, b, torch) for a, b in zip(times["kernel2"][1], k_out))
 
 
 def phase_attempt_engine_bd(device, loop):

@@ -94,7 +94,7 @@ class StepHi(batched._StepConstants):
         if nu not in SUPPORTED_NU:
             raise NotImplementedError(
                 f"num_derivatives={nu} is not ported to the df32 engine yet (the "
-                f"kernel is instantiated for {SUPPORTED_NU}): ROADMAP queue 1 item 3a"
+                f"kernel is instantiated for {SUPPORTED_NU}): ROADMAP queue 1 item 5"
             )
         super().__init__(nu=nu, d=d, error_calibration=error_calibration,
                          control=control, dtype=dtype)
@@ -340,7 +340,7 @@ def wrap_vf_plain(vf, params):
 def _check_options(*, shard_mesh, engine, dtype):
     if shard_mesh is not None:
         raise NotImplementedError(
-            "shard_mesh is not ported yet: ROADMAP queue 1 item 11 (multi-device)"
+            "shard_mesh is not ported yet: ROADMAP queue 1 item 8 (multi-device)"
         )
     batched._check_engine(engine)
     if dtype not in (torch.float32, torch.float64):

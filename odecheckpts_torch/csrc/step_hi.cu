@@ -56,6 +56,15 @@ int launch(int nu, const void* in_ptrs, const void* out_ptrs, const void* consts
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class VF>
+int report(int nu, int* out) {
+  switch (nu) {
+    case 4: return hi_report(step_hi_interval<4, VF>, out);
+    case 5: return hi_report(step_hi_interval<5, VF>, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // C interface (bound with ctypes in kernels.py).  in_ptrs / out_ptrs point
@@ -70,4 +79,12 @@ extern "C" int odeckpt_step_hi_interval_rigid_body_df(int nu, const void* in_ptr
                                                       void* stream) {
   return launch(nu, in_ptrs, out_ptrs, consts, batch, max_attempts, RigidBodyDf{p1, p2, p3},
                 device, stream);
+}
+
+// The launch geometry of this form for nu on the current device: out =
+// threads per lane, lanes per block, threads per block, shared-memory bytes
+// per block, resident blocks per SM (occupancy API), registers per thread,
+// local (stack) bytes per thread.
+extern "C" int odeckpt_step_hi_interval_geometry(int nu, int* out) {
+  return report<RigidBodyDf>(nu, out);
 }

@@ -41,6 +41,15 @@ int launch(int nu, const void* in_ptrs, const void* out_ptrs, const void* consts
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class VF>
+int report(int nu, int* out) {
+  switch (nu) {
+    case 4: return hi_report(step_hi_attempt<4, VF>, out);
+    case 5: return hi_report(step_hi_attempt<5, VF>, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // C interface: as odeckpt_step_hi_interval_rigid_body_df, without max_attempts.
@@ -49,4 +58,9 @@ extern "C" int odeckpt_step_hi_attempt_rigid_body_df(int nu, const void* in_ptrs
                                                      long long batch, float p1, float p2,
                                                      float p3, int device, void* stream) {
   return launch(nu, in_ptrs, out_ptrs, consts, batch, RigidBodyDf{p1, p2, p3}, device, stream);
+}
+
+// As odeckpt_step_hi_interval_geometry, for this form.
+extern "C" int odeckpt_step_hi_attempt_geometry(int nu, int* out) {
+  return report<RigidBodyDf>(nu, out);
 }

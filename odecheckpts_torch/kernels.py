@@ -116,6 +116,8 @@ _ENTRIES = {
     "odeckpt_step_dense_attempt_geometry": [_INT, _INT, _INT, _PTR],
     "odeckpt_step_bd_interval_geometry": [_INT, _INT, _PTR],
     "odeckpt_step_bd_attempt_geometry": [_INT, _INT, _PTR],
+    "odeckpt_step_hi_interval_geometry": [_INT, _PTR],
+    "odeckpt_step_hi_attempt_geometry": [_INT, _PTR],
 }
 # K7's strategy argument (the template parameter of step_ll.cuh's attempt)
 STRATEGY_CODES = {"fixedpoint": 0, "smoother": 1, "filter": 2}
@@ -178,6 +180,21 @@ def bd_geometry(nu, d):
     floats = 2 * 2 * d * _BD_WARP + (2 * n + 3 * n * n + 6) * threads
     return {"threads_per_lane": d, "lanes_per_block": _BD_WARP, "threads_per_block": threads,
             "smem_bytes": 4 * floats}
+
+
+# K2's and K4's launch geometry (step_hi.cuh, lanes.cuh): a thread per IVP
+# lane, blocks of 128 lanes, no shared memory
+_HI_THREADS = 128
+
+
+def hi_geometry(nu):
+    """The launch geometry of K2 and K4 (both forms, nu = 4 or 5), as their C
+    launch functions compute it: threads per lane, lanes and threads per
+    block, and shared-memory bytes per block."""
+    if nu not in (4, 5):
+        raise ValueError(f"K2 and K4 are built for nu = 4 and 5, not {nu}")
+    return {"threads_per_lane": 1, "lanes_per_block": _HI_THREADS,
+            "threads_per_block": _HI_THREADS, "smem_bytes": 0}
 
 
 def _nvcc():
@@ -618,6 +635,24 @@ def step_hi_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_s
     if state[0].device.type == "cpu":
         return step_hi_attempt_plain(step, state, t_next, **inputs)
     return _launch("step_hi_attempt", step, state, t_next, inputs)
+
+
+def step_hi_geometry(kernel, nu=4):
+    """K2's or K4's launch geometry on the current CUDA device, as the C
+    launch function of ``kernel`` ("step_hi_interval" or "step_hi_attempt")
+    has it for nu: ``hi_geometry``'s keys, ``blocks_per_sm`` (resident
+    blocks, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    ``registers`` and ``local_bytes`` per thread."""
+    if kernel not in ("step_hi_interval", "step_hi_attempt"):
+        raise ValueError(f"{kernel} is not K2 or K4")
+    lib = library()
+    out = (ctypes.c_int * 7)()
+    rc = getattr(lib.lib, f"odeckpt_{kernel}_geometry")(int(nu), ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"{kernel} geometry failed: {lib.error_string(rc)} ({rc})")
+    keys = ("threads_per_lane", "lanes_per_block", "threads_per_block", "smem_bytes",
+            "blocks_per_sm", "registers", "local_bytes")
+    return dict(zip(keys, out))
 
 
 def step_dense_interval(step, state, t_next, *, atol, rtol, dt_max, dt_floor,

@@ -7,8 +7,13 @@ from .blockdiag import BlockDiagSSM  # noqa: F401
 from .dense import DenseSSM  # noqa: F401
 from .isotropic import IsotropicSSM  # noqa: F401
 
-_BACKENDS = {"isotropic": IsotropicSSM, "dense": DenseSSM, "blockdiag": BlockDiagSSM}
-_NOT_PORTED = {"scalar": "ROADMAP queue 1 item 7 (blockdiag)"}
+_BACKENDS = {
+    "isotropic": IsotropicSSM,
+    "dense": DenseSSM,
+    "blockdiag": BlockDiagSSM,
+    # the d = 1 case of the per-dimension backend, as in the reference
+    "scalar": BlockDiagSSM,
+}
 
 
 def choose(implementation: str, *, ode_shape: tuple, num_derivatives: int):
@@ -17,12 +22,6 @@ def choose(implementation: str, *, ode_shape: tuple, num_derivatives: int):
         return _BACKENDS[implementation](
             num_derivatives=num_derivatives, ode_shape=tuple(ode_shape)
         )
-    if implementation in _NOT_PORTED:
-        raise NotImplementedError(
-            f"implementation={implementation!r} is not ported yet: "
-            f"{_NOT_PORTED[implementation]}"
-        )
     raise ValueError(
-        f"unknown implementation {implementation!r}; "
-        f"available: {sorted([*_BACKENDS, *_NOT_PORTED])}"
+        f"unknown implementation {implementation!r}; available: {sorted(_BACKENDS)}"
     )

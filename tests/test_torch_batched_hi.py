@@ -322,6 +322,19 @@ def test_unported_hi_options_name_their_roadmap_item(option):
                           vf_df=tp.rigid_body_df(), **option)
 
 
+@pytest.mark.parametrize("guard", ["num_derivatives", "shard_mesh"])
+def test_hi_guards_name_their_current_roadmap_items(guard):
+    """Other nu: queue 1 item 5 (options the fused engines left out);
+    shard_mesh: item 8 (multi-device)."""
+    if guard == "num_derivatives":
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5$"):
+            th.StepHi(tp.rigid_body_df(), nu=3, d=3, error_calibration=1.0)
+    else:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 8 \(multi-device\)"):
+            th.make_hi_solver(tp.rigid_body()[0], PARAMS, save_at=np.linspace(0, 5, 3), dt0=0.1,
+                              vf_df=tp.rigid_body_df(), shard_mesh=object())
+
+
 def test_hi_solver_guards_memory_and_the_kernels_refuse_other_devices():
     solve = th.make_hi_solver(tp.rigid_body()[0], PARAMS, save_at=np.linspace(0, 5, 3),
                               dt0=0.1, vf_df=tp.rigid_body_df(), hbm_budget=1024)

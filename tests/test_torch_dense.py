@@ -28,20 +28,35 @@ Tolerances and why:
   pivot is ~0 flips with the last ulp of the sums.  In f32 on the
   mid-interval state the (nd, d + nd) correction QR is ill-conditioned on
   some lanes, where the twin's and the reference's corrected L L^T differ by
-  up to tens of percent of the largest entry; there both are judged by the
-  reference's f64 attempt on the same inputs, and the twin must be within
-  rtol 1e-4 of it, or no farther than twice the reference's own f32 result.
+  up to tens of percent of the largest entry, and on some hosts the mean,
+  the backward conditionals, dt and the error memory of such a lane differ
+  beyond 1e-4 as well.  A lane of an f32 array that misses its tolerance
+  is judged by the reference's f64 attempt on the same (widened) inputs
+  (``torch_f64_judge``): the twin must be within the tolerance of it, or no
+  farther than twice the reference's own f32 distance, the largest over
+  its attempt and 8 attempts from the mean nudged by one ulp (the
+  corrected factor's L L^T keeps its old rule: twice the one attempt's
+  distance).  On an AMD EPYC host the twin lands up to 5.9 times as far as
+  the reference's one attempt on such lanes, and 0.58-0.81 times as far as
+  the farthest of the nudged ones; the twin's Jacobian (``jac``) and one
+  from jvps, as the reference forms it, give the same attempt there.  The
+  twin and the reference accept the same lanes.  Seeded faults (a
+  well-conditioned lane moved by 5 times the tolerance, lanes off by one)
+  fail the judge.
   On the card the kernel is held to the twin bit for bit.
 * Whole solves in f64 against ``solve_save_at_batched_dense(engine="xla")``:
   identical per-lane step counts, checkpoint values within rtol 1e-10 (the
   jitted reference contracts multiply-adds into FMA, the twin does not).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_f64_judge as judge
 
 from odecheckpts_tpu import batched_dense as jbd
 from odecheckpts_tpu import ivpsolvers as jsolvers
@@ -301,52 +316,93 @@ def _gram(x):
     return np.einsum("ikb,jkb->ijb", x, x)
 
 
-def _lane_gaps(got, want):
-    """Per lane: the largest deviation of the Gram matrices of two factors
-    over the largest entry of ``want``'s."""
-    g, w = _gram(got), _gram(want)
-    scale = np.maximum(np.max(np.abs(w), axis=(0, 1)), np.finfo(np.float64).tiny)
-    return np.max(np.abs(g - w), axis=(0, 1)) / scale
-
-
-def _chol_as_accurate_as_reference(got, want, jstep, start, extra, rtol):
-    """The corrected factor of one f32 attempt from a mid-interval state,
-    judged by the reference's f64 attempt on the same (exactly widened)
-    inputs: on every lane the twin's L L^T is within ``rtol``, or within
-    twice the distance of the reference's own f32 L L^T, of the f64 one.
-    The (nd, d + nd) correction QR is ill-conditioned on some of these
-    lanes, so neither f32 result is near the other there."""
+def _reference_attempt(problem, correction, start, extra, np_dtype):
+    """The reference's attempt op by op in ``np_dtype`` (inputs widened)."""
+    jvf, jparams, _, y0, *_ = _problem(problem)
+    jstep = _jax_step(jvf, jparams, y0.shape[0], correction)
     with jax.disable_jit():
-        ref = jstep(tuple(jnp.asarray(x, jnp.float64) for x in start),
-                    *(jnp.asarray(x, jnp.float64) for x in extra))
-    ref = np.asarray(ref[2])
-    twin, own = _lane_gaps(got, ref), _lane_gaps(want, ref)
-    assert np.all(twin <= np.maximum(2.0 * own, rtol)), (twin, own)
+        out = jstep(tuple(jnp.asarray(x, np_dtype) for x in start),
+                    *(jnp.asarray(x, np_dtype) for x in extra))
+    return tuple(np.asarray(x) for x in out)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_attempt(problem, correction, dtype):
+    """For the initial and the mid-interval state: the start, the twin's
+    attempt, the reference's attempt op by op and, in f32, the reference's
+    attempt in f64 on the widened inputs."""
+    step, init, mid, extra = _dense_start(problem, dtype, correction)
+    runs = []
+    for start in (init, mid):
+        got = interop.state_to_numpy(step(interop.state_to_torch(start), *interop.to_torch(extra)))
+        ref = (_reference_attempt(problem, correction, start, extra, np.float64)
+               if dtype == "f32" else None)
+        runs.append((start, got, _reference_attempt(problem, correction, start, extra, NP[dtype]),
+                     ref))
+    return runs
+
+
+@functools.lru_cache(maxsize=None)
+def _nudged_draws(problem, correction, k):
+    """The reference's f32 and f64 attempts from the f32 initial (k = 0) or
+    mid-interval (k = 1) state with its mean nudged by one ulp
+    (``torch_f64_judge.nudged_means``)."""
+    _, init, mid, extra = _dense_start(problem, "f32", correction)
+    return tuple((_reference_attempt(problem, correction, s, extra, np.float32),
+                  _reference_attempt(problem, correction, s, extra, np.float64))
+                 for s in judge.nudged_means((init, mid)[k]))
+
+
+def _draws(problem, correction, k, i):
+    return lambda: [(_view(i, w[i]), _view(i, r[i]))
+                    for w, r in _nudged_draws(problem, correction, k)]
+
+
+def _view(i, x):
+    """The new factors (arrays 2 and 5) through their Gram matrices."""
+    return _gram(x) if i in (2, 5) else x
 
 
 @pytest.mark.parametrize("dtype", ["f64", "f32"])
 @pytest.mark.parametrize("correction", ["ts1", "ts0"])
 @pytest.mark.parametrize("problem", ["brusselator", "rigid_body"])
 def test_one_attempt_matches_jax_make_step_dense_ll(problem, correction, dtype):
-    jvf, jparams, *_ = _problem(problem)
-    step, init, mid, extra = _dense_start(problem, dtype, correction)
-    jstep = _jax_step(jvf, jparams, step.d, correction)
-    for start in (init, mid):
-        rtol = {"f64": 1e-12, "f32": 1e-5 if start is init else 1e-4}[dtype]
-        with jax.disable_jit():
-            want = jstep(tuple(jnp.asarray(x) for x in start), *(jnp.asarray(x) for x in extra))
-        want = tuple(np.asarray(w) for w in want)
-        got = interop.state_to_numpy(step(interop.state_to_torch(start), *interop.to_torch(extra)))
+    for k, (start, got, want, ref) in enumerate(_one_attempt(problem, correction, dtype)):
+        rtol = {"f64": 1e-12, "f32": 1e-5 if k == 0 else 1e-4}[dtype]
         assert int(np.sum(got[0] != start[0])) > 0  # some lanes accepted
         np.testing.assert_array_equal(got[15], want[15])
         for i, (g, w) in enumerate(zip(got, want)):
             assert g.shape == w.shape and g.dtype == w.dtype
-            if i == 2 and dtype == "f32" and start is mid:
-                _chol_as_accurate_as_reference(g, w, jstep, start, extra, rtol)
-            elif i in (2, 5):  # the new factors, through their Gram matrices
-                _close(_gram(g), _gram(w), rtol)
+            if dtype == "f64":
+                _close(_view(i, g), _view(i, w), rtol)
             else:
-                _close(g, w, rtol)
+                # the corrected factor's Gram matrix per lane at its old rule:
+                # within twice the reference's one f32 draw
+                judge.assert_as_accurate_as_reference(
+                    _view(i, g), _view(i, w), _view(i, ref[i]), rtol, lane_scale=i == 2,
+                    draws=None if i == 2 else _draws(problem, correction, k, i),
+                    what=f"array {i}")
+        if dtype == "f32":
+            judge.assert_same_accepted(got[0], want[0], start[0])
+
+
+@pytest.mark.parametrize("fault", ["shifted_lane", "off_by_one"])
+def test_one_attempt_f64_judge_catches_seeded_faults(fault):
+    """A fault seeded into the twin's f32 mean (array 1) of a TS1 attempt
+    from the mid-interval state fails the judge of
+    ``test_one_attempt_matches_jax_make_step_dense_ll`` (rtol 1e-4 there): a
+    lane whose reference draws are within 1e-4 of f64 moved by 5e-4 of the
+    array's largest entry, or lanes off by one."""
+    _, got, want, ref = _one_attempt("rigid_body", "ts1", "f32")[1]
+    draws = _draws("rigid_body", "ts1", 1, 1)
+    judge.assert_as_accurate_as_reference(got[1], want[1], ref[1], 1e-4, draws=draws)
+    if fault == "shifted_lane":
+        lane = judge.well_conditioned_lane(want[1], ref[1], bound=1e-4, draws=draws())
+        bad = judge.shifted_lane(got[1], lane, by=5e-4)
+    else:
+        bad = judge.off_by_one(got[1])
+    with pytest.raises(AssertionError):
+        judge.assert_as_accurate_as_reference(bad, want[1], ref[1], 1e-4, draws=draws)
 
 
 # ---------------------------------------------------------------------------

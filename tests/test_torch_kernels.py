@@ -6,11 +6,12 @@ the port is installed:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 
-On a machine without a CUDA device those tests skip.  Kernel and twin are
-compared at rtol 1e-5 (pairs: hi + lo in f64 at 1e-12): both round every
-f32 operation on its own (the kernels are built with ``-fmad=false``), so
-they are expected to agree to a few ulp, and on the card they have agreed
-bit for bit.
+On a machine without a CUDA device those tests skip.  K1 and K3 are
+compared with their twin at rtol 1e-5: both round every f32 operation on
+its own (the kernels are built with ``-fmad=false``), so they are expected
+to agree to a few ulp, and on the card they have agreed bit for bit.  K2
+and K4, K5 and K6 are held to their twins bit for bit, each launch made
+twice and required identical (races show as run-to-run differences).
 """
 
 import numpy as np
@@ -209,33 +210,6 @@ def test_attempt_kernel_k3_matches_twin_on_the_card(cuda_device, nu):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
 
 
-def _assert_hi_close(got, want):
-    for i, (g, w) in enumerate(zip(got, want)):
-        if i in (1, 3, 8):  # lo halves: compared as part of their pair
-            g, w = got[i - 1].double() + g.double(), want[i - 1].double() + w.double()
-            torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12 * float(w.abs().max()))
-        else:
-            torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["step_hi_interval-1", "step_hi_interval-100000",
-                                    "step_hi_attempt"])
-@pytest.mark.parametrize("nu", [4, 5])
-def test_df32_kernels_k2_k4_match_twin_on_the_card(cuda_device, nu, kernel):
-    step, state, t_next, inputs = _start_hi(nu, batch=1000, device=cuda_device)
-    name, _, cap = kernel.partition("-")
-    kw = dict(max_attempts=int(cap)) if cap else {}
-    before = kernels.LAUNCHES[name]
-    got = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
-    assert kernels.LAUNCHES[name] == before + 1
-    want = getattr(kernels, name + "_plain")(step, state, t_next, **inputs, **kw)
-    torch.cuda.synchronize()
-    _assert_hi_close(got, want)
-    if cap == "100000":
-        assert bool(torch.all(got[0] == t_next))
-
-
 @pytest.mark.cuda
 def test_df32_kernels_refuse_a_vector_field_without_device_functor(cuda_device):
     vf, _, _, params = problems.rigid_body()
@@ -250,6 +224,77 @@ def test_df32_kernels_refuse_a_vector_field_without_device_functor(cuda_device):
     with pytest.raises(ValueError, match="float32"):
         kernels.step_hi_attempt(step, tuple(x.double() for x in state), t_next.double(),
                                 **{k: v.double() for k, v in inputs.items()})
+
+
+@pytest.mark.parametrize("nu", [4, 5])
+def test_hi_geometry_is_a_thread_per_lane(nu):
+    """K2's and K4's launch geometry, the same in both forms: one thread per
+    IVP lane, blocks of 128 lanes (lanes.cuh), no shared memory."""
+    assert kernels.hi_geometry(nu) == {"threads_per_lane": 1, "lanes_per_block": 128,
+                                       "threads_per_block": 128, "smem_bytes": 0}
+
+
+def test_hi_geometry_refuses_an_nu_that_is_not_built():
+    with pytest.raises(ValueError, match="nu = 4 and 5"):
+        kernels.hi_geometry(3)
+    with pytest.raises(ValueError, match="not K2 or K4"):
+        kernels.step_hi_geometry("step_bd_interval")
+
+
+def test_parse_ptxas_reads_k2_k4_entries():
+    def entry(name, regs, spills, stack):
+        return [
+            f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {name}",
+            f"    {stack} bytes stack frame, {spills[0]} bytes spill stores, "
+            f"{spills[1]} bytes spill loads",
+            f"ptxas info    : Used {regs} registers, 920 bytes cmem[0]",
+        ]
+
+    log = "\n".join(
+        entry("_ZN12_GLOBAL__N_116step_hi_intervalILi4ENS_11RigidBodyDfEEEvNS_6ArgsHiENS_8"
+              "ConstsHiET0_li", 255, (216, 224), 152)
+        + entry("_ZN12_GLOBAL__N_115step_hi_attemptILi5ENS_11RigidBodyDfEEEvNS_6ArgsHiENS_8"
+                "ConstsHiET0_l", 255, (948, 1028), 600)
+    )
+    assert kernels.parse_ptxas(log) == {
+        "step_hi_interval": {4: {"stack": 152, "spill_stores": 216, "spill_loads": 224,
+                                 "registers": 255}},
+        "step_hi_attempt": {5: {"stack": 600, "spill_stores": 948, "spill_loads": 1028,
+                                "registers": 255}},
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["step_hi_interval-1", "step_hi_interval-40",
+                                    "step_hi_interval-100000", "step_hi_attempt"])
+@pytest.mark.parametrize("nu", [4, 5])
+def test_df32_kernels_k2_k4_match_twin_on_the_card(cuda_device, nu, kernel):
+    """K2 and K4 on 1,001 lanes (not a whole number of blocks) whose
+    tolerances span rtol 1e-5 to 1e-9, so that the lanes of one block end
+    their interval at very different attempts: equal to the plain version
+    (one attempt of the unchanged twin, or its loop) bit for bit, and two
+    launches on one input equal to each other (races show as run-to-run
+    differences)."""
+    step, state, t_next, inputs = _start_hi(nu, batch=1001, device=cuda_device)
+    name, _, cap = kernel.partition("-")
+    kw = dict(max_attempts=int(cap)) if cap else {}
+    want = getattr(kernels, name + "_plain")(step, state, t_next, **inputs, **kw)
+    before = kernels.LAUNCHES[name]
+    first = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+    second = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+    assert kernels.LAUNCHES[name] == before + 2
+    torch.cuda.synchronize()
+    for a, b, w in zip(first, second, want):  # bit for bit
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(a, w, rtol=0, atol=0, equal_nan=True)
+    steps = (want[11] - state[11])[0]
+    if cap == "100000":
+        assert bool(torch.all(want[0] == t_next))
+        assert float(steps.max()) > 2 * float(steps.min())  # lanes end far apart
+    elif cap == "40":  # lanes that rejected attempts beside lanes that accepted all
+        assert float(steps.min()) < 40 and float(steps.max()) == 40
 
 
 def _random_backward(state, rng, device):

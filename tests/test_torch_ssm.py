@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from odecheckpts_tpu import ivpsolve as jivpsolve
+from odecheckpts_tpu import ssm as jssm_mod
 from odecheckpts_tpu import ivpsolvers as jsolvers
 from odecheckpts_tpu import stats as jstats
 from odecheckpts_tpu.ssm.base import Conditional as JCond
@@ -21,6 +22,7 @@ from odecheckpts_tpu.ssm.base import Normal as JNormal
 from odecheckpts_torch import interop
 from odecheckpts_torch import ivpsolve as tivpsolve
 from odecheckpts_torch import ivpsolvers as tsolvers
+from odecheckpts_torch import ssm as tssm_mod
 from odecheckpts_torch import stats as tstats
 from odecheckpts_torch.ssm.base import Conditional as TCond
 from odecheckpts_torch.ssm.base import MarkovSeq as TSeq
@@ -148,3 +150,36 @@ def test_markov_marginals_matches_jax():
     got = tstats.markov_marginals(tstats.markov_select_terminal(tseq))
     assert got.mean.shape == (steps, B, N, D)
     _close(got, want)
+
+
+@pytest.mark.parametrize("steps", [5, 6])
+@pytest.mark.parametrize("parallel", [False, True])
+def test_markov_marginals_keywords_match_jax(parallel, steps):
+    """``reverse`` and ``parallel`` as in the reference: the associative scan
+    over conditional composition gives the reference's marginals in f64, on
+    an odd and an even number of conditionals."""
+    jssm, tssm = _ssms()
+    rng = np.random.default_rng(5)
+    init = _normal(rng, (steps + 1, B))
+    conds = _cond(rng, (steps + 1, B))
+    jseq = JSeq(_jn(init), _jc(conds), ssm=jssm)
+    want = jax.vmap(
+        lambda s: jstats.markov_marginals(jstats.markov_select_terminal(s), parallel=parallel),
+        in_axes=(JSeq(JNormal(1, 1), JCond(1, JNormal(1, 1)), ssm=jssm),), out_axes=1,
+    )(jseq)
+    tseq = tstats.markov_select_terminal(TSeq(_tn(init), _tc(conds), ssm=tssm))
+    got = tstats.markov_marginals(tseq, reverse=True, parallel=parallel)
+    assert got.mean.shape == (steps, B, N, D)
+    _close(got, want)
+    with pytest.raises(NotImplementedError, match="forward-time"):
+        tstats.markov_marginals(tseq, reverse=False, parallel=parallel)
+
+
+def test_choose_scalar_is_the_blockdiag_backend_as_in_the_reference():
+    got = tssm_mod.choose("scalar", ode_shape=(1,), num_derivatives=NU)
+    want = jssm_mod.choose("scalar", ode_shape=(1,), num_derivatives=NU)
+    assert type(got).__name__ == type(want).__name__ == "BlockDiagSSM"
+    assert isinstance(got, tssm_mod.BlockDiagSSM)
+    assert (got.n, got.d) == (N, 1)
+    with pytest.raises(ValueError, match="available"):
+        tssm_mod.choose("diagonal", ode_shape=(1,), num_derivatives=NU)
