@@ -22,16 +22,19 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
    must equal ``kernels.bd_geometry``'s, with no spills and at most
    BD_MAX_STACK bytes of stack; for every K2 and K4 entry (nu = 4, 5) the
    same report against ``kernels.hi_geometry`` (a thread per lane: their
-   spills are reported, not gated).
+   spills are reported, not gated); for every K1 and K3 entry (nu = 2, 3, 4)
+   the same report against ``kernels.ll_geometry`` and for every K7 entry
+   (both strategies) against ``kernels.everystep_geometry``.
 3. one attempt, kernel against twin, 4,096 lanes, from the Taylor-initialized
    and a mid-solve state: K1 and K3 at nu = 2, 3, 4 (17 arrays), K2 and K4
-   at nu = 4, 5 (12 arrays; every array equal, and two launches on one input
-   equal to each other).
+   at nu = 4, 5 (12 arrays): every array equal, and two launches on one
+   input equal to each other.
 4. f32 main path (K1): ``batched.solve_save_at_batched(engine="cuda-loop")``
    at rtol 1e-1..1e-4, parity and tuned (nu, kappa) schedules; exactly 4
    launches per solve; the median of 3 timed solves after one warm-up.
 5. f32 twin on the card: the rtol 1e-3 parity row through ``engine="torch"``
-   and one interval of K1 against its plain version, timed.
+   and one interval of K1 against its plain version (plain, kernel, kernel,
+   plain): every array equal, and the two kernel runs equal to each other.
 6. df32 main path (K2): ``batched_hi.make_hi_solver(engine="cuda-loop")`` at
    rtol 1e-5..1e-9, the 7 distinct parity and tuned rows; exactly 4 launches
    per solve; median of 3 timed solves after one warm-up; the f64 Taylor
@@ -43,9 +46,10 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
    (nu = 5) on K2, twice, timed, the two runs equal.
 8. per-attempt engines: K3 (``engine="cuda"``, rtol 1e-3 parity) and K4
    (rtol 1e-7 parity) give the step counts and outputs of K1 and K2; one
-   launch of each against its plain version, timed (K4: every array equal,
-   two launches equal); K2 from K4's state at HI_CAPS attempts, timed: what
-   a launch costs besides its attempts (``launch_cost_hi``).
+   launch of each against its plain version (every array equal, two
+   launches equal); K1 from K3's state at LL_CAPS attempts and K2 from K4's
+   at HI_CAPS, device time: what a launch costs besides its attempts
+   (``launch_cost_ll``, ``launch_cost_hi``).
 9. routed: ``batched_hi.make_routed_solver(engine="cuda-loop")`` on 32,768
    lanes whose rtol cycles through 1e-1..1e-9, split as the bench splits
    them (rtol >= 1e-4 to f32); every truth lane within 10 max(rtol, 3e-7);
@@ -166,6 +170,13 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
     m = n = 10, iters 200, B = 8192 (the reference's size), 32,768 and
     262,144: millions of QRs per second and ``packed_over_cols``.
 26. the kernel table line and the result line.
+
+Every kernel's ``ms`` is its device time (``_device_time``: DEVICE_LAUNCHES
+launches back to back behind a sleep of the stream, so the wrapper's host
+time overlaps the card's busy wait), with the wrapper's host time per call
+(``host_ms``), the CUDA-event time around one wrapper call (``event_ms``,
+which holds the wrapper's host time) and torch.profiler's device time in a
+``device_time`` line each.
 
 Each path of phases 4, 6, 8, 9, 11, 13, 15, 18, 20 and 22 runs with the launch
 counts set to 0 just before it and read just after; a kernel of the path
@@ -314,6 +325,13 @@ BD_MAX_STACK = 64
 BD_CAPS = (1, 2, 4, 8)
 # the attempt caps at which phase 8 times K2 from K4's state
 HI_CAPS = (1, 2, 4, 8)
+# the attempt caps at which phase 8 times K1 from K3's state
+LL_CAPS = (1, 2, 4, 8)
+# device-only times: launches back to back behind a sleep of the stream
+DEVICE_LAUNCHES = 20
+SLEEP_CYCLES = 200_000_000
+# the substring of each kernel's symbol that torch.profiler shows
+SYMBOLS = {"batched_qr_r": "batched_qr"}
 
 
 def emit(obj):
@@ -363,7 +381,7 @@ def phase_build():
         raise RuntimeError(f"ptxas reported no kernel for {missing}:\n{lib.log}")
     sass = _sass_instructions(lib.path)
     return {**phase_build_dense(ptxas), **phase_build_bd(ptxas, sass),
-            **phase_build_hi(ptxas, sass)}
+            **phase_build_hi(ptxas, sass), **phase_build_ll(ptxas, sass)}
 
 
 def _sass_instructions(path):
@@ -476,6 +494,35 @@ def phase_build_hi(ptxas, sass):
     return main
 
 
+def phase_build_ll(ptxas, sass):
+    """K1's, K3's and K7's ptxas counts and machine instructions beside the
+    launch geometry their C launch functions report, for nu = 2, 3, 4 (K7:
+    both strategies); fails if that geometry is not ``kernels.ll_geometry``'s
+    (K7: ``kernels.everystep_geometry``'s) or if no block fits on an SM (a
+    thread per lane at up to 255 registers: their spills are reported, not
+    gated).
+    Returns the geometry of K1 and K3 at nu = 4 (the rows of phases 5
+    and 8)."""
+    from odecheckpts_torch import kernels
+
+    main, bad = {}, []
+    forms = [(name, nu, nu, kernels.step_ll_geometry(name, nu), kernels.ll_geometry(nu))
+             for name in ("step_ll_interval", "step_ll_attempt") for nu in (2, 3, 4)]
+    forms += [("step_everystep_attempt", nu, f"{nu}/{strategy}",
+               kernels.step_everystep_geometry(nu, strategy), kernels.everystep_geometry(nu))
+              for strategy in ("smoother", "filter") for nu in (2, 3, 4)]
+    for name, nu, key, geometry, want in forms:
+        info = {**ptxas[name][key], **geometry, "sass_instructions": sass.get(name, {}).get(key)}
+        emit({"phase": "build_ll", "kernel": KERNELS[name][0], "form": name, "entry": key, **info})
+        if any(geometry[k] != v for k, v in want.items()) or geometry["blocks_per_sm"] < 1:
+            bad.append((name, key, info, want))
+        if nu == 4 and name != "step_everystep_attempt":
+            main[name] = geometry
+    if bad:
+        raise AssertionError(f"K1's, K3's or K7's geometry is off: {bad}")
+    return main
+
+
 def _ensemble(batch, torch, device):
     rng = np.random.default_rng(SEED)
     u0 = np.array([1.0, 0.0, 0.9])
@@ -507,7 +554,8 @@ def _deviations(names, got, want, torch, pairs=()):
 
 def phase_attempt(device):
     """One attempt of K1 (max_attempts=1) and of K3 against one step of the
-    twin; returns the largest deviation of each."""
+    twin: every array equal, and two launches on one input equal to each
+    other; returns the largest deviation of each (0.0)."""
     import torch
 
     from odecheckpts_torch import batched, kernels, problems
@@ -528,20 +576,26 @@ def phase_attempt(device):
             mid = kernels.attempt_plain(step, mid, t_next, **inputs)
         for label, start in (("init", state), ("mid", mid)):
             want = kernels.attempt_plain(step, start, t_next, **inputs)
-            for name, got in (
-                ("step_ll_interval", kernels.step_ll_interval(step, start, t_next, max_attempts=1,
-                                                              **inputs)),
-                ("step_ll_attempt", kernels.step_ll_attempt(step, start, t_next, **inputs)),
+            for name, run in (
+                ("step_ll_interval", lambda s=start: kernels.step_ll_interval(
+                    step, s, t_next, max_attempts=1, **inputs)),
+                ("step_ll_attempt", lambda s=start: kernels.step_ll_attempt(
+                    step, s, t_next, **inputs)),
             ):
+                got, again = run(), run()
                 torch.cuda.synchronize()
-                devs, bad, w = _deviations(STATE_NAMES, got, want, torch)
+                devs, _, w = _deviations(STATE_NAMES, got, want, torch)
                 worst[name] = max(worst[name], w)
+                unequal = [n for n, g, x in zip(STATE_NAMES, got, want)
+                           if not _same_bits(g, x, torch)]
+                repeat = all(_same_bits(a, b, torch) for a, b in zip(got, again))
                 emit({"phase": "attempt", "kernel": KERNELS[name][0], "nu": nu, "state": label,
-                      "max_abs_and_rel_dev": devs})
-                if bad:
+                      "max_abs_and_rel_dev": devs, "arrays_unequal": unequal,
+                      "launches_equal": repeat})
+                if unequal or not repeat:
                     raise AssertionError(
-                        f"{KERNELS[name][0]} and its twin disagree beyond rel "
-                        f"{ATTEMPT_RTOL_TOL} at nu={nu} ({label}) in {bad}"
+                        f"{KERNELS[name][0]} and its twin disagree at nu={nu} ({label}) in "
+                        f"{unequal}, or two launches differ ({not repeat})"
                     )
     return worst
 
@@ -748,6 +802,60 @@ def _time_pair(fns):
     return times
 
 
+def _device_time(name, fn, n=DEVICE_LAUNCHES, profile=False):
+    """The kernel's own time per launch, apart from its wrapper's host time.
+
+    A long ``torch.cuda._sleep`` keeps the stream busy while the host
+    enqueues the start event, ``n`` calls of ``fn`` (the wrapper, the same
+    inputs each time) and the end event, so the events see the launches back
+    to back: ``device_ms`` is their time over ``n``.  ``host_ms`` is the host
+    clock around the ``n`` calls, over ``n``: what the wrapper costs before
+    its launch is enqueued.  ``overlapped``: the sleep outlasted the
+    enqueue (else it is doubled and the run repeated, twice at most).  With
+    ``profile``, ``profiler_ms`` is torch.profiler's device time of the
+    kernels whose name holds ``name`` over ``n`` (None where it shows
+    none)."""
+    import torch
+
+    from odecheckpts_torch import kernels
+
+    counts = dict(kernels.LAUNCHES)  # these launches are measurement, not a path's
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    cycles = SLEEP_CYCLES
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host = time.perf_counter() - t0
+        end.record()
+        overlapped = not start.query()
+        torch.cuda.synchronize()
+        if overlapped:
+            break
+        cycles *= 2
+    out = {"device_ms": start.elapsed_time(end) / n, "host_ms": host * 1e3 / n,
+           "overlapped": overlapped, "launches_timed": n}
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof
+
+        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for evt in pr.key_averages():
+            if name in evt.key:
+                us += float(getattr(evt, "device_time_total", 0.0)
+                            or getattr(evt, "cuda_time_total", 0.0))
+        out["profiler_ms"] = us / 1e3 / n if us > 0 else None
+    kernels.LAUNCHES.update(counts)
+    return out
+
+
 def phase_twin(device, truth, u0s, kernel_out):
     import torch
 
@@ -792,15 +900,20 @@ def phase_twin(device, truth, u0s, kernel_out):
                         ("kernel", run(kernels.step_ll_interval)),
                         ("kernel2", run(kernels.step_ll_interval)),
                         ("plain2", run(kernels.step_ll_interval_plain))))
-    k_nsteps, p_nsteps = times["kernel"][1][15], times["plain"][1][15]
+    k_out, p_out = times["kernel"][1], times["plain"][1]
     interval = {"kernel_ms": [times["kernel"][0], times["kernel2"][0]],
                 "plain_ms": [times["plain"][0], times["plain2"][0]],
-                "lanes_with_other_step_counts": int(torch.sum(k_nsteps != p_nsteps))}
+                "lanes_with_other_step_counts": int(torch.sum(k_out[15] != p_out[15])),
+                "arrays_equal": all(_same_bits(a, b, torch) for a, b in zip(k_out, p_out)),
+                "kernel_runs_equal": _runs_equal(times, k_out, torch)}
     emit({"phase": "interval", "kernel": "K1", "rtol": rtol, "nu": nu, "batch": BATCH,
           **interval})
-    if interval["lanes_with_other_step_counts"]:
-        raise AssertionError("K1 and its plain version differ in step counts over an interval")
-    return _timing("step_ll_interval", times, state, 15, nu=nu, d=3)
+    if (interval["lanes_with_other_step_counts"] or not interval["arrays_equal"]
+            or not interval["kernel_runs_equal"]):
+        raise AssertionError("K1 and its plain version differ over an interval, or two kernel "
+                             "runs differ")
+    return _timing("step_ll_interval", times, state, 15, nu=nu, d=3,
+                   run=run(kernels.step_ll_interval))
 
 
 def _hi_solver(nu, kappa, engine):
@@ -887,7 +1000,8 @@ def phase_twin_hi(device, truth, u0s, kernel_out):
             or not interval["kernel_runs_equal"]):
         raise AssertionError("K2 and its plain version differ over an interval, or two kernel "
                              "runs differ")
-    timing = _timing("step_hi_interval", times, state, 11, nu=nu, d=3)
+    timing = _timing("step_hi_interval", times, state, 11, nu=nu, d=3,
+                     run=run(kernels.step_hi_interval))
 
     # the first interval of the rtol 1e-9 tuned row (nu = 5) on K2 alone: its
     # plain version would take tens of seconds there
@@ -977,33 +1091,31 @@ def phase_attempt_engines(device, truth, u0s, loop_ll, loop_hi):
         ))
         dev = max(float(torch.max(torch.abs(a - b)))
                   for a, b in zip(times["kernel"][1], times["plain"][1]))
-        one[name] = _timing(name, times, s, nsteps_at, nu=nu, d=3)
-        extra = {}
-        if name == "step_hi_attempt":
-            extra = {"arrays_equal": all(_same_bits(a, b, torch)
-                                         for a, b in zip(times["kernel"][1], times["plain"][1])),
-                     "kernel_runs_equal": _runs_equal(times, times["kernel"][1], torch)}
+        one[name] = _timing(name, times, s, nsteps_at, nu=nu, d=3,
+                            run=lambda: kernel(st, s, t_next, **inp))
+        extra = {"arrays_equal": all(_same_bits(a, b, torch)
+                                     for a, b in zip(times["kernel"][1], times["plain"][1])),
+                 "kernel_runs_equal": _runs_equal(times, times["kernel"][1], torch)}
         emit({"phase": "one_launch", "kernel": KERNELS[name][0], "batch": BATCH,
               "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
-              "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev, **extra})
-        if extra and not all(extra.values()):
-            raise AssertionError(f"one launch of K4 differs from its plain version, or two "
-                                 f"launches differ: {extra}")
+              "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev,
+              "device_ms": one[name]["ms"], "host_ms": one[name]["host_ms"], **extra})
+        if not all(extra.values()):
+            raise AssertionError(f"one launch of {KERNELS[name][0]} differs from its plain "
+                                 f"version, or two launches differ: {extra}")
 
-    # K2 from K4's state at HI_CAPS attempts: a fixed cost per launch and a
-    # cost per attempt
-    caps = {}
-    for cap in HI_CAPS:
-        def interval(cap=cap):
-            return kernels.step_hi_interval(step_hi, state_hi, t_next, **inputs_hi,
-                                            max_attempts=cap)
-
-        pair = _time_pair((("a", interval), ("b", interval)))
-        caps[cap] = min(pair["a"][0], pair["b"][0])
-    per_attempt = (caps[HI_CAPS[-1]] - caps[HI_CAPS[0]]) / (HI_CAPS[-1] - HI_CAPS[0])
-    emit({"phase": "launch_cost_hi", "kernel": "K2", "batch": BATCH, "nu": nu_hi,
-          "interval_ms_by_cap": caps, "per_attempt_ms": per_attempt,
-          "fixed_ms": caps[HI_CAPS[0]] - HI_CAPS[0] * per_attempt})
+    # K1 from K3's state and K2 from K4's at LL_CAPS / HI_CAPS attempts, device
+    # time: a fixed cost per launch and a cost per attempt
+    for phase, kernel, caps_at, st, s, inp in (
+            ("launch_cost_ll", "step_ll_interval", LL_CAPS, step, state, inputs),
+            ("launch_cost_hi", "step_hi_interval", HI_CAPS, step_hi, state_hi, inputs_hi)):
+        caps = {cap: _device_time(kernel, lambda cap=cap, st=st, s=s, inp=inp: getattr(
+                    kernels, kernel)(st, s, t_next, **inp, max_attempts=cap))["device_ms"]
+                for cap in caps_at}
+        per_attempt = (caps[caps_at[-1]] - caps[caps_at[0]]) / (caps_at[-1] - caps_at[0])
+        emit({"phase": phase, "kernel": KERNELS[kernel][0], "batch": BATCH,
+              "nu": st.nu, "interval_ms_by_cap": caps, "per_attempt_ms": per_attempt,
+              "fixed_ms": caps[caps_at[0]] - caps_at[0] * per_attempt})
     return counts, one
 
 
@@ -1063,8 +1175,10 @@ def _attempt_flops(kernel, nu, d):
             + 4 * nd**3 + 4 * nd * nd + 2 * d * d * nd)
 
 
-def _timing(kernel, times, state, nsteps_index, *, nu, d):
-    """The faster of the two kernel and the two plain times of ``times``
+def _timing(kernel, times, state, nsteps_index, *, nu, d, run):
+    """The kernel's device time per launch (``_device_time`` of ``run``, the
+    kernel's wrapper on the timed inputs), its wrapper's host time, the
+    faster of the two kernel and the two plain event times of ``times``
     (from ``_time_pair``), the accepted attempts of the kernel's run, and
     the bytes and operations of its bound."""
     import torch
@@ -1073,10 +1187,20 @@ def _timing(kernel, times, state, nsteps_index, *, nu, d):
     accepted = float(torch.sum(out[nsteps_index] - state[nsteps_index]))
     lanes = state[0].shape[-1]
     nbytes = 2 * sum(x.numel() * x.element_size() for x in state) + 6 * lanes * 4
-    return {"ms": min(times["kernel"][0], times["kernel2"][0]),
-            "plain_ms": min(times["plain"][0], times["plain2"][0]),
-            "accepted": accepted, "bytes": nbytes,
-            "flops": accepted * _attempt_flops(kernel, nu, d)}
+    return _with_device_time(kernel, run, {
+        "event_ms": min(times["kernel"][0], times["kernel2"][0]),
+        "plain_ms": min(times["plain"][0], times["plain2"][0]),
+        "accepted": accepted, "bytes": nbytes, "flops": accepted * _attempt_flops(kernel, nu, d)})
+
+
+def _with_device_time(kernel, run, info):
+    """``info`` with the kernel's device time as its ``ms``, and one line of
+    the device and host times."""
+    dev = _device_time(SYMBOLS.get(kernel, kernel), run, profile=True)
+    emit({"phase": "device_time", "kernel": KERNELS[kernel][0], "form": kernel,
+          "event_ms": info.get("event_ms"), **dev})
+    return {**info, "ms": dev["device_ms"], "host_ms": dev["host_ms"],
+            "profiler_ms": dev.get("profiler_ms")}
 
 
 def _bound(info):
@@ -1384,7 +1508,8 @@ def phase_interval_dense(device, loop):
     if other or not equal or not repeat:
         raise AssertionError(f"K5 and its plain version differ over an interval ({other} lanes), "
                              f"or two kernel runs differ ({not repeat})")
-    return _timing("step_dense_interval", times, state, 15, nu=4, d=4)
+    return _timing("step_dense_interval", times, state, 15, nu=4, d=4,
+                   run=run(kernels.step_dense_interval))
 
 
 def phase_attempt_engine_dense(device, loop):
@@ -1428,7 +1553,8 @@ def phase_attempt_engine_dense(device, loop):
         raise AssertionError(
             f"one launch of K5's attempt form differs from its plain version by {dev}, or two "
             f"launches differ ({not repeat})")
-    return counts, _timing("step_dense_attempt", times, state, 15, nu=4, d=4)
+    return counts, _timing("step_dense_attempt", times, state, 15, nu=4, d=4,
+                           run=lambda: kernels.step_dense_attempt(step, state, t_next, **inputs))
 
 
 def _bd_problem(name):
@@ -1657,7 +1783,8 @@ def phase_interval_bd(device, loop):
     if other or not equal or not repeat:
         raise AssertionError(f"K6 and its plain version differ over an interval ({other} lanes), "
                              f"or two kernel runs differ ({not repeat})")
-    return _timing("step_bd_interval", times, state, 15, nu=4, d=3)
+    return _timing("step_bd_interval", times, state, 15, nu=4, d=3,
+                   run=run(kernels.step_bd_interval))
 
 
 def _runs_equal(times, k_out, torch):
@@ -1708,18 +1835,13 @@ def phase_attempt_engine_bd(device, loop):
         raise AssertionError(
             f"one launch of K6's attempt form differs from its plain version by {dev}, or two "
             f"launches differ ({not repeat})")
-    caps = {}
-    for cap in BD_CAPS:
-        def interval(cap=cap):
-            return kernels.step_bd_interval(step, state, t_next, **inputs, max_attempts=cap)
-
-        pair = _time_pair((("a", interval), ("b", interval)))
-        caps[cap] = min(pair["a"][0], pair["b"][0])
+    caps = {cap: _device_time("step_bd_interval", lambda cap=cap: kernels.step_bd_interval(
+                step, state, t_next, **inputs, max_attempts=cap))["device_ms"] for cap in BD_CAPS}
     per_attempt = (caps[BD_CAPS[-1]] - caps[BD_CAPS[0]]) / (BD_CAPS[-1] - BD_CAPS[0])
     emit({"phase": "launch_cost_bd", "kernel": "K6", "batch": BATCH,
           "interval_ms_by_cap": caps, "per_attempt_ms": per_attempt,
           "fixed_ms": caps[BD_CAPS[0]] - BD_CAPS[0] * per_attempt})
-    return counts, _timing("step_bd_attempt", times, state, 15, nu=4, d=3)
+    return counts, _timing("step_bd_attempt", times, state, 15, nu=4, d=3, run=kernel)
 
 
 def phase_attempt_everystep(device):
@@ -1905,7 +2027,8 @@ def phase_launch_everystep(device, row):
           "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev})
     if dev != 0.0:
         raise AssertionError(f"one launch of K7 differs from its plain version by {dev}")
-    return _timing("step_everystep_attempt", times, state, 15, nu=4, d=3)
+    return _timing("step_everystep_attempt", times, state, 15, nu=4, d=3,
+                   run=lambda: kernels.step_everystep_attempt(step, state, t1, **inputs))
 
 
 def _combine_flops(m, c):
@@ -2137,10 +2260,11 @@ def phase_main_pit(device):
         raise AssertionError(f"fixed-grid rows failed their gates: {failed}")
 
 
-def _event_timing(times, nbytes, flops):
-    return {"ms": min(times["kernel"][0], times["kernel2"][0]),
-            "plain_ms": min(times["plain"][0], times["plain2"][0]), "bytes": nbytes,
-            "flops": flops}
+def _event_timing(times, nbytes, flops, kernel, run):
+    return _with_device_time(kernel, run, {
+        "event_ms": min(times["kernel"][0], times["kernel2"][0]),
+        "plain_ms": min(times["plain"][0], times["plain2"][0]), "bytes": nbytes,
+        "flops": flops})
 
 
 def phase_launch_pit(device, captured):
@@ -2159,7 +2283,8 @@ def phase_launch_pit(device, captured):
     ))
     dev = _max_dev(times["kernel"][1], times["plain"][1], torch)
     nbytes = 3 * sum(x.numel() * x.element_size() for x in e_i)  # 10 in, 5 out
-    info = _event_timing(times, nbytes, pairs * _combine_flops(m, c))
+    info = _event_timing(times, nbytes, pairs * _combine_flops(m, c), "pit_combine",
+                         lambda: kernels.pit_combine(e_i, e_j))
     emit({"phase": "one_launch", "kernel": "K8", "form": "pit_combine", "m": m, "c": c,
           "pairs": pairs, "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
           "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev,
@@ -2213,8 +2338,9 @@ def phase_batched_qr(device):
         ("plain2", lambda: kernels.batched_qr_r_plain(x)),
     ))
     lib_dev = float(torch.max(torch.abs(times["library"][1] - times["kernel"][1])))
-    info = _event_timing(times, batch * (m * n + min(m, n) * n) * 4, batch * _qr_flops(m, n, n))
-    info["library_ms"] = min(times["library"][0], times["library2"][0])
+    info = _event_timing(times, batch * (m * n + min(m, n) * n) * 4, batch * _qr_flops(m, n, n),
+                         "batched_qr_r", lambda: kernels.batched_qr_r(x))
+    info["library_ms"] = _device_time("qr", lambda: _library_qr_r(x, torch))["device_ms"]
     emit({"phase": "one_launch", "kernel": "K9", "form": "batched_qr_r", "shape": [batch, m, n],
           "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
           "plain_ms": [times["plain"][0], times["plain2"][0]],
@@ -2280,10 +2406,11 @@ def phase_qr_packing(device):
                 ("masked", lambda: kernels.qr_packing_masked_plain(x, PACKING_ITERS))))
             nbytes = 2 * x.numel() * 4
             flops = batch * PACKING_ITERS * _qr_flops(10, 10, 10)
-            timing["qr_packing_cols"] = {"ms": ms_c, "plain_ms": plain["cols"][0],
-                                         "bytes": nbytes, "flops": flops}
-            timing["qr_packing_masked"] = {"ms": ms_m, "plain_ms": plain["masked"][0],
-                                           "bytes": nbytes, "flops": flops}
+            for variant, run, ms in (("cols", run_c, ms_c), ("masked", run_m, ms_m)):
+                name = f"qr_packing_{variant}"
+                timing[name] = _with_device_time(name, lambda run=run: run(x), {
+                    "event_ms": ms, "plain_ms": plain[variant][0], "bytes": nbytes,
+                    "flops": flops})
     return worst, timing
 
 
@@ -2358,7 +2485,8 @@ def main():
                      "launches": launches[name], "max_abs_err": worst[name],
                      "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": timing[name].get("library_ms")})
+                     "library_ms": timing[name].get("library_ms"),
+                     "host_ms": timing[name]["host_ms"], "event_ms": timing[name]["event_ms"]})
         if name in STANDALONE:
             rows[-1]["note"] = "no solve path launches it: the launches of its phase"
         if name in geometry:

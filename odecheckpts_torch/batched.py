@@ -31,7 +31,7 @@ import math
 import numpy as np
 import torch
 
-from . import ivpsolvers, kernels, prior, stats, taylor
+from . import ivpsolvers, kernels, prior, rounded, stats, taylor
 from .ivpsolve import Control, _expand, _interpolate_at, _State
 from .ssm.base import Conditional, MarkovSeq, Normal
 
@@ -77,7 +77,7 @@ def _qr_r_cols(cols, m, n_reflect, eps):
         is_j = (rows == j).to(cols.dtype)
         colm = col * below
         norm2 = _rowsum(colm * colm)
-        norm = torch.sqrt(norm2 + eps)
+        norm = rounded.sqrt(norm2 + eps)
         head = _rowsum(colm * is_j)
         one = torch.ones_like(head)
         sign = torch.where(head >= 0, one, -one)
@@ -203,7 +203,7 @@ class _StepConstants:
         pows[self.nu] = torch.ones_like(dt)
         for i in reversed(range(self.nu)):
             pows[i] = pows[i + 1] * dt
-        sq = torch.sqrt(dt)
+        sq = rounded.sqrt(dt)
         return [sq * pows[i] * self.inv_fact[i] for i in range(n)]
 
 
@@ -292,11 +292,11 @@ class StepLL(_StepConstants):
             zz = zz + z[i : i + 1] * z[i : i + 1]
             q = atol + rtol * torch.abs(u_pred[i : i + 1])
             tol_acc = tol_acc + torch.reciprocal(q * q)
-        sigma = torch.sqrt(zz) / (s_unit * self.sqrt_d)
+        sigma = rounded.sqrt(zz) / (s_unit * self.sqrt_d)
         err_u = sigma * (p[0] * self.lq_norms[0])
         # divide by a tensor: torch turns division by a Python scalar into a
         # multiplication by its reciprocal, which rounds differently
-        errn = self.kappa * err_u * torch.sqrt(tol_acc / torch.full_like(tol_acc, d))
+        errn = self.kappa * err_u * rounded.sqrt(tol_acc / torch.full_like(tol_acc, d))
 
         # finite ceiling: an overflowed attempt must give a large-but-finite scale
         sigma_safe = torch.where(
@@ -387,9 +387,9 @@ class StepLL(_StepConstants):
 
         # -- PI control
         errn_s = torch.clamp(errn, min=self.tiny)
-        factor = self.safety * torch.exp(
-            self.neg_n1 * torch.log(errn_s)
-            + self.n2 * (torch.log(errn_prev) - torch.log(errn_s))
+        factor = self.safety * rounded.exp(
+            self.neg_n1 * rounded.log(errn_s)
+            + self.n2 * (rounded.log(errn_prev) - rounded.log(errn_s))
         )
         factor = torch.where(
             torch.isfinite(factor), factor, torch.full_like(factor, self.factor_min)

@@ -45,7 +45,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from . import batched, ivpsolvers, kernels
+from . import batched, ivpsolvers, kernels, rounded
 from .ivpsolve import _interpolate_at, _tree_select
 from .ssm.base import Conditional, Normal
 
@@ -193,7 +193,7 @@ def solve_every_step_batched(
     valid_all = torch.cat([torch.ones((1, b), dtype=torch.bool, device=device), valid])
 
     def qoi_std_ll(chol):  # (n, n, B) -> (d, B), as ssm.qoi_std
-        return torch.sqrt(torch.sum(chol[0] ** 2, dim=0))[None].expand(d, b)
+        return rounded.sqrt(torch.sum(chol[0] ** 2, dim=0))[None].expand(d, b)
 
     u_all = torch.stack([ssm.qoi(rv0.mean).transpose(0, 1)] + [m[0] for m in means])
     u_std_all = torch.stack([ssm.qoi_std(rv0).transpose(0, 1)] + [qoi_std_ll(c) for c in chols])

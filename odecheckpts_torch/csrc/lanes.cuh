@@ -134,6 +134,30 @@ __device__ __forceinline__ void tri_solve_upper(const float (&cols)[M][M], float
   }
 }
 
+// The geometry entries' report of a kernel that runs a thread per lane in
+// blocks of THREADS with `smem` bytes of dynamic shared memory (K1-K4, K7):
+// out = threads per lane, lanes per block, threads per block, shared-memory
+// bytes per block, resident blocks per SM (occupancy API), registers per
+// thread, local bytes per thread.
+template <class Kernel>
+int lane_report(Kernel kernel, int* out, int smem = 0) {
+  cudaFuncAttributes attr;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem);
+  out[0] = 1;
+  out[1] = THREADS;
+  out[2] = THREADS;
+  out[3] = static_cast<int>(attr.sharedSizeBytes) + smem;
+  out[4] = blocks;
+  out[5] = attr.numRegs;
+  out[6] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(err);
+}
+
 // Launch grid of one lane per thread.
 inline dim3 lanes_grid(long long batch) {
   return dim3(static_cast<unsigned>((batch + THREADS - 1) / THREADS));

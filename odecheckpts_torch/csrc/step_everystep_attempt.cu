@@ -62,6 +62,16 @@ int launch(int nu, int strategy, const void* in_ptrs, const void* out_ptrs, cons
   return static_cast<int>(cudaErrorInvalidValue);  // fixedpoint is K3's
 }
 
+template <int STRATEGY>
+int report(int nu, int* out) {
+  switch (nu) {
+    case 2: return lane_report(step_everystep_attempt<2, STRATEGY, RigidBody>, out);
+    case 3: return lane_report(step_everystep_attempt<3, STRATEGY, RigidBody>, out);
+    case 4: return lane_report(step_everystep_attempt<4, STRATEGY, RigidBody>, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // C interface: as odeckpt_step_ll_attempt_rigid_body, with the strategy code
@@ -74,4 +84,12 @@ extern "C" int odeckpt_step_everystep_attempt_rigid_body(int nu, int strategy,
                                                          int device, void* stream) {
   return launch(nu, strategy, in_ptrs, out_ptrs, consts, batch, RigidBody{p1, p2, p3}, device,
                 stream);
+}
+
+// The launch geometry for nu and the strategy code on the current device, as
+// odeckpt_step_hi_interval_geometry reports it.
+extern "C" int odeckpt_step_everystep_attempt_geometry(int nu, int strategy, int* out) {
+  if (strategy == SMOOTHER) return report<SMOOTHER>(nu, out);
+  if (strategy == FILTER) return report<FILTER>(nu, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

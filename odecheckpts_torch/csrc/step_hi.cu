@@ -59,8 +59,8 @@ int launch(int nu, const void* in_ptrs, const void* out_ptrs, const void* consts
 template <class VF>
 int report(int nu, int* out) {
   switch (nu) {
-    case 4: return hi_report(step_hi_interval<4, VF>, out);
-    case 5: return hi_report(step_hi_interval<5, VF>, out);
+    case 4: return lane_report(step_hi_interval<4, VF>, out);
+    case 5: return lane_report(step_hi_interval<5, VF>, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -401,27 +401,6 @@ __device__ __forceinline__ void store_lane_hi(const LaneHi<N, D>& s, const ArgsH
   args.out[11][b] = s.nsteps;
 }
 
-// The geometry entries' report of `kernel` (see
-// odeckpt_step_hi_interval_geometry): out = threads per lane, lanes per
-// block, threads per block, shared-memory bytes per block, resident blocks
-// per SM (occupancy API), registers per thread, local bytes per thread.
-template <class Kernel>
-int hi_report(Kernel kernel, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, 0);
-  out[0] = 1;
-  out[1] = THREADS;
-  out[2] = THREADS;
-  out[3] = static_cast<int>(attr.sharedSizeBytes);
-  out[4] = blocks;
-  out[5] = attr.numRegs;
-  out[6] = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(err);
-}
-
 inline void unpack_hi(ArgsHi& args, ConstsHi& c, const void* in_ptrs, const void* out_ptrs,
                       const void* consts) {
   std::memcpy(args.in, in_ptrs, sizeof(args.in));

@@ -1,6 +1,6 @@
 // K1: one whole checkpoint interval of the isotropic TS0 fixedpoint solver,
-// one IVP lane per thread.  The step body and the notes on what bounds it
-// and why it matches its twin bit for bit are in step_ll.cuh.
+// one IVP lane per thread (the lane's previous arrays in shared memory).  The step body (run_lane) and the notes on what bounds it and why
+// it matches its twin bit for bit are in step_ll.cuh.
 //
 // Replaces odecheckpts_tpu/batched.py:_pallas_interval(make_step_ll), the
 // Pallas kernel of the f32 work-precision path.  The plain PyTorch twin is
@@ -26,12 +26,18 @@ namespace {
 template <int NU, class VF>
 __global__ void __launch_bounds__(THREADS)
     step_ll_interval(Args args, Consts c, VF vf, int64_t B, int max_attempts) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (b >= B) return;  // the ragged edge of the last block
-  Lane<NU + 1, VF::D> s;
-  const LaneInputs in = load_lane(s, args, b, B);
-  for (int k = 0; k < max_attempts && s.t < in.t_next; ++k) attempt<NU, VF>(s, c, vf, in);
-  store_lane(s, args, b, B);
+  run_lane<NU, VF, true>(args, c, vf, B, max_attempts);
+}
+
+template <int NU, class VF>
+cudaError_t launch_nu(cudaStream_t st, const Args& args, const Consts& c, VF vf, int64_t B,
+                      int max_attempts) {
+  constexpr int smem = prev_smem_bytes<NU, VF::D>();
+  cudaError_t err = cudaFuncSetAttribute(step_ll_interval<NU, VF>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  step_ll_interval<NU, VF><<<lanes_grid(B), THREADS, smem, st>>>(args, c, vf, B, max_attempts);
+  return cudaGetLastError();
 }
 
 template <class VF>
@@ -42,16 +48,24 @@ int launch(int nu, const void* in_ptrs, const void* out_ptrs, const void* consts
   unpack(args, c, in_ptrs, out_ptrs, consts);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid = lanes_grid(batch), block(THREADS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t B = batch;
   switch (nu) {
-    case 2: step_ll_interval<2, VF><<<grid, block, 0, st>>>(args, c, vf, B, max_attempts); break;
-    case 3: step_ll_interval<3, VF><<<grid, block, 0, st>>>(args, c, vf, B, max_attempts); break;
-    case 4: step_ll_interval<4, VF><<<grid, block, 0, st>>>(args, c, vf, B, max_attempts); break;
+    case 2: err = launch_nu<2>(st, args, c, vf, batch, max_attempts); break;
+    case 3: err = launch_nu<3>(st, args, c, vf, batch, max_attempts); break;
+    case 4: err = launch_nu<4>(st, args, c, vf, batch, max_attempts); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+template <class VF>
+int report(int nu, int* out) {
+  switch (nu) {
+    case 2: return lane_report(step_ll_interval<2, VF>, out, prev_smem_bytes<2, VF::D>());
+    case 3: return lane_report(step_ll_interval<3, VF>, out, prev_smem_bytes<3, VF::D>());
+    case 4: return lane_report(step_ll_interval<4, VF>, out, prev_smem_bytes<4, VF::D>());
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -76,6 +90,14 @@ extern "C" int odeckpt_step_ll_interval_rigid_body_anisotropic(
     int max_attempts, float p1, float p2, float p3, float p4, int device, void* stream) {
   return launch(nu, in_ptrs, out_ptrs, consts, batch, max_attempts,
                 RigidBodyAniso{p1, p2, p3, p4}, device, stream);
+}
+
+// The launch geometry of this form for nu on the current device (the rigid
+// body's entry): out = threads per lane, lanes per block, threads per block,
+// shared-memory bytes per block, resident blocks per SM (occupancy API),
+// registers per thread, local (stack) bytes per thread.
+extern "C" int odeckpt_step_ll_interval_geometry(int nu, int* out) {
+  return report<RigidBody>(nu, out);
 }
 
 extern "C" const char* odeckpt_error_string(int code) {

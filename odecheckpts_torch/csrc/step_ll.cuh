@@ -16,10 +16,16 @@
 // temporaries.  An attempt is a few thousand dependent scalar operations;
 // in K1 the lane reads its state once, loops over attempts in registers and
 // local memory, and writes the state once: rejected attempts never touch
-// device memory.  This first version accepts register spills (ptxas -v
-// counts are recorded in PERF.md); blocks of 128 threads keep enough warps
-// in flight.
-//
+// device memory.  32,768 lanes are one wave of 1,024 warps, under two a
+// scheduler, so each lane's chain runs at its own latency, and what costs
+// is whatever lengthens it.  K1 and K3 (run_lane) therefore keep the
+// current arrays in registers and move the five previous arrays (written
+// once per accepted attempt, read once per launch) to shared memory: at
+// nu = 4, where 255 registers do not hold a lane, the spills fall from
+// 1,060 to 246 bytes a thread; at nu = 2 the registers from 196 to 153.
+// K7 keeps every array in registers.  Designs that put the current state in shared memory,
+// or a team of two threads on a lane, were slower (PERF.md).
+
 // Layout: every array is lanes-last in device memory, so thread b reads
 // x[i * B + b] and neighbouring threads load neighbouring addresses.
 //
@@ -113,6 +119,40 @@ struct Lane {
   float mean[N][D], chol[N][N], bwdG[N][N], bwd_m[N][D], bwd_L[N][N];
   float mean_prev[N][D], chol_prev[N][N], bwdG_prev[N][N], bwd_m_prev[N][D],
       bwd_L_prev[N][N];
+  // before an accepted attempt replaces the current arrays
+  __device__ __forceinline__ void keep_previous() {
+    copy_to(mean_prev, mean);
+    copy_to(chol_prev, chol);
+    copy_to(bwdG_prev, bwdG);
+    copy_to(bwd_m_prev, bwd_m);
+    copy_to(bwd_L_prev, bwd_L);
+  }
+};
+
+// The lane's previous arrays in shared memory: element e of the five at
+// prev[e * THREADS], in the order mean, chol, bwdG, bwd_m, bwd_L (K1 and K3:
+// out of the registers, where the first design spilled at nu >= 3).
+template <int N, int D>
+struct LanePrevShared {
+  float t, scale, t_prev, dt, errn_prev, nsteps, mle;
+  float mean[N][D], chol[N][N], bwdG[N][N], bwd_m[N][D], bwd_L[N][N];
+  float* prev;
+  bool moved;
+  template <int R, int C>
+  __device__ __forceinline__ void put(int at, const float (&x)[R][C]) const {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int k = 0; k < C; ++k) prev[(at + i * C + k) * THREADS] = x[i][k];
+  }
+  __device__ __forceinline__ void keep_previous() {
+    put(0, mean);
+    put(N * D, chol);
+    put(N * D + N * N, bwdG);
+    put(N * D + 2 * N * N, bwd_m);
+    put(2 * N * D + 2 * N * N, bwd_L);
+    moved = true;
+  }
 };
 
 // The per-lane kernel inputs besides the state.
@@ -129,9 +169,10 @@ constexpr int FIXEDPOINT = 0;
 constexpr int SMOOTHER = 1;
 constexpr int FILTER = 2;
 
-// One accept/reject attempt (make_step_ll's `step`), updating s in place.
-template <int NU, class VF, int STRATEGY = FIXEDPOINT>
-__device__ __forceinline__ void attempt(Lane<NU + 1, VF::D>& s, const Consts& c, const VF& vf,
+// One accept/reject attempt (make_step_ll's `step`), updating s in place
+// (a Lane, or a LanePrevShared).
+template <int NU, class VF, int STRATEGY = FIXEDPOINT, class S>
+__device__ __forceinline__ void attempt(S& s, const Consts& c, const VF& vf,
                                         const LaneInputs& in) {
   const float t_next = in.t_next, atol = in.atol, rtol = in.rtol, dt_max = in.dt_max,
               dt_floor = in.dt_floor, tiny_scale = in.tiny_scale;
@@ -353,11 +394,7 @@ __device__ __forceinline__ void attempt(Lane<NU + 1, VF::D>& s, const Consts& c,
   if (!frozen) s.dt = dt_next;
   if (accept) {
     s.t_prev = s.t;
-    copy_to(s.mean_prev, s.mean);
-    copy_to(s.chol_prev, s.chol);
-    copy_to(s.bwdG_prev, s.bwdG);
-    copy_to(s.bwd_m_prev, s.bwd_m);
-    copy_to(s.bwd_L_prev, s.bwd_L);
+    s.keep_previous();
     s.t = t_new;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -429,6 +466,91 @@ __device__ __forceinline__ void store_lane(const Lane<N, D>& s, const Args& args
   args.out[14][b] = s.errn_prev;
   args.out[15][b] = s.nsteps;
   args.out[16][b] = s.mle;
+}
+
+// The current arrays and scalars of a LanePrevShared in and out; the
+// previous arrays go out from shared memory after an accepted attempt, else
+// straight from the input.
+template <int N, int D>
+__device__ __forceinline__ LaneInputs load_current(LanePrevShared<N, D>& s, const Args& args,
+                                                   int64_t b, int64_t B) {
+  s.t = args.in[0][b];
+  load(s.mean, args.in[1], b, B);
+  load(s.chol, args.in[2], b, B);
+  load(s.bwdG, args.in[3], b, B);
+  load(s.bwd_m, args.in[4], b, B);
+  load(s.bwd_L, args.in[5], b, B);
+  s.scale = args.in[6][b];
+  s.t_prev = args.in[7][b];
+  s.dt = args.in[13][b];
+  s.errn_prev = args.in[14][b];
+  s.nsteps = args.in[15][b];
+  s.mle = args.in[16][b];
+  s.moved = false;
+  return LaneInputs{args.in[17][b], args.in[18][b], args.in[19][b],
+                    args.in[20][b], args.in[21][b], args.in[22][b]};
+}
+
+template <int N, int D>
+__device__ __forceinline__ void store_current(const LanePrevShared<N, D>& s, const Args& args,
+                                              int64_t b, int64_t B) {
+  args.out[0][b] = s.t;
+  store(s.mean, args.out[1], b, B);
+  store(s.chol, args.out[2], b, B);
+  store(s.bwdG, args.out[3], b, B);
+  store(s.bwd_m, args.out[4], b, B);
+  store(s.bwd_L, args.out[5], b, B);
+  args.out[6][b] = s.scale;
+  args.out[7][b] = s.t_prev;
+  args.out[13][b] = s.dt;
+  args.out[14][b] = s.errn_prev;
+  args.out[15][b] = s.nsteps;
+  args.out[16][b] = s.mle;
+  constexpr int size[5] = {N * D, N * N, N * N, N * D, N * N};
+  int at = 0;
+#pragma unroll
+  for (int r = 0; r < 5; ++r) {
+    float* dst = args.out[8 + r] + b;
+#pragma unroll 1
+    for (int e = 0; e < size[r]; ++e)
+      dst[e * B] = s.moved ? s.prev[(at + e) * THREADS] : args.in[8 + r][e * B + b];
+    at += size[r];
+  }
+}
+
+// Dynamic shared memory of K1's and K3's blocks (see run_lane): a lane's
+// five previous arrays.
+template <int NU, int D>
+constexpr int prev_smem_bytes() {
+  constexpr int N = NU + 1;
+  return static_cast<int>(sizeof(float)) * (2 * N * D + 3 * N * N) * THREADS;
+}
+
+// The attempts of one launch: while k < max_attempts and t < t_next
+// (INTERVAL), or one.
+template <int NU, class VF, bool INTERVAL, class S>
+__device__ __forceinline__ void attempts(S& s, const Consts& c, const VF& vf,
+                                         const LaneInputs& in, int max_attempts) {
+  if constexpr (INTERVAL) {
+    for (int k = 0; k < max_attempts && s.t < in.t_next; ++k) attempt<NU, VF>(s, c, vf, in);
+  } else {
+    attempt<NU, VF>(s, c, vf, in);
+  }
+}
+
+// K1's and K3's lane through an interval (INTERVAL) or one attempt, the
+// previous arrays in shared memory.
+template <int NU, class VF, bool INTERVAL>
+__device__ __forceinline__ void run_lane(const Args& args, const Consts& c, const VF& vf,
+                                         int64_t B, int max_attempts) {
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (b >= B) return;  // the ragged edge of the last block
+  extern __shared__ float ll_prev[];
+  LanePrevShared<NU + 1, VF::D> s;
+  s.prev = ll_prev + threadIdx.x;
+  const LaneInputs in = load_current(s, args, b, B);
+  attempts<NU, VF, INTERVAL>(s, c, vf, in, max_attempts);
+  store_current(s, args, b, B);
 }
 
 // Host side: the kernel arguments from the C interface's host arrays.

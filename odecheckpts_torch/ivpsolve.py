@@ -156,7 +156,7 @@ def _check_calibration(solver):
     if solver.calibration not in (ivpsolvers.NONE, ivpsolvers.DYNAMIC):
         raise NotImplementedError(
             f"calibration={solver.calibration!r}: the post-hoc MLE rescaling of the posterior "
-            "is not ported yet: ROADMAP queue 1 item 9"
+            "is not ported yet: ROADMAP queue 1 item 2"
         )
 
 
@@ -166,7 +166,7 @@ def solve_adaptive_parallel_in_time(*args, **kwargs):
     raise NotImplementedError(
         "solve_adaptive_parallel_in_time needs the adaptive single-solve loop (adaptive, "
         "_make_step, solve_adaptive_save_every_step_bounded), which is not ported yet: ROADMAP "
-        "queue 1 items 2 and 8; solve_fixed_grid(parallel=True) takes a grid that is known"
+        "queue 1 item 2; solve_fixed_grid(parallel=True) takes a grid that is known"
     )
 
 

@@ -55,7 +55,7 @@ class Correction:
 def _correction(method, ode_order, error_unit, error_calibration):
     if ode_order != 1:
         raise NotImplementedError(
-            "ode_order != 1 is not ported yet: ROADMAP queue 1 item 3a"
+            "ode_order != 1 is not ported yet: ROADMAP queue 1 item 5"
         )
     if error_unit not in ("qoi", "residual"):
         raise ValueError(f"error_unit must be 'qoi' or 'residual', got {error_unit!r}")
@@ -143,7 +143,7 @@ def solver_mle(strategy: Strategy) -> Solver:
     """Global MLE calibration, applied post hoc to the posterior: not ported."""
     raise NotImplementedError(
         "solver_mle (post-hoc rescaling of the posterior) is not ported yet: "
-        "ROADMAP queue 1 item 9"
+        "ROADMAP queue 1 item 2"
     )
 
 
@@ -151,7 +151,7 @@ def _isotropic_only(ssm, what):
     if ssm.name != "isotropic":
         raise NotImplementedError(
             f"{what} on the {ssm.name} backend (h_q_unit / h_l_rows / correct_affine, the "
-            "blockdiag single-solve methods) is not ported yet: ROADMAP queue 1 items 7 and 9"
+            "blockdiag single-solve methods) is not ported yet: ROADMAP queue 1 item 3"
         )
 
 
@@ -164,7 +164,7 @@ def linearize(strategy: Strategy, vf, m_pred, t):
     if strategy.correction.method != "ts0":
         raise NotImplementedError(
             "the TS1 linearization of a single solve (Jacobians by torch.func.jacfwd) comes "
-            "with the dense adapter: ROADMAP queue 1 item 9"
+            "with the dense adapter: ROADMAP queue 1 item 3"
         )
     args = tuple(ssm.select_deriv(m_pred, i) for i in range(o))
     z = ssm.select_deriv(m_pred, o) - vf(*args, t=t)

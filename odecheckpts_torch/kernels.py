@@ -118,6 +118,9 @@ _ENTRIES = {
     "odeckpt_step_bd_attempt_geometry": [_INT, _INT, _PTR],
     "odeckpt_step_hi_interval_geometry": [_INT, _PTR],
     "odeckpt_step_hi_attempt_geometry": [_INT, _PTR],
+    "odeckpt_step_ll_interval_geometry": [_INT, _PTR],
+    "odeckpt_step_ll_attempt_geometry": [_INT, _PTR],
+    "odeckpt_step_everystep_attempt_geometry": [_INT, _INT, _PTR],
 }
 # K7's strategy argument (the template parameter of step_ll.cuh's attempt)
 STRATEGY_CODES = {"fixedpoint": 0, "smoother": 1, "filter": 2}
@@ -182,9 +185,14 @@ def bd_geometry(nu, d):
             "smem_bytes": 4 * floats}
 
 
-# K2's and K4's launch geometry (step_hi.cuh, lanes.cuh): a thread per IVP
-# lane, blocks of 128 lanes, no shared memory
-_HI_THREADS = 128
+# K1-K4's and K7's launch geometry (lanes.cuh): a thread per IVP lane,
+# blocks of 128 lanes
+_LANE_THREADS = 128
+
+
+def _thread_per_lane():
+    return {"threads_per_lane": 1, "lanes_per_block": _LANE_THREADS,
+            "threads_per_block": _LANE_THREADS, "smem_bytes": 0}
 
 
 def hi_geometry(nu):
@@ -193,8 +201,26 @@ def hi_geometry(nu):
     block, and shared-memory bytes per block."""
     if nu not in (4, 5):
         raise ValueError(f"K2 and K4 are built for nu = 4 and 5, not {nu}")
-    return {"threads_per_lane": 1, "lanes_per_block": _HI_THREADS,
-            "threads_per_block": _HI_THREADS, "smem_bytes": 0}
+    return _thread_per_lane()
+
+
+def ll_geometry(nu, d=3):
+    """The launch geometry of K1 and K3 (both forms, nu = 2, 3 or 4) for ODE
+    dimension ``d``, as their C launch functions compute it
+    (``prev_smem_bytes`` in step_ll.cuh): ``hi_geometry``'s keys; a lane's
+    five previous arrays (2 n d + 3 n^2 floats) sit in shared memory."""
+    if nu not in (2, 3, 4):
+        raise ValueError(f"K1, K3 and K7 are built for nu in (2, 3, 4), not {nu}")
+    n = nu + 1
+    return {**_thread_per_lane(),
+            "smem_bytes": 4 * _LANE_THREADS * (2 * n * d + 3 * n * n)}
+
+
+def everystep_geometry(nu):
+    """K7's launch geometry (every strategy, nu = 2, 3 or 4): the first
+    design of K1's step, ``hi_geometry``'s keys, no shared memory."""
+    ll_geometry(nu)
+    return _thread_per_lane()
 
 
 def _nvcc():
@@ -225,7 +251,9 @@ def _build_key():
 
 
 def _ptxas_key(symbol):
-    """(kernel, template key) of a mangled step-kernel symbol: nu for K1-K4,
+    """(kernel, template key) of a mangled step-kernel symbol: nu for K1-K4
+    (``"<nu>/<functor>"`` for K1 and K3 on a functor other than the rigid
+    body),
     ``"<nu>/<ts1 or ts0>/<functor>"`` for K5, ``"<nu>/<functor>"`` for K6,
     ``"<nu>/<strategy>"`` for K7; ``"<f32 or f64>/<m>/<c>"`` for K8 and
     ``"<m>/<n>"`` for K9-K11, under their wrappers' names; None for other
@@ -253,6 +281,10 @@ def _ptxas_key(symbol):
         if fm is None:
             return None
         return kernel, f"{nu}/{rest[fm.end() : fm.end() + int(fm.group(1))]}"
+    if kernel.startswith("step_ll"):  # the rigid body under nu, another functor beside it
+        fm = re.match(r"NS_(\d+)", rest)
+        functor = rest[fm.end() : fm.end() + int(fm.group(1))] if fm else "RigidBody"
+        return kernel, nu if functor == "RigidBody" else f"{nu}/{functor}"
     if kernel.startswith("step_everystep"):
         fm = re.match(r"Li(\d)E", rest)
         names = {code: name for name, code in STRATEGY_CODES.items()}
@@ -637,6 +669,19 @@ def step_hi_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_s
     return _launch("step_hi_attempt", step, state, t_next, inputs)
 
 
+_GEOMETRY_KEYS = ("threads_per_lane", "lanes_per_block", "threads_per_block", "smem_bytes",
+                  "blocks_per_sm", "registers", "local_bytes")
+
+
+def _geometry_entry(symbol, *args):
+    lib = library()
+    out = (ctypes.c_int * len(_GEOMETRY_KEYS))()
+    rc = getattr(lib.lib, symbol)(*(int(a) for a in args), ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"{symbol} failed: {lib.error_string(rc)} ({rc})")
+    return dict(zip(_GEOMETRY_KEYS, out))
+
+
 def step_hi_geometry(kernel, nu=4):
     """K2's or K4's launch geometry on the current CUDA device, as the C
     launch function of ``kernel`` ("step_hi_interval" or "step_hi_attempt")
@@ -645,14 +690,28 @@ def step_hi_geometry(kernel, nu=4):
     ``registers`` and ``local_bytes`` per thread."""
     if kernel not in ("step_hi_interval", "step_hi_attempt"):
         raise ValueError(f"{kernel} is not K2 or K4")
-    lib = library()
-    out = (ctypes.c_int * 7)()
-    rc = getattr(lib.lib, f"odeckpt_{kernel}_geometry")(int(nu), ctypes.addressof(out))
-    if rc != 0:
-        raise RuntimeError(f"{kernel} geometry failed: {lib.error_string(rc)} ({rc})")
-    keys = ("threads_per_lane", "lanes_per_block", "threads_per_block", "smem_bytes",
-            "blocks_per_sm", "registers", "local_bytes")
-    return dict(zip(keys, out))
+    return _geometry_entry(f"odeckpt_{kernel}_geometry", nu)
+
+
+def step_ll_geometry(kernel, nu=4):
+    """K1's or K3's launch geometry on the current CUDA device, as the C
+    launch function of ``kernel`` ("step_ll_interval" or "step_ll_attempt")
+    has it for nu (the rigid body's entry): ``ll_geometry``'s keys,
+    ``blocks_per_sm`` (resident blocks, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), ``registers`` and
+    ``local_bytes`` per thread."""
+    if kernel not in ("step_ll_interval", "step_ll_attempt"):
+        raise ValueError(f"{kernel} is not K1 or K3")
+    return _geometry_entry(f"odeckpt_{kernel}_geometry", nu)
+
+
+def step_everystep_geometry(nu=4, strategy="smoother"):
+    """K7's launch geometry on the current CUDA device for nu and the
+    strategy: ``everystep_geometry``'s keys, ``blocks_per_sm``,
+    ``registers`` and ``local_bytes`` per thread."""
+    if strategy not in ("smoother", "filter"):
+        raise ValueError(f"K7 runs the smoother or the filter strategy, got {strategy!r}")
+    return _geometry_entry("odeckpt_step_everystep_attempt_geometry", nu, STRATEGY_CODES[strategy])
 
 
 def step_dense_interval(step, state, t_next, *, atol, rtol, dt_max, dt_floor,
@@ -728,15 +787,7 @@ def step_bd_geometry(kernel, nu=4, functor="rigid_body_anisotropic"):
         raise ValueError(f"{kernel} is not a form of K6")
     if functor not in ("rigid_body", "rigid_body_anisotropic"):
         raise ValueError(f"K6 has no device functor {functor!r}")
-    lib = library()
-    out = (ctypes.c_int * 7)()
-    rc = getattr(lib.lib, f"odeckpt_{kernel}_geometry")(
-        int(nu), int(functor == "rigid_body_anisotropic"), ctypes.addressof(out))
-    if rc != 0:
-        raise RuntimeError(f"{kernel} geometry failed: {lib.error_string(rc)} ({rc})")
-    keys = ("threads_per_lane", "lanes_per_block", "threads_per_block", "smem_bytes",
-            "blocks_per_sm", "registers", "local_bytes")
-    return dict(zip(keys, out))
+    return _geometry_entry(f"odeckpt_{kernel}_geometry", nu, functor == "rigid_body_anisotropic")
 
 
 def step_everystep_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_scale):

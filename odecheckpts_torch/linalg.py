@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import rounded
+
 
 def _finfo_maxexp(dtype):
     return np.finfo(torch.empty((), dtype=dtype).numpy().dtype).maxexp
@@ -39,7 +41,7 @@ def _scaled_col_stats(colm, is_j, eps):
     ce = torch.where(cok, ce, one)
     cs = colm / ce
     norm2 = torch.sum(cs * cs, dim=-1, keepdim=True)
-    norm = torch.sqrt(norm2 + eps)
+    norm = rounded.sqrt(norm2 + eps)
     head = torch.sum(cs * is_j, dim=-1, keepdim=True)
     return cs, norm2, norm, head
 
@@ -69,7 +71,7 @@ def _qr_r_householder(x):
             safe, 2.0 / torch.where(safe, vnorm2, torch.ones_like(vnorm2)),
             torch.zeros_like(vnorm2),
         )
-        coeff = torch.einsum("...i,...ik->...k", v, x)
+        coeff = rounded.matmul(v[..., None, :], x)[..., 0, :]
         x = x - inv[..., None] * v[..., :, None] * coeff[..., None, :]
     return x[..., :k, :]
 
@@ -126,6 +128,6 @@ def revert_markov(a_l, l_q, l_prev):
     r_yx = r[..., :n, n:]
     r_xx = r[..., n:, n:]
     l_pred = r_yy.transpose(-1, -2)
-    gain = torch.linalg.solve_triangular(r_yy, r_yx, upper=True).transpose(-1, -2)
+    gain = rounded.solve_triangular_upper(r_yy, r_yx).transpose(-1, -2)
     l_bwd = r_xx.transpose(-1, -2)
     return l_pred, gain, l_bwd

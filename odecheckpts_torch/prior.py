@@ -16,6 +16,8 @@ import math
 import numpy as np
 import torch
 
+from . import rounded
+
 
 @functools.lru_cache(maxsize=None)
 def _ibm_constants_f64(num_derivatives: int):
@@ -73,5 +75,5 @@ def preconditioner(dt, num_derivatives: int):
     _, _, factorials = _ibm_constants_f64(num_derivatives)
     powers = torch.flip(_powers(dt, num_derivatives), dims=(-1,))
     scales = torch.as_tensor(1.0 / factorials, dtype=dt.dtype, device=dt.device)
-    p = torch.sqrt(dt)[..., None] * powers * scales
+    p = rounded.sqrt(dt)[..., None] * powers * scales
     return p, 1.0 / p

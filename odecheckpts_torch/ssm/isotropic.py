@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from .. import linalg, prior
+from .. import linalg, prior, rounded
 from .base import Conditional, Normal
 
 
@@ -56,7 +56,7 @@ class IsotropicSSM:
     def qoi_std(self, rv):
         """Marginal standard deviation of the solution, (..., d): the shared
         factor's first row norm for every dimension."""
-        s = torch.sqrt(torch.sum(rv.cholesky[..., 0, :] ** 2, dim=-1))
+        s = rounded.sqrt(torch.sum(rv.cholesky[..., 0, :] ** 2, dim=-1))
         return s[..., None].expand(rv.mean.shape[:-2] + (self.d,))
 
     def _system(self, like):
@@ -69,7 +69,7 @@ class IsotropicSSM:
         ``(p, p_inv)`` that ``extrapolate_cov`` and the error estimate reuse."""
         a, _ = self._system(mean)
         p, p_inv = prior.preconditioner(dt, self.num_derivatives)
-        m_pred = p[..., :, None] * (a @ (p_inv[..., :, None] * mean))
+        m_pred = p[..., :, None] * rounded.matmul(a, p_inv[..., :, None] * mean)
         return m_pred, (p, p_inv)
 
     def extrapolate_cov(self, rv, m_pred, cache, output_scale, reversal):
@@ -78,7 +78,7 @@ class IsotropicSSM:
         a, l_q = self._system(rv.mean)
         p, p_inv = cache
         l_bar = p_inv[..., :, None] * rv.cholesky
-        a_l = a @ l_bar
+        a_l = rounded.matmul(a, l_bar)
         l_q_scaled = output_scale[..., None, None] * l_q
         if not reversal:
             l_pred_bar = linalg.chol_from_stack(
@@ -88,7 +88,7 @@ class IsotropicSSM:
         l_pred_bar, gain_bar, l_bwd_bar = linalg.revert_markov(a_l, l_q_scaled, l_bar)
         l_pred = p[..., :, None] * l_pred_bar
         gain = (p[..., :, None] * gain_bar) * p_inv[..., None, :]
-        noise_mean = rv.mean - gain @ m_pred
+        noise_mean = rv.mean - rounded.matmul(gain, m_pred)
         bwd = Conditional(gain, Normal(noise_mean, p[..., :, None] * l_bwd_bar))
         return Normal(m_pred, l_pred), bwd
 
@@ -102,13 +102,13 @@ class IsotropicSSM:
         p, _ = prior.preconditioner(dt, self.num_derivatives)
         _, l_q = self._system(rv.mean)
         q_chol = output_scale[..., None, None] * (p[..., :, None] * l_q)
-        m_pred = phi @ rv.mean
-        a_l = phi @ rv.cholesky
+        m_pred = rounded.matmul(phi, rv.mean)
+        a_l = rounded.matmul(phi, rv.cholesky)
         if not reversal:
             l_pred = linalg.chol_from_stack(a_l.transpose(-1, -2), q_chol.transpose(-1, -2))
             return Normal(m_pred, l_pred), None
         l_pred, gain, l_bwd = linalg.revert_markov(a_l, q_chol, rv.cholesky)
-        noise_mean = rv.mean - gain @ m_pred
+        noise_mean = rv.mean - rounded.matmul(gain, m_pred)
         return Normal(m_pred, l_pred), Conditional(gain, Normal(noise_mean, l_bwd))
 
     def error_and_scale_deriv(self, z, cache, o, unit="qoi"):
@@ -119,12 +119,12 @@ class IsotropicSSM:
         (``sigma s_unit``), broadcast to (..., d)."""
         _, l_q = self._system(z)
         p, _ = cache
-        s_unit = p[..., o] * torch.sqrt(torch.sum(l_q[o, :] ** 2))
-        sigma = torch.sqrt(torch.sum(z**2, dim=-1)) / (s_unit * math.sqrt(1.0 * self.d))
+        s_unit = p[..., o] * rounded.sqrt(torch.sum(l_q[o, :] ** 2))
+        sigma = rounded.sqrt(torch.sum(z**2, dim=-1)) / (s_unit * math.sqrt(1.0 * self.d))
         if unit == "residual":
             err = sigma * s_unit
         else:
-            err = sigma * p[..., 0] * torch.sqrt(torch.sum(l_q[0, :] ** 2))
+            err = sigma * p[..., 0] * rounded.sqrt(torch.sum(l_q[0, :] ** 2))
         return sigma, err[..., None].expand(err.shape + (self.d,))
 
     def correct_deriv(self, rv, z, o):
@@ -134,8 +134,8 @@ class IsotropicSSM:
         l = rv.cholesky
         l_obs = l[..., o, :]
         s2 = torch.sum(l_obs**2, dim=-1)
-        s = torch.sqrt(s2)
-        crosscov = l @ l_obs[..., None]
+        s = rounded.sqrt(s2)
+        crosscov = rounded.matmul(l, l_obs[..., None])
         gain = crosscov[..., 0] / s2[..., None]
         mean = rv.mean - gain[..., :, None] * z[..., None, :]
         chol = l - gain[..., :, None] * l_obs[..., None, :]
@@ -150,19 +150,19 @@ class IsotropicSSM:
         return Conditional(eye, noise)
 
     def marginalize(self, rv, cond):
-        mean = cond.matrix @ rv.mean + cond.noise.mean
+        mean = rounded.matmul(cond.matrix, rv.mean) + cond.noise.mean
         chol = linalg.chol_from_stack(
-            (cond.matrix @ rv.cholesky).transpose(-1, -2),
+            rounded.matmul(cond.matrix, rv.cholesky).transpose(-1, -2),
             cond.noise.cholesky.transpose(-1, -2),
         )
         return Normal(mean, chol)
 
     def compose(self, outer, inner):
         """Conditional composition: outer(inner(x)), both backward-in-time."""
-        matrix = outer.matrix @ inner.matrix
-        mean = outer.matrix @ inner.noise.mean + outer.noise.mean
+        matrix = rounded.matmul(outer.matrix, inner.matrix)
+        mean = rounded.matmul(outer.matrix, inner.noise.mean) + outer.noise.mean
         chol = linalg.chol_from_stack(
-            (outer.matrix @ inner.noise.cholesky).transpose(-1, -2),
+            rounded.matmul(outer.matrix, inner.noise.cholesky).transpose(-1, -2),
             outer.noise.cholesky.transpose(-1, -2),
         )
         return Conditional(matrix, Normal(mean, chol))

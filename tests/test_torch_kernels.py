@@ -6,12 +6,10 @@ the port is installed:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 
-On a machine without a CUDA device those tests skip.  K1 and K3 are
-compared with their twin at rtol 1e-5: both round every f32 operation on
-its own (the kernels are built with ``-fmad=false``), so they are expected
-to agree to a few ulp, and on the card they have agreed bit for bit.  K2
-and K4, K5 and K6 are held to their twins bit for bit, each launch made
-twice and required identical (races show as run-to-run differences).
+On a machine without a CUDA device those tests skip.  K1-K6 are held to
+their twins bit for bit (every f32 operation rounds on its own in both: the
+kernels are built with ``-fmad=false``), each launch made twice and required
+identical (races show as run-to-run differences).
 """
 
 import numpy as np
@@ -179,11 +177,11 @@ def test_kernel_matches_twin_on_the_card(cuda_device, nu, max_attempts):
     before = kernels.LAUNCHES["step_ll_interval"]
     got = kernels.step_ll_interval(step, state, t_next, max_attempts=max_attempts, **inputs)
     assert kernels.LAUNCHES["step_ll_interval"] == before + 1
+    again = kernels.step_ll_interval(step, state, t_next, max_attempts=max_attempts, **inputs)
     want = kernels.step_ll_interval_plain(step, state, t_next, max_attempts=max_attempts,
                                           **inputs)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+    _assert_same_bits(got, again, want)
 
 
 @pytest.mark.cuda
@@ -204,10 +202,89 @@ def test_attempt_kernel_k3_matches_twin_on_the_card(cuda_device, nu):
     before = kernels.LAUNCHES["step_ll_attempt"]
     got = kernels.step_ll_attempt(step, state, t_next, **inputs)
     assert kernels.LAUNCHES["step_ll_attempt"] == before + 1
+    again = kernels.step_ll_attempt(step, state, t_next, **inputs)
     want = kernels.step_ll_attempt_plain(step, state, t_next, **inputs)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+    _assert_same_bits(got, again, want)
+
+
+def _assert_same_bits(first, second, want):
+    """Two launches' outputs equal to each other and to the plain version's,
+    bit for bit (NaN where NaN)."""
+    for a, b, w in zip(first, second, want):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(a, w, rtol=0, atol=0, equal_nan=True)
+
+
+def _start_ragged(nu, *, device, functor="rigid_body", special=True, nan_time=False,
+                  batch=1001, warm_steps=20):
+    """K1's and K3's ragged case: ``batch`` lanes (not a whole number of
+    blocks) whose tolerances span rtol 1e-1 to 1e-4, advanced by the twin
+    toward the first checkpoint; with ``special``, a NaN lane and two lanes
+    at or past the checkpoint, with ``nan_time`` also a lane whose time is
+    NaN (neither active nor frozen: the plain interval loop steps it while
+    other lanes are active, the kernel's per-lane loop does not,
+    csrc/step_ll.cu)."""
+    if functor == "rigid_body":
+        vf, (y0,), _, params = problems.rigid_body()
+    else:
+        vf, (y0,), _, params = problems.rigid_body_anisotropic(scale=(1.0, 1.0, 1e4))
+    rng = np.random.default_rng(8)
+    u0s = y0.numpy()[None] * (1.0 + 0.05 * rng.standard_normal((batch, 3)))
+    tols = torch.tensor(np.geomspace(1e-1, 1e-4, batch), dtype=torch.float32, device=device)
+    save_at = np.linspace(0.0, 10.0, 5).astype(np.float32)
+    state, _, inputs = batched.initial_state(
+        vf, torch.tensor(u0s, dtype=torch.float32, device=device), params, save_at=save_at,
+        dt0=0.1, tols=tols, num_derivatives=nu)
+    step = batched.make_step_ll(vf, params, nu=nu, d=3, error_calibration=3.0)
+    t_next = torch.full((1, batch), float(save_at[1]), device=device)
+    for _ in range(warm_steps):
+        state = kernels.attempt_plain(step, state, t_next, **inputs)
+    state = [x.clone() for x in state]
+    if not special:
+        return step, tuple(state), t_next, inputs
+    state[1][:, :, 3] = float("nan")
+    if nan_time:
+        state[0][:, 7] = float("nan")
+    state[0][:, 10] = t_next[:, 10]
+    state[0][:, 11] = t_next[:, 11] + 1.0
+    return step, tuple(state), t_next, inputs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["step_ll_interval-1", "step_ll_interval-40",
+                                    "step_ll_interval-100000", "step_ll_attempt",
+                                    "step_ll_interval-40-anisotropic"])
+@pytest.mark.parametrize("nu", [2, 3, 4])
+def test_f32_kernels_k1_k3_ragged_and_repeatable_on_the_card(cuda_device, nu, kernel):
+    """K1 and K3 on 1,001 lanes at rtol 1e-1..1e-4 (lanes of one block end
+    their interval at very different attempts), below the whole interval
+    with a NaN lane and two lanes at or past the checkpoint (a NaN lane
+    would hold the plain version's loop to the cap), K3 also with a lane
+    whose time is NaN:
+    equal to the plain version bit for bit, and two launches equal to each
+    other; K1 also on the anisotropic rigid body, the blockdiag row's
+    isotropic foil."""
+    name, _, rest = kernel.partition("-")
+    cap, _, functor = rest.partition("-")
+    step, state, t_next, inputs = _start_ragged(
+        nu, device=cuda_device, special=cap != "100000", nan_time=name == "step_ll_attempt",
+        functor="rigid_body_anisotropic" if functor == "anisotropic" else "rigid_body")
+    kw = dict(max_attempts=int(cap)) if cap else {}
+    want = getattr(kernels, name + "_plain")(step, state, t_next, **inputs, **kw)
+    before = kernels.LAUNCHES[name]
+    first = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+    second = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+    assert kernels.LAUNCHES[name] == before + 2
+    torch.cuda.synchronize()
+    _assert_same_bits(first, second, want)
+    steps = (want[15] - state[15])[0]
+    if cap == "100000":
+        assert bool(torch.all(want[0] >= t_next))
+        assert float(steps.max()) > 2 * float(steps.min())  # lanes end far apart
+    elif cap == "40":  # lanes of one block accepted different numbers of attempts
+        assert float(steps.min()) < float(steps.max()) <= 40
 
 
 @pytest.mark.cuda
@@ -239,6 +316,58 @@ def test_hi_geometry_refuses_an_nu_that_is_not_built():
         kernels.hi_geometry(3)
     with pytest.raises(ValueError, match="not K2 or K4"):
         kernels.step_hi_geometry("step_bd_interval")
+
+
+@pytest.mark.parametrize("nu", [2, 3, 4])
+def test_ll_geometry_is_a_thread_per_lane_that_fits_the_card(nu):
+    """K1's and K3's launch geometry, the same in both forms: one thread per
+    IVP lane, blocks of 128 lanes (lanes.cuh), the lane's five
+    previous arrays (2 n d + 3 n^2 floats) in shared memory, two blocks of
+    which fit an SM; K7 keeps no shared memory."""
+    g = kernels.ll_geometry(nu)
+    n = nu + 1
+    assert g == {"threads_per_lane": 1, "lanes_per_block": 128, "threads_per_block": 128,
+                 "smem_bytes": 4 * 128 * (6 * n + 3 * n * n)}
+    assert 2 * g["smem_bytes"] <= kernels.SMEM_PER_BLOCK
+    assert kernels.ll_geometry(4)["smem_bytes"] == 53_760
+    assert kernels.everystep_geometry(nu) == {**g, "smem_bytes": 0}
+
+
+def test_ll_geometry_refuses_an_nu_or_kernel_that_is_not_built():
+    with pytest.raises(ValueError, match="nu in"):
+        kernels.ll_geometry(5)
+    with pytest.raises(ValueError, match="nu in"):
+        kernels.everystep_geometry(1)
+    with pytest.raises(ValueError, match="not K1 or K3"):
+        kernels.step_ll_geometry("step_hi_interval")
+    with pytest.raises(ValueError, match="smoother or the filter"):
+        kernels.step_everystep_geometry(4, "fixedpoint")
+
+
+def test_parse_ptxas_reads_k1_k3_entries_with_shared_memory():
+    def entry(name, regs, smem):
+        return [
+            f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {name}",
+            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+            f"ptxas info    : Used {regs} registers, used 0 barriers, {smem} bytes smem, "
+            "704 bytes cmem[0]",
+        ]
+
+    log = "\n".join(
+        entry("_ZN12_GLOBAL__N_116step_ll_intervalILi4ENS_9RigidBodyEEEvNS_4ArgsENS_6"
+              "ConstsET0_li", 200, 0)
+        + entry("_ZN12_GLOBAL__N_116step_ll_intervalILi3ENS_14RigidBodyAnisoEEEvNS_4ArgsENS_6"
+                "ConstsET0_li", 180, 0)
+        + entry("_ZN12_GLOBAL__N_115step_ll_attemptILi2ENS_9RigidBodyEEEvNS_4ArgsENS_6"
+                "ConstsET0_l", 120, 16)
+    )
+    props = lambda regs, smem: {"stack": 0, "spill_stores": 0, "spill_loads": 0,  # noqa: E731
+                                "registers": regs, "smem": smem}
+    assert kernels.parse_ptxas(log) == {
+        "step_ll_interval": {4: props(200, 0), "3/RigidBodyAniso": props(180, 0)},
+        "step_ll_attempt": {2: props(120, 16)},
+    }
 
 
 def test_parse_ptxas_reads_k2_k4_entries():

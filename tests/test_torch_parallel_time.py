@@ -219,9 +219,9 @@ def test_what_is_left_out_raises_and_the_cuda_engine_has_no_fallback():
         with pytest.raises(NotImplementedError, match="items 7 and 9"):
             tpt._adapters(prior)
     mle = tsolvers.Solver(tsolver.strategy, tsolvers.MLE)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         tivpsolve.solve_fixed_grid(tvf, tinit, grid=GRID, solver=mle, parallel=True)
-    with pytest.raises(NotImplementedError, match="item 3a"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         tsolvers.correction_ts0(ode_order=2)
-    with pytest.raises(NotImplementedError, match="items 2 and 8"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         tivpsolve.solve_adaptive_parallel_in_time(tvf, tinit, t0=0.0, t1=1.0)
