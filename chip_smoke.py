@@ -24,7 +24,11 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
    same report against ``kernels.hi_geometry`` (a thread per lane: their
    spills are reported, not gated); for every K1 and K3 entry (nu = 2, 3, 4)
    the same report against ``kernels.ll_geometry`` and for every K7 entry
-   (both strategies) against ``kernels.everystep_geometry``.
+   (both strategies) against ``kernels.everystep_geometry``, K7 with no
+   spills; for every K8 entry (float32 and float64, every built m and c)
+   the same report against ``kernels.pit_combine_geometry`` (a team of 8
+   threads a pair, 8 pairs a block of two warps), with no spills at the
+   fixed-grid path's m = 4, c = 3.
 3. one attempt, kernel against twin, 4,096 lanes, from the Taylor-initialized
    and a mid-solve state: K1 and K3 at nu = 2, 3, 4 (17 arrays), K2 and K4
    at nu = 4, 5 (12 arrays): every array equal, and two launches on one
@@ -128,27 +132,27 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
     ``pit_fused.combine_sqrt_ll`` on random elements from numpy seed 0, f32
     and f64, every built (m, c) in {3, 4, 5} x {1, 2, 3}, P = 1024 and a
     ragged P = 1000, and on the element pairs of two levels of the main row's
-    second window (captured from a solve of the row's first two windows): all
-    five outputs equal (maximum deviation 0.0).
+    second window (captured from a solve of the row's first two windows, in
+    float32 and in float64): all five outputs equal (maximum deviation 0.0).
 22. main_pit (K8): the crossover workload of
     ``experiments/6_tpu_batched_sweep/pit_crossover.py`` at full width: rigid
     body, tspan (0, 10), nu = 3, TS0, filter, dynamic calibration, float32,
     uniform grid T = 16385, one IVP.  Rows: the sequential
     ``ivpsolve.solve_fixed_grid`` (once, after a warm-up on 257 grid points);
     ``parallel=True, form="sqrt", iterations=2, warmstart="rk:16"`` with
-    ``combine_engine="cuda"`` at window 1024 over the whole grid, and on the
-    grid's first 4,097 points with "ll" and None at window 1024 and "cuda" at
-    window 512 (most f32 windows fall back to the sequential filter, 4-6 s
-    each in eager PyTorch, so the rows beside the kernel's are cut in depth;
-    warm start and filter are causal, so the sequential row's first 4,097
-    points are their reference).  Each row is one solve after a warm-up on
+    ``combine_engine="cuda"`` at window 1024 over the whole grid, on the
+    grid's first 2,049 points with "ll" and None at window 1024, and on its
+    first 4,097 points with "cuda" at window 512 (most f32 windows fall back
+    to the sequential filter, 4-6 s each in eager PyTorch, so the rows beside
+    the kernel's are cut in depth; warm start and filter are causal, so the
+    sequential row's first points are their reference).  Each row is one solve after a warm-up on
     its first two windows with the gate off.  Gates:
     every output finite; the sequential row within 1e-2 (max abs) of
     LSODA(1e-12) at the grid points (a CPU f32 run of the port measured
     2.31e-3); each parallel row within 1e-2 of the sequential ``u`` relative
     to its maximum; "cuda" equal to "ll" in every output on four windows
     solved with the gate off (``fallback_rtol=None``: every answer the
-    prefix' own; the "cuda" row's first 4,097 points against the "ll" row are
+    prefix' own; the "cuda" row's first 2,049 points against the "ll" row are
     reported beside it); no "cuda" row in which every window fell back to the
     sequential filter.  Reported per
     row: ``window_diverged`` (count), ``window_delta`` (max),
@@ -158,7 +162,9 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
     "cuda" within 1e-6 of the f64 sequential row.
 23. launch_pit: one K8 launch on the element pairs of the last level of the
     main row's second window (m = 4, c = 3, P = 1024) against its plain
-    version (plain, kernel, kernel, plain), CUDA events.
+    version (plain, kernel, kernel, plain), CUDA events and device time, in
+    float32 (the kernel table's row) and in float64 (the row's ``f64``
+    entry, its bound at the card's float64 rate, PEAK_F64_FLOPS).
 24. batched_qr: K9 (``batched_qr.batched_qr_r``) against its plain version
     (equal) and against ``batched_qr_r_reference`` (atol 2e-5, Grams 2e-4) at
     (130, 10, 5), (128, 6, 6), (64, 4, 2) and (32768, 10, 5); at the last the
@@ -301,8 +307,9 @@ PIT_T = 16_385
 PIT_TSPAN = (0.0, 10.0)
 PIT_KW = dict(parallel=True, form="sqrt", iterations=2, warmstart="rk:16")
 # (window, combine_engine, windows solved): the kernel's row at full width; its plain
-# twin's, window 512 and engine None on the grid's first 4,097 points
-PIT_ROWS = ((1024, "cuda", None), (1024, "ll", 4), (512, "cuda", 8), (1024, None, 4))
+# twin's and engine None's on the grid's first 2,049 points, window 512 on its
+# first 4,097
+PIT_ROWS = ((1024, "cuda", None), (1024, "ll", 2), (512, "cuda", 8), (1024, None, 2))
 PIT_REL_GATE = 1e-2
 PIT_LSODA_BOUND = 1e-2  # max abs; a CPU f32 run of the port measured 2.31e-3
 PIT_F64_WINDOWS = 2
@@ -313,6 +320,7 @@ PACKING_ITERS = 200
 PACKING_BATCHES = (8_192, 32_768, 262_144)
 # the H100 SXM's published peaks: f32 outside the tensor cores and HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12  # the H100 SXM's float64 rate outside the tensor cores (data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 # K5: the largest stack frame its entries may have (the lane's arrays live in
 # shared memory), and the second tile that phase 12 measures beside the default
@@ -381,7 +389,8 @@ def phase_build():
         raise RuntimeError(f"ptxas reported no kernel for {missing}:\n{lib.log}")
     sass = _sass_instructions(lib.path)
     return {**phase_build_dense(ptxas), **phase_build_bd(ptxas, sass),
-            **phase_build_hi(ptxas, sass), **phase_build_ll(ptxas, sass)}
+            **phase_build_hi(ptxas, sass), **phase_build_ll(ptxas, sass),
+            **phase_build_pit(ptxas, sass)}
 
 
 def _sass_instructions(path):
@@ -514,13 +523,45 @@ def phase_build_ll(ptxas, sass):
     for name, nu, key, geometry, want in forms:
         info = {**ptxas[name][key], **geometry, "sass_instructions": sass.get(name, {}).get(key)}
         emit({"phase": "build_ll", "kernel": KERNELS[name][0], "form": name, "entry": key, **info})
-        if any(geometry[k] != v for k, v in want.items()) or geometry["blocks_per_sm"] < 1:
+        spills = info.get("spill_stores", 0) + info.get("spill_loads", 0)
+        if (any(geometry[k] != v for k, v in want.items()) or geometry["blocks_per_sm"] < 1
+                or (spills and name == "step_everystep_attempt")):
             bad.append((name, key, info, want))
-        if nu == 4 and name != "step_everystep_attempt":
+        if key in (4, "4/smoother"):
             main[name] = geometry
     if bad:
-        raise AssertionError(f"K1's, K3's or K7's geometry is off: {bad}")
+        raise AssertionError(f"K1's, K3's or K7's geometry or ptxas counts are off: {bad}")
     return main
+
+
+def phase_build_pit(ptxas, sass):
+    """K8's ptxas counts and machine instructions beside the launch geometry
+    its C geometry entry reports, for every built (type, m, c); fails if
+    that geometry is not ``kernels.pit_combine_geometry``'s, if no block
+    fits on an SM, or on a spill in the fixed-grid path's instantiations
+    (m = 4, c = 3, both types; the others' are reported).  Returns the
+    geometry of the main row's instantiation (float32, m = 4, c = 3)."""
+    import torch
+
+    from odecheckpts_torch import kernels
+
+    bad = []
+    for dtype in (torch.float32, torch.float64):
+        for m in kernels.PIT_COMBINE_M:
+            for c in kernels.PIT_COMBINE_C:
+                key = f"{'f32' if dtype == torch.float32 else 'f64'}/{m}/{c}"
+                geometry = kernels.step_pit_combine_geometry(m, c, dtype)
+                info = {**ptxas["pit_combine"][key], **geometry,
+                        "sass_instructions": sass.get("pit_combine", {}).get(key)}
+                emit({"phase": "build_pit", "kernel": "K8", "entry": key, **info})
+                want = kernels.pit_combine_geometry(m, c, dtype)
+                spills = info.get("spill_stores", 0) + info.get("spill_loads", 0)
+                if (any(geometry[k] != v for k, v in want.items())
+                        or geometry["blocks_per_sm"] < 1 or (spills and (m, c) == (4, 3))):
+                    bad.append((key, info, want))
+    if bad:
+        raise AssertionError(f"K8's geometry or ptxas counts are off: {bad}")
+    return {"pit_combine": kernels.step_pit_combine_geometry(4, 3, torch.float32)}
 
 
 def _ensemble(batch, torch, device):
@@ -1205,9 +1246,10 @@ def _with_device_time(kernel, run, info):
 
 def _bound(info):
     """The least time of the work: state bytes over the memory rate or
-    operations over the f32 rate, whichever is larger; ms and which."""
+    operations over the rate of their type (f32 unless ``info`` names
+    another ``peak_flops``), whichever is larger; ms and which."""
     t_bytes = info["bytes"] / PEAK_BYTES_PER_S * 1e3
-    t_ops = info["flops"] / PEAK_F32_FLOPS * 1e3
+    t_ops = info["flops"] / info.get("peak_flops", PEAK_F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2071,16 +2113,16 @@ def _pit_problem(dtype, device, num_points=PIT_T):
     return vf, init, solver, torch.tensor(grid, dtype=dtype, device=device)
 
 
-def _capture_second_window(device):
+def _capture_second_window(device, dtype, prefix=""):
     """The element pairs that K8 is given on the first and on the last level
     of the final sweep of the main row's second window, from a solve of the
-    row's first two windows; each a pair of 5-tuples at m = 4, c = 3,
-    P = 1024."""
+    row's first two windows in ``dtype``; each a pair of 5-tuples at m = 4,
+    c = 3, P = 1024, keyed ``prefix`` + "first_level" and "last_level"."""
     import torch
 
     from odecheckpts_torch import ivpsolve, kernels
 
-    vf, init, solver, grid = _pit_problem(torch.float32, device, 2 * 1024 + 1)
+    vf, init, solver, grid = _pit_problem(dtype, device, 2 * 1024 + 1)
     calls, launch = [], kernels.pit_combine  # the gate off: no window is solved twice
 
     def recording(e_i, e_j):
@@ -2098,7 +2140,8 @@ def _capture_second_window(device):
     if len(calls) != 2 * 2 * levels:
         raise AssertionError(f"two windows of two sweeps launch K8 {4 * levels} times, "
                              f"saw {len(calls)}")
-    return {"first_level": calls[3 * levels], "last_level": calls[4 * levels - 1]}
+    return {f"{prefix}first_level": calls[3 * levels],
+            f"{prefix}last_level": calls[4 * levels - 1]}
 
 
 def phase_combine_pit(device, captured):
@@ -2202,16 +2245,16 @@ def phase_main_pit(device):
         if not ok:
             failed.append((window, engine, cut, rel, finite, launches, fallback_row))
     # "cuda" against "ll": four windows with the gate off, where every window's
-    # answer is the prefix' own (gated); and the full row's first 4,097 points
-    # against the cut "ll" row (reported: warm start and filter are causal, but
-    # the two solves batch the warm start's products over grids of other lengths)
+    # answer is the prefix' own (gated); and the full row's first points against
+    # the cut "ll" row (reported: warm start and filter are causal, but the two
+    # solves batch the warm start's products over grids of other lengths)
     names = ("u", "u_std", "output_scale", "mean", "cholesky")
-    num = 4 * 1024 + 1
+    num, ll_row = 4 * 1024 + 1, outs[(1024, "ll", 2)]
     ungated = [_pit_outputs(parallel(1024, e, grid[:num], fallback_rtol=None)[0])
                for e in ("cuda", "ll")]
     same = {
-        "rows": {n: bool(torch.equal(a[:num], b)) for n, a, b in zip(
-            names, _pit_outputs(outs[(1024, "cuda", None)]), _pit_outputs(outs[(1024, "ll", 4)]))},
+        "rows": {n: bool(torch.equal(a[:b.shape[0]], b)) for n, a, b in zip(
+            names, _pit_outputs(outs[(1024, "cuda", None)]), _pit_outputs(ll_row))},
         "gate_off": {n: bool(torch.all((a == b) | (torch.isnan(a) & torch.isnan(b))))
                      for n, a, b in zip(names, *ungated)},
     }
@@ -2268,12 +2311,23 @@ def _event_timing(times, nbytes, flops, kernel, run):
 
 
 def phase_launch_pit(device, captured):
-    """One launch of K8 at the main row's shapes against its plain version."""
+    """One launch of K8 at the main row's shapes against its plain version,
+    float32 (the kernel table's row) and float64 (its ``f64`` entry)."""
+    f32 = _launch_pit(captured["last_level"], PEAK_F32_FLOPS)
+    f64 = _launch_pit(captured["f64/last_level"], PEAK_F64_FLOPS)
+    bound_ms, bound_by = _bound(f64)
+    return {**f32, "f64": {k: f64[k] for k in ("ms", "plain_ms", "host_ms", "event_ms")}
+            | {"bound_ms": bound_ms, "bound_by": bound_by}}
+
+
+def _launch_pit(pairs_ij, peak_flops):
+    """K8 on one captured level (plain, kernel, kernel, plain), equal to its
+    plain version; its timing, with ``peak_flops`` the rate of its type."""
     import torch
 
     from odecheckpts_torch import kernels
 
-    e_i, e_j = captured["last_level"]
+    e_i, e_j = pairs_ij
     m, c, pairs = e_i[0].shape[0], e_i[1].shape[1], e_i[0].shape[-1]
     times = _time_pair((
         ("plain", lambda: kernels.pit_combine_plain(e_i, e_j)),
@@ -2285,7 +2339,9 @@ def phase_launch_pit(device, captured):
     nbytes = 3 * sum(x.numel() * x.element_size() for x in e_i)  # 10 in, 5 out
     info = _event_timing(times, nbytes, pairs * _combine_flops(m, c), "pit_combine",
                          lambda: kernels.pit_combine(e_i, e_j))
+    info["peak_flops"] = peak_flops
     emit({"phase": "one_launch", "kernel": "K8", "form": "pit_combine", "m": m, "c": c,
+          "dtype": str(e_i[0].dtype).removeprefix("torch."),
           "pairs": pairs, "kernel_ms": [times["kernel"][0], times["kernel2"][0]],
           "plain_ms": [times["plain"][0], times["plain2"][0]], "max_abs_dev": dev,
           "bytes": nbytes, "flops": info["flops"]})
@@ -2452,7 +2508,8 @@ def main():
     row_es, counts_es = _path(["step_everystep_attempt"], lambda: phase_main_everystep(device))
     timing["step_everystep_attempt"] = phase_launch_everystep(device, row_es)
     del row_es
-    captured = _capture_second_window(device)
+    captured = {**_capture_second_window(device, torch.float32),
+                **_capture_second_window(device, torch.float64, "f64/")}
     worst.update(phase_combine_pit(device, captured))
     _, counts_pit = _path(["pit_combine"], lambda: phase_main_pit(device))
     timing["pit_combine"] = phase_launch_pit(device, captured)
@@ -2490,10 +2547,11 @@ def main():
         if name in STANDALONE:
             rows[-1]["note"] = "no solve path launches it: the launches of its phase"
         if name in geometry:
-            g = geometry[name]
-            rows[-1].update(threads_per_lane=g["threads_per_lane"],
-                            lanes_per_block=g["lanes_per_block"], smem_bytes=g["smem_bytes"],
-                            blocks_per_sm=g["blocks_per_sm"])
+            rows[-1].update({k: v for k, v in geometry[name].items()
+                             if k in ("threads_per_lane", "lanes_per_block", "threads_per_pair",
+                                      "pairs_per_block", "smem_bytes", "blocks_per_sm")})
+        if "f64" in timing[name]:
+            rows[-1]["f64"] = timing[name]["f64"]
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

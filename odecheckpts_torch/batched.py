@@ -241,7 +241,7 @@ class StepLL(_StepConstants):
         if nu not in SUPPORTED_NU:
             raise NotImplementedError(
                 f"num_derivatives={nu} is not ported yet (the kernel is "
-                f"instantiated for {SUPPORTED_NU}): ROADMAP queue 1 item 3a"
+                f"instantiated for {SUPPORTED_NU}): ROADMAP queue 1 item 5"
             )
         super().__init__(nu=nu, d=d, error_calibration=error_calibration,
                          control=control, dtype=dtype)
@@ -544,7 +544,7 @@ def check_hbm_budget(batch, d, *, num_derivatives=4, num_save_at=5,
         )
 
 
-_NOT_PORTED = "is not ported yet: ROADMAP queue 1 item 3a"
+_NOT_PORTED = "is not ported yet: ROADMAP queue 1 item 5"
 ENGINES = ("cuda-loop", "cuda", "torch")
 
 

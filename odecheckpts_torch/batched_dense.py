@@ -27,7 +27,7 @@ runs a whole checkpoint interval of it as the CUDA kernel
 
 Ported configuration: fixedpoint, dynamic calibration, ``ode_order=1``,
 ``error_unit="qoi"``, TS1 or TS0, ``num_derivatives=4``.  Everything else
-raises ``NotImplementedError`` naming ROADMAP queue 1 item 3a.
+raises ``NotImplementedError`` naming ROADMAP queue 1 item 5.
 """
 
 from __future__ import annotations

@@ -28,7 +28,7 @@ refused.
 
 Ported configuration: isotropic backend, TS0, ``ode_order=1``, dynamic
 calibration, ``error_unit="qoi"``, ``num_derivatives`` in {2, 3, 4}.
-Everything else raises ``NotImplementedError`` naming ROADMAP queue 1 item 3a.
+Everything else raises ``NotImplementedError`` naming ROADMAP queue 1 item 5.
 
 Memory: a slot keeps the posterior (n d + n^2 floats a lane), the
 conditional (2 n^2 + n d) and the time: 106 floats a lane at nu = 4, d = 3,

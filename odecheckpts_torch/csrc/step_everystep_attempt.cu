@@ -17,7 +17,9 @@
 // memory (217 floats a lane read and written at nu = 4, d = 3), not the
 // arithmetic; the driver needs that round trip, because every attempt's
 // posterior and conditional are kept.  Lanes at t1 are frozen inside the
-// step, so the kernel steps every lane unconditionally.
+// step, so the kernel steps every lane unconditionally.  Of the 17 arrays an
+// attempt reads two (mean, chol); the lane holds only those and the scalars
+// (step_ll.cuh: LaneAttempt, store_attempt).
 
 #include "step_ll.cuh"
 
@@ -28,10 +30,10 @@ __global__ void __launch_bounds__(THREADS)
     step_everystep_attempt(Args args, Consts c, VF vf, int64_t B) {
   const int64_t b = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
   if (b >= B) return;
-  Lane<NU + 1, VF::D> s;
-  const LaneInputs in = load_lane(s, args, b, B);
+  LaneAttempt<NU + 1, VF::D> s;
+  const LaneInputs in = load_attempt(s, args, b, B);
   attempt<NU, VF, STRATEGY>(s, c, vf, in);
-  store_lane(s, args, b, B);
+  store_attempt<STRATEGY>(s, args, b, B);
 }
 
 template <int STRATEGY, class VF>

@@ -23,8 +23,9 @@
 // once per accepted attempt, read once per launch) to shared memory: at
 // nu = 4, where 255 registers do not hold a lane, the spills fall from
 // 1,060 to 246 bytes a thread; at nu = 2 the registers from 196 to 153.
-// K7 keeps every array in registers.  Designs that put the current state in shared memory,
-// or a team of two threads on a lane, were slower (PERF.md).
+// Designs that put the current state in shared memory, or a team of two
+// threads on a lane, were slower (PERF.md).  K7 holds only what its
+// attempt reads (LaneAttempt).
 
 // Layout: every array is lanes-last in device memory, so thread b reads
 // x[i * B + b] and neighbouring threads load neighbouring addresses.
@@ -113,19 +114,27 @@ struct RigidBodyAniso {
   }
 };
 
+// K7's lane: in registers only what an attempt of the smoother or the filter
+// reads (mean, chol and the scalars).  The arrays it does not read never
+// enter registers: an accepted smoother attempt stores its backward arrays
+// straight to the output (put_backward), and store_attempt copies the rest
+// from the input after the attempt (K7's first design held all 17 arrays
+// and spilled at nu = 4).
 template <int N, int D>
-struct Lane {
+struct LaneAttempt {
   float t, scale, t_prev, dt, errn_prev, nsteps, mle;
-  float mean[N][D], chol[N][N], bwdG[N][N], bwd_m[N][D], bwd_L[N][N];
-  float mean_prev[N][D], chol_prev[N][N], bwdG_prev[N][N], bwd_m_prev[N][D],
-      bwd_L_prev[N][N];
-  // before an accepted attempt replaces the current arrays
-  __device__ __forceinline__ void keep_previous() {
-    copy_to(mean_prev, mean);
-    copy_to(chol_prev, chol);
-    copy_to(bwdG_prev, bwdG);
-    copy_to(bwd_m_prev, bwd_m);
-    copy_to(bwd_L_prev, bwd_L);
+  float mean[N][D], chol[N][N];
+  float* const* out;
+  int64_t b, B;
+  bool moved;
+  // before an accepted attempt replaces the current arrays: they become the
+  // previous ones, which store_attempt copies from the input
+  __device__ __forceinline__ void keep_previous() { moved = true; }
+  __device__ __forceinline__ void put_backward(const float (&g)[N][N], const float (&m)[N][D],
+                                               const float (&l)[N][N]) const {
+    store(g, out[3], b, B);
+    store(m, out[4], b, B);
+    store(l, out[5], b, B);
   }
 };
 
@@ -170,7 +179,8 @@ constexpr int SMOOTHER = 1;
 constexpr int FILTER = 2;
 
 // One accept/reject attempt (make_step_ll's `step`), updating s in place
-// (a Lane, or a LanePrevShared).
+// (a LanePrevShared for the fixedpoint strategy, a LaneAttempt for the
+// others).
 template <int NU, class VF, int STRATEGY = FIXEDPOINT, class S>
 __device__ __forceinline__ void attempt(S& s, const Consts& c, const VF& vf,
                                         const LaneInputs& in) {
@@ -411,9 +421,7 @@ __device__ __forceinline__ void attempt(S& s, const Consts& c, const VF& vf,
       copy_to(s.bwdG, bwdG_new);
       copy_to(s.bwd_m, bwd_m_new);
     } else if constexpr (STRATEGY == SMOOTHER) {
-      copy_to(s.bwdG, gain);
-      copy_to(s.bwd_m, bwd_m_step);
-      copy_to(s.bwd_L, bwd_L_step);
+      s.put_backward(gain, bwd_m_step, bwd_L_step);
     }
     s.scale = new_scale;
     s.errn_prev = errn_s;
@@ -422,50 +430,86 @@ __device__ __forceinline__ void attempt(S& s, const Consts& c, const VF& vf,
   }
 }
 
+// K7's lane in: the scalars, mean and chol; the output pointers for
+// put_backward.
 template <int N, int D>
-__device__ __forceinline__ LaneInputs load_lane(Lane<N, D>& s, const Args& args, int64_t b,
-                                                int64_t B) {
+__device__ __forceinline__ LaneInputs load_attempt(LaneAttempt<N, D>& s, const Args& args,
+                                                   int64_t b, int64_t B) {
   s.t = args.in[0][b];
   load(s.mean, args.in[1], b, B);
   load(s.chol, args.in[2], b, B);
-  load(s.bwdG, args.in[3], b, B);
-  load(s.bwd_m, args.in[4], b, B);
-  load(s.bwd_L, args.in[5], b, B);
   s.scale = args.in[6][b];
   s.t_prev = args.in[7][b];
-  load(s.mean_prev, args.in[8], b, B);
-  load(s.chol_prev, args.in[9], b, B);
-  load(s.bwdG_prev, args.in[10], b, B);
-  load(s.bwd_m_prev, args.in[11], b, B);
-  load(s.bwd_L_prev, args.in[12], b, B);
   s.dt = args.in[13][b];
   s.errn_prev = args.in[14][b];
   s.nsteps = args.in[15][b];
   s.mle = args.in[16][b];
+  s.out = args.out;
+  s.b = b;
+  s.B = B;
+  s.moved = false;
   return LaneInputs{args.in[17][b], args.in[18][b], args.in[19][b],
                     args.in[20][b], args.in[21][b], args.in[22][b]};
 }
 
+// The five arrays mean, chol, bwdG, bwd_m, bwd_L of one lane, in registers
+// while store_attempt copies them.
 template <int N, int D>
-__device__ __forceinline__ void store_lane(const Lane<N, D>& s, const Args& args, int64_t b,
-                                           int64_t B) {
+struct Five {
+  float mean[N][D], chol[N][N], bwdG[N][N], bwd_m[N][D], bwd_L[N][N];
+  __device__ __forceinline__ void load_from(const float* const* src, int64_t b, int64_t B) {
+    load(mean, src[0], b, B);
+    load(chol, src[1], b, B);
+    load(bwdG, src[2], b, B);
+    load(bwd_m, src[3], b, B);
+    load(bwd_L, src[4], b, B);
+  }
+  __device__ __forceinline__ void store_to(float* const* dst, int64_t b, int64_t B) const {
+    store(mean, dst[0], b, B);
+    store(chol, dst[1], b, B);
+    store(bwdG, dst[2], b, B);
+    store(bwd_m, dst[3], b, B);
+    store(bwd_L, dst[4], b, B);
+  }
+};
+
+// K7's lane out, in two rounds of loads then stores (a lane waits for
+// device memory twice, whatever it copies):
+//   * the five previous arrays: the input's current arrays on an accepted
+//     lane, its previous arrays otherwise;
+//   * the five current arrays: on an accepted lane mean and chol from the
+//     registers and the backward arrays from the input for the filter (the
+//     smoother stored its own in put_backward); on a rejected or frozen
+//     lane all five from the input.
+// The scalars from the registers either way.
+template <int STRATEGY, int N, int D>
+__device__ __forceinline__ void store_attempt(const LaneAttempt<N, D>& s, const Args& args,
+                                              int64_t b, int64_t B) {
   args.out[0][b] = s.t;
-  store(s.mean, args.out[1], b, B);
-  store(s.chol, args.out[2], b, B);
-  store(s.bwdG, args.out[3], b, B);
-  store(s.bwd_m, args.out[4], b, B);
-  store(s.bwd_L, args.out[5], b, B);
   args.out[6][b] = s.scale;
   args.out[7][b] = s.t_prev;
-  store(s.mean_prev, args.out[8], b, B);
-  store(s.chol_prev, args.out[9], b, B);
-  store(s.bwdG_prev, args.out[10], b, B);
-  store(s.bwd_m_prev, args.out[11], b, B);
-  store(s.bwd_L_prev, args.out[12], b, B);
   args.out[13][b] = s.dt;
   args.out[14][b] = s.errn_prev;
   args.out[15][b] = s.nsteps;
   args.out[16][b] = s.mle;
+  Five<N, D> x;
+  x.load_from(args.in + (s.moved ? 1 : 8), b, B);
+  x.store_to(args.out + 8, b, B);
+  if (!s.moved) {
+    x.load_from(args.in + 1, b, B);
+    x.store_to(args.out + 1, b, B);
+    return;
+  }
+  store(s.mean, args.out[1], b, B);
+  store(s.chol, args.out[2], b, B);
+  if constexpr (STRATEGY == FILTER) {
+    load(x.bwdG, args.in[3], b, B);
+    load(x.bwd_m, args.in[4], b, B);
+    load(x.bwd_L, args.in[5], b, B);
+    store(x.bwdG, args.out[3], b, B);
+    store(x.bwd_m, args.out[4], b, B);
+    store(x.bwd_L, args.out[5], b, B);
+  }
 }
 
 // The current arrays and scalars of a LanePrevShared in and out; the

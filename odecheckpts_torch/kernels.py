@@ -30,7 +30,8 @@ with its strategy, K7), ``batched_hi.StepHi`` (df32 pairs),
 ``batched_dense.StepDense`` (f32, dense covariance, TS1 or TS0) and
 ``batched_blockdiag.StepBD`` (f32, one factor and one scale per dimension).
 K8 is one level of the parallel-in-time prefix (the sqrt combine of a window's
-element pairs, float or double; twin ``pit_fused.combine_sqrt_ll``); K9-K11
+element pairs, float or double, a team of 8 threads a pair; twin
+``pit_fused.combine_sqrt_ll``); K9-K11
 are standalone: the batched QR and the two variants of its layout
 microbenchmark (``batched_qr``, ``qr_packing``).
 
@@ -121,6 +122,7 @@ _ENTRIES = {
     "odeckpt_step_ll_interval_geometry": [_INT, _PTR],
     "odeckpt_step_ll_attempt_geometry": [_INT, _PTR],
     "odeckpt_step_everystep_attempt_geometry": [_INT, _INT, _PTR],
+    "odeckpt_pit_combine_geometry": [_INT, _INT, _INT, _PTR],
 }
 # K7's strategy argument (the template parameter of step_ll.cuh's attempt)
 STRATEGY_CODES = {"fixedpoint": 0, "smoother": 1, "filter": 2}
@@ -217,10 +219,39 @@ def ll_geometry(nu, d=3):
 
 
 def everystep_geometry(nu):
-    """K7's launch geometry (every strategy, nu = 2, 3 or 4): the first
-    design of K1's step, ``hi_geometry``'s keys, no shared memory."""
+    """K7's launch geometry (every strategy, nu = 2, 3 or 4): a thread per
+    lane, ``hi_geometry``'s keys, no shared memory (the arrays an attempt
+    does not read are copied from the input to the output after it,
+    ``store_attempt`` in step_ll.cuh)."""
     ll_geometry(nu)
     return _thread_per_lane()
+
+
+# K8's launch geometry (pit_combine.cuh): a team of PIT_TEAM threads a pair,
+# PIT_PAIRS_PER_BLOCK pairs a block in two warps (the R1 and the R2 halves)
+PIT_TEAM, PIT_PAIRS_PER_BLOCK = 8, 8
+
+
+def pit_combine_geometry(m, c, dtype=torch.float32):
+    """K8's launch geometry for state dimension ``m``, ``c`` mean columns
+    and ``dtype`` (float32 or float64), as ``odeckpt_pit_combine_geometry``
+    reports it: threads a pair, pairs and threads a block, and the block's
+    shared memory: each pair's slice (``PairShared``: the ten operands, the
+    two halves' product, column list, factor and right solve, and A_j U_i:
+    17 m^2 + 4 m c scalars) at a stride of half a team more than a
+    multiple of 32 scalars."""
+    if m not in PIT_COMBINE_M or c not in PIT_COMBINE_C:
+        raise ValueError(
+            f"pit_combine is built for m in {PIT_COMBINE_M} and c in {PIT_COMBINE_C}, "
+            f"got m={m}, c={c}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"pit_combine takes float32 or float64 operands, got {dtype}")
+    scalars = 17 * m * m + 4 * m * c
+    stride = scalars + (PIT_TEAM // 2 - scalars) % 32
+    itemsize = 8 if dtype == torch.float64 else 4
+    return {"threads_per_pair": PIT_TEAM, "pairs_per_block": PIT_PAIRS_PER_BLOCK,
+            "threads_per_block": PIT_TEAM * PIT_PAIRS_PER_BLOCK,
+            "smem_bytes": PIT_PAIRS_PER_BLOCK * stride * itemsize}
 
 
 def _nvcc():
@@ -671,15 +702,16 @@ def step_hi_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_s
 
 _GEOMETRY_KEYS = ("threads_per_lane", "lanes_per_block", "threads_per_block", "smem_bytes",
                   "blocks_per_sm", "registers", "local_bytes")
+_PIT_GEOMETRY_KEYS = ("threads_per_pair", "pairs_per_block") + _GEOMETRY_KEYS[2:]
 
 
-def _geometry_entry(symbol, *args):
+def _geometry_entry(symbol, *args, keys=_GEOMETRY_KEYS):
     lib = library()
-    out = (ctypes.c_int * len(_GEOMETRY_KEYS))()
+    out = (ctypes.c_int * len(keys))()
     rc = getattr(lib.lib, symbol)(*(int(a) for a in args), ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"{symbol} failed: {lib.error_string(rc)} ({rc})")
-    return dict(zip(_GEOMETRY_KEYS, out))
+    return dict(zip(keys, out))
 
 
 def step_hi_geometry(kernel, nu=4):
@@ -712,6 +744,17 @@ def step_everystep_geometry(nu=4, strategy="smoother"):
     if strategy not in ("smoother", "filter"):
         raise ValueError(f"K7 runs the smoother or the filter strategy, got {strategy!r}")
     return _geometry_entry("odeckpt_step_everystep_attempt_geometry", nu, STRATEGY_CODES[strategy])
+
+
+def step_pit_combine_geometry(m=4, c=3, dtype=torch.float32):
+    """K8's launch geometry on the current CUDA device for the (m, c,
+    dtype) instantiation: ``pit_combine_geometry``'s keys,
+    ``blocks_per_sm`` (resident blocks, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), ``registers`` and
+    ``local_bytes`` per thread."""
+    pit_combine_geometry(m, c, dtype)
+    return _geometry_entry("odeckpt_pit_combine_geometry", m, c, dtype == torch.float64,
+                           keys=_PIT_GEOMETRY_KEYS)
 
 
 def step_dense_interval(step, state, t_next, *, atol, rtol, dt_max, dt_floor,

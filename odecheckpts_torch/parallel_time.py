@@ -295,7 +295,7 @@ def _adapters(ssm):
         raise NotImplementedError(
             f"parallel in time on the {ssm.name} backend is not ported yet (the dense adapter "
             "needs ssm/dense's h_q_unit, error_and_scale, correct_affine and h_l_rows, the "
-            "blockdiag one its single-solve methods): ROADMAP queue 1 items 7 and 9"
+            "blockdiag one its single-solve methods): ROADMAP queue 1 item 3"
         )
     nu, n = ssm.num_derivatives, ssm.n
 
@@ -473,7 +473,7 @@ def solve_fixed_grid_parallel(
     if time_shard is not None:
         raise NotImplementedError(
             "time_shard (the step axis sharded over devices) is not ported yet: ROADMAP "
-            "queue 1 item 11"
+            "queue 1 item 8"
         )
     _parse_warmstart(warmstart)  # validate early
     return _solve_fixed_grid_parallel(

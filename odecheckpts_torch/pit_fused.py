@@ -8,7 +8,7 @@ every element with its s-left neighbour.  ``combine_sqrt_ll`` is that combine
 in plain vectorized torch ops (the twin); ``engine="cuda"`` runs each level
 as one launch of the hand-written kernel ``csrc/pit_combine.cu``
 (``kernels.pit_combine``), which computes the twin's operations in the twin's
-order, one element pair per thread.  The shift, the identity fill and the
+order, a team of 8 threads a pair.  The shift, the identity fill and the
 ``where(lane >= s)`` between the levels stay in PyTorch.
 
 The element build (``element_sqrt_ll``) and the window marginals

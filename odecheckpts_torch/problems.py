@@ -103,7 +103,7 @@ def brusselator(N, t0=0.0, tmax=10.0, laplacian="slices"):
     if laplacian != "slices":
         raise NotImplementedError(
             f"laplacian={laplacian!r} is not ported (the 'slices' form computes the "
-            "same band): ROADMAP queue 1 item 12"
+            "same band): ROADMAP queue 1 item 5"
         )
     const = 1.0 / 50.0 * (N + 1) ** 2
 

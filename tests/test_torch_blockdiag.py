@@ -432,11 +432,11 @@ def test_blockdiag_reaches_the_blockdiag_engine_and_refuses_ts1(monkeypatch):
 
 
 @pytest.mark.parametrize("option, item", [
-    (dict(strategy="filter"), "item 3a"),
-    (dict(strategy="smoother"), "item 3a"),
-    (dict(calibration="none"), "item 3a"),
-    (dict(ode_order=2), "item 3a"),
-    (dict(error_unit="residual"), "item 3a"),
+    (dict(strategy="filter"), "item 5"),
+    (dict(strategy="smoother"), "item 5"),
+    (dict(calibration="none"), "item 5"),
+    (dict(ode_order=2), "item 5"),
+    (dict(error_unit="residual"), "item 5"),
     (dict(num_derivatives=5), "num_derivatives"),
 ])
 def test_unported_blockdiag_options_name_their_roadmap_item(option, item):

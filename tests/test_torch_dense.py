@@ -504,10 +504,10 @@ def test_ts1_with_d_above_1_reaches_the_dense_engine(monkeypatch):
 @pytest.mark.parametrize("option, item", [
     # blockdiag is ported (TS0 only): an option its engine lacks names both items
     (dict(implementation="blockdiag", correction="ts0", strategy="filter"), "item 5"),
-    (dict(strategy="filter"), "item 3a"),
-    (dict(calibration="none"), "item 3a"),
-    (dict(ode_order=2), "item 3a"),
-    (dict(error_unit="residual"), "item 3a"),
+    (dict(strategy="filter"), "item 5"),
+    (dict(calibration="none"), "item 5"),
+    (dict(ode_order=2), "item 5"),
+    (dict(error_unit="residual"), "item 5"),
     (dict(num_derivatives=3), "num_derivatives"),
 ])
 def test_unported_dense_options_name_their_roadmap_item(option, item):

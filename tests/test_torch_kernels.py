@@ -6,10 +6,10 @@ the port is installed:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 
-On a machine without a CUDA device those tests skip.  K1-K6 are held to
-their twins bit for bit (every f32 operation rounds on its own in both: the
-kernels are built with ``-fmad=false``), each launch made twice and required
-identical (races show as run-to-run differences).
+On a machine without a CUDA device those tests skip.  K1-K8 are held to
+their twins or plain versions bit for bit (every operation rounds on its own
+in both: the kernels are built with ``-fmad=false``), each launch made twice
+and required identical (races show as run-to-run differences).
 """
 
 import numpy as np
@@ -323,7 +323,8 @@ def test_ll_geometry_is_a_thread_per_lane_that_fits_the_card(nu):
     """K1's and K3's launch geometry, the same in both forms: one thread per
     IVP lane, blocks of 128 lanes (lanes.cuh), the lane's five
     previous arrays (2 n d + 3 n^2 floats) in shared memory, two blocks of
-    which fit an SM; K7 keeps no shared memory."""
+    which fit an SM; K7 takes no shared memory: what its attempt does not
+    read is copied from the input after the attempt (step_ll.cuh)."""
     g = kernels.ll_geometry(nu)
     n = nu + 1
     assert g == {"threads_per_lane": 1, "lanes_per_block": 128, "threads_per_block": 128,
@@ -896,6 +897,34 @@ def test_everystep_kernel_k7_matches_twin_on_the_card(cuda_device, strategy, nu,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nu", [2, 3, 4])
+@pytest.mark.parametrize("strategy", ["smoother", "filter"])
+def test_everystep_kernel_k7_ragged_and_repeatable_on_the_card(cuda_device, strategy, nu):
+    """K7 on 1,001 lanes (not a whole number of blocks) at tol 1e-1..1e-5,
+    mid-solve, with a NaN lane, a lane whose time is NaN and two lanes at or
+    past t1 (frozen): accepted lanes take the new arrays, rejected and
+    frozen ones pass the input's through (store_attempt's two branches in
+    one block); equal to the twin bit for bit, and two launches equal."""
+    step, state, t1, inputs = _start_everystep(strategy, nu, batch=1001, warm_steps=20,
+                                               device=cuda_device)
+    state = [x.clone() for x in state]
+    state[1][:, :, 3] = float("nan")
+    state[0][:, 7] = float("nan")
+    state[0][:, 10] = t1[:, 10]
+    state[0][:, 11] = t1[:, 11] + 1.0
+    state = tuple(state)
+    want = kernels.step_everystep_attempt_plain(step, state, t1, **inputs)
+    before = kernels.LAUNCHES["step_everystep_attempt"]
+    first = kernels.step_everystep_attempt(step, state, t1, **inputs)
+    second = kernels.step_everystep_attempt(step, state, t1, **inputs)
+    assert kernels.LAUNCHES["step_everystep_attempt"] == before + 2
+    torch.cuda.synchronize()
+    _assert_same_bits(first, second, tuple(x.contiguous() for x in want))
+    accepted = int(torch.sum(want[15] != state[15]))
+    assert 0 < accepted < 1001 - 3  # both branches of store_attempt ran
+
+
+@pytest.mark.cuda
 def test_k6_k7_refuse_a_vector_field_without_device_functor(cuda_device):
     step, state, t_next, inputs = _start_bd("rigid_body", 4, batch=128, warm_steps=0,
                                             device=cuda_device)
@@ -924,15 +953,69 @@ def _elements_ll(seed, p, m, c, dtype, device):
 @pytest.mark.parametrize("m", [3, 4, 5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_pit_combine_k8_matches_its_plain_version_on_the_card(cuda_device, dtype, m, c, pairs):
+    """K8 on random elements, the first lanes identity elements (what the
+    prefix's shift feeds it) and one lane NaN: equal to the plain version
+    bit for bit, and two launches equal (the team's race check)."""
     e_i = _elements_ll(70, pairs, m, c, dtype, cuda_device)
     e_j = _elements_ll(71, pairs, m, c, dtype, cuda_device)
+    e_i = tuple(x.clone() for x in e_i)
+    e_i[0][:, :, :7] = torch.eye(m, dtype=dtype, device=cuda_device)[..., None]
+    for x in e_i[1:]:
+        x[..., :7] = 0.0
+    for x in e_j:
+        x[..., 9] = float("nan")
     before = kernels.LAUNCHES["pit_combine"]
     got = kernels.pit_combine(e_i, e_j)
-    assert kernels.LAUNCHES["pit_combine"] == before + 1
+    again = kernels.pit_combine(e_i, e_j)
+    assert kernels.LAUNCHES["pit_combine"] == before + 2
     want = kernels.pit_combine_plain(e_i, e_j)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):  # bit for bit
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    _assert_same_bits(got, again, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m, c", [(3, 1), (4, 3), (5, 3)])
+def test_pit_combine_geometry_is_a_team_of_eight_a_pair(m, c, dtype):
+    """K8's launch geometry (pit_combine.cuh): 8 threads a pair in two halves
+    of 4, a block of 8 pairs in two warps (the R1 halves, the R2 halves);
+    each pair's slice of shared memory holds the ten operands, the two
+    halves' scratch (product, (2m, m) column list, factor, right solve) and
+    A_j U_i, at a stride of 4 more than a multiple of 32 scalars (element
+    k + member of a warp's pairs in 32 different banks)."""
+    g = kernels.pit_combine_geometry(m, c, dtype)
+    size = 8 if dtype == torch.float64 else 4
+    scalars = 2 * (3 * m * m + 2 * m * c) + 2 * (m * m + 2 * m * m + m * m + m * m) + m * m
+    stride = g["smem_bytes"] // (8 * size)
+    assert (g["threads_per_pair"], g["pairs_per_block"], g["threads_per_block"]) == (8, 8, 64)
+    assert g["smem_bytes"] == 8 * size * stride and stride % 32 == 4
+    assert scalars <= stride < scalars + 32
+    assert g["smem_bytes"] <= 48 * 1024  # static shared memory
+    assert kernels.pit_combine_geometry(5, 3, torch.float64)["smem_bytes"] == 33_024
+
+
+def test_pit_combine_geometry_refuses_what_is_not_built():
+    with pytest.raises(ValueError, match="built for"):
+        kernels.pit_combine_geometry(6, 1)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        kernels.pit_combine_geometry(4, 3, torch.float16)
+    with pytest.raises(ValueError, match="built for"):
+        kernels.step_pit_combine_geometry(4, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("c", [1, 2, 3])
+@pytest.mark.parametrize("m", [3, 4, 5])
+def test_pit_combine_k8_geometry_on_the_card(cuda_device, m, c, dtype):
+    """The geometry that K8's C entry reports is the Python mirror's and a
+    block fits an SM; the fixed-grid path's instantiation (m = 4, c = 3)
+    keeps no local memory (no spills, no stack)."""
+    g = kernels.step_pit_combine_geometry(m, c, dtype)
+    assert {k: g[k] for k in kernels.pit_combine_geometry(m, c, dtype)} == \
+        kernels.pit_combine_geometry(m, c, dtype)
+    assert g["blocks_per_sm"] >= 1
+    if (m, c) == (4, 3):
+        assert g["local_bytes"] == 0
 
 
 @pytest.mark.cuda
