@@ -175,7 +175,55 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
     other on the upper triangle (rtol 2e-4, atol 2e-5), then timed at
     m = n = 10, iters 200, B = 8192 (the reference's size), 32,768 and
     262,144: millions of QRs per second and ``packed_over_cols``.
-26. the kernel table line and the result line.
+26. adaptive_iso: the generic adaptive save_at (``ivpsolve.solve_adaptive_save_at``,
+    plain PyTorch, no kernel) on phase 4's lanes and inputs at rtol 1e-3 with
+    the parity schedule's (nu, kappa) = (4, 3), batched init and tolerances,
+    fixedpoint, dynamic calibration, f32: phase 4's gates on the smoothed
+    values, and its mean accepted steps per lane within 5% of K1's row
+    (the reference's bound, ``tests/test_batched.py:40-42``).  Reported: its
+    seconds and attempts (one solve), the per-lane step differences.
+27. adaptive_dense, adaptive_bd: the same driver on the dense TS1 row's
+    lanes (phase 11, Brusselator N = 2, rtol 1e-5, f32; cut to its first
+    16,384 lanes) and on the blockdiag row's (phase 15, tol 1e-5, f32, all
+    32,768 lanes; cut to its first three checkpoints, t = 25, as the
+    generic row is host-bound): the fused rows' gate bounds on the
+    filtered values (over the scale for blockdiag) and mean steps within
+    5% of K5's and K6's on the same lanes and checkpoints.  The blockdiag
+    lanes' second component is 0, so that dimension's variance underflows
+    and the correction keeps its predicted state.  The f32 blockdiag
+    row's smoothed values are reported, not gated (the generic f32
+    fixedpoint smoother amplifies the filter's error on some lanes);
+    K6's gates on the smoothed values hold the generic blockdiag solve in
+    float64 on the 256 truth lanes (adaptive_bd_f64).  Every adaptive row
+    fails after ADAPTIVE_MAX_ATTEMPTS attempts.
+28. adaptive_pit: ``ivpsolve.solve_adaptive_parallel_in_time(combine_engine=
+    "cuda")`` on the fixed-grid row's rigid body (tspan (0, 10), nu = 3,
+    filter, dynamic calibration) in float64 at rtol PIT_ADAPTIVE_RTOL (the
+    discovery gives 1,000-4,000 accepted steps, gated), window 256,
+    PIT_ADAPTIVE_SWEEPS sweeps, on the isotropic backend and on blockdiag
+    (K8 with its block axis, (m, m, d, P) folded into the lanes): within
+    PIT_F64_GATE of the sequential ``solve_fixed_grid`` on the discovered
+    grid; K8 launched windows x sweeps x levels times in that solve (its
+    own counts: the ``launches_adaptive_pit`` of K8's row and the
+    ``launches`` of its ``blocked`` entry); then, outside those counts, the
+    parallel pass on the solve's grid with the gate off equal to
+    ``combine_engine="ll"`` in every output.  The blockdiag pass's last K8
+    launch, with its block axis as the wrapper was given it, is held bit
+    for bit against ``pit_fused.combine_sqrt_ll`` (plain, kernel, kernel,
+    plain) and timed: the ``blocked`` entry of K8's row.  Two sweeps: the
+    discovery warm start already sits at the filter's answer, and on
+    blockdiag more sweeps do not contract (each dimension's dynamic sigma
+    |z_i| / s_unit jumps where z_i crosses 0), so a window's later sweeps
+    wander (on an H100: 1.2e-4 from the sequential solve at 4 sweeps,
+    7.6e-9 at 2; PERF.md).
+29. logistic: the quickstart in float64, fixedpoint TS0(3)
+    ``solve_adaptive_save_at`` with ``solver_mle`` at atol = rtol = 1e-8 on 7
+    checkpoints: filtered and smoothed values within rtol 1e-5 of the closed
+    form, u(2.5) within 1e-4 of 0.5751, one MLE output scale.
+30. the kernel table line and the result line.
+
+Phases 26-29 run beside the rows whose lanes they reuse: 26 after 9,
+adaptive_dense after 13, adaptive_bd after 18, 28 and 29 after 22.
 
 Every kernel's ``ms`` is its device time (``_device_time``: DEVICE_LAUNCHES
 launches back to back behind a sleep of the stream, so the wrapper's host
@@ -184,9 +232,9 @@ time overlaps the card's busy wait), with the wrapper's host time per call
 which holds the wrapper's host time) and torch.profiler's device time in a
 ``device_time`` line each.
 
-Each path of phases 4, 6, 8, 9, 11, 13, 15, 18, 20 and 22 runs with the launch
-counts set to 0 just before it and read just after; a kernel of the path
-that did not launch fails the run.  Kernel-against-plain comparisons run outside those
+Each path of phases 4, 6, 8, 9, 11, 13, 15, 18, 20, 22 and 28 runs with the
+launch counts set to 0 just before it and read just after; a kernel of the
+path that did not launch fails the run.  Kernel-against-plain comparisons run outside those
 windows.  Each kernel's ``bound_ms`` is the larger of its state's bytes
 (read once and written once per launch) over 3.35 TB/s and the f32
 operations of the accepted attempts of the timed launch over 67 TFLOP/s
@@ -195,7 +243,9 @@ shapes in ``_attempt_flops``; rejected attempts are not counted, so the bound
 is a lower one).  K8-K11: each input read once and each output written once,
 against the operations of the algorithm (``_combine_flops``; ``_qr_flops``
 per QR, the same count for K10 and K11); K9-K11 are on no solve path, their
-``launches`` are those of their phases.
+``launches`` are those of their phases.  ``library_ms``: K9's and K10 / K11's
+``torch.linalg.qr(mode="r")`` on the same batch (for K10 / K11 one call a QR,
+times PACKING_ITERS), timed here and used nowhere in the port.
 """
 
 from __future__ import annotations
@@ -315,6 +365,17 @@ PIT_LSODA_BOUND = 1e-2  # max abs; a CPU f32 run of the port measured 2.31e-3
 PIT_F64_WINDOWS = 2
 PIT_F64_GATE = 1e-6
 PIT_SEQ_WARM_T = 257
+ADAPTIVE_RTOL = 1e-3  # the generic isotropic row: the parity schedule's (nu, kappa) at 1e-3
+ADAPTIVE_STEPS_RTOL = 0.05  # mean accepted steps against the fused engine's: tests/test_batched.py:40-42
+PIT_ADAPTIVE_RTOL = 1e-7  # float64 rigid body on (0, 10), nu = 3: about 1,400-1,600 accepted steps
+PIT_ADAPTIVE_WINDOW = 256
+PIT_ADAPTIVE_SWEEPS = 2  # a fixed count (no iteration_tol): launches = windows x sweeps x levels
+PIT_ADAPTIVE_MAX_STEPS = 4_096
+LOGISTIC_TOL = 1e-8  # the quickstart: tests/test_solve.py:70-96
+ADAPTIVE_DENSE_LANES = 16_384  # cut from 32,768 for the script's time (phase 27)
+ADAPTIVE_BD_CHECKPOINTS = 3  # blockdiag generic rows solve to t = 25 (phase 27)
+ADAPTIVE_MAX_ATTEMPTS = 20_000  # about 10x the most a generic row takes (K6's row: 1,913)
+LOGISTIC_U_T1 = 0.5751  # u(2.5), .claude/skills/verify/SKILL.md
 QR_SHAPES = ((130, 10, 5), (128, 6, 6), (64, 4, 2), (32_768, 10, 5))
 PACKING_ITERS = 200
 PACKING_BATCHES = (8_192, 32_768, 262_144)
@@ -342,7 +403,13 @@ SLEEP_CYCLES = 200_000_000
 SYMBOLS = {"batched_qr_r": "batched_qr"}
 
 
+_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the script's seconds so far."""
+    if "phase" in obj:
+        obj = obj | {"script_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -2303,6 +2370,346 @@ def phase_main_pit(device):
         raise AssertionError(f"fixed-grid rows failed their gates: {failed}")
 
 
+def _count_attempts(fn, limit=ADAPTIVE_MAX_ATTEMPTS):
+    """``fn()`` and the number of accept/reject attempts the adaptive drivers
+    of ``ivpsolve`` ran in it (every call of the step ``_make_step`` built);
+    fails after ``limit`` attempts (a lane whose error estimate went NaN
+    creeps on at the time resolution and would hold the loop for hours)."""
+    from odecheckpts_torch import ivpsolve
+
+    calls, make = [0], ivpsolve._make_step
+
+    def counting(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def counted(state):
+            calls[0] += 1
+            if calls[0] > limit:
+                raise AssertionError(f"more than {limit} attempts: a lane no longer advances")
+            return step(state)
+
+        return counted
+
+    ivpsolve._make_step = counting
+    try:
+        out = fn()
+    finally:
+        ivpsolve._make_step = make
+    return out, calls[0]
+
+
+def _generic_solver(implementation, correction="ts0", nu=4, kappa=None, d=3,
+                    strategy="fixedpoint", calibration="dynamic"):
+    from odecheckpts_torch import ivpsolvers
+
+    prior = ivpsolvers.prior_ibm(num_derivatives=nu, ode_shape=(d,),
+                                 implementation=implementation)
+    corr = getattr(ivpsolvers, f"correction_{correction}")(error_calibration=kappa)
+    strat = getattr(ivpsolvers, f"strategy_{strategy}")(prior, corr)
+    return getattr(ivpsolvers, {"dynamic": "solver_dynamic", "none": "solver",
+                                "mle": "solver_mle"}[calibration])(strat)
+
+
+def _generic_init(solver, vf, u0s, nu):
+    """The Taylor init of every lane (the vector fields are row-wise, so the
+    ensemble goes in lanes-last), in the lanes' dtype."""
+    from odecheckpts_torch import taylor
+
+    tc = taylor.odejet_padded_scan(lambda u: vf(u, t=0.0), (u0s.T,), num=nu)
+    return solver.initial_condition([c.T.to(u0s.dtype).contiguous() for c in tc], 1.0)
+
+
+def _one_lane(init):
+    """The init of a one-lane ensemble as the init of one IVP."""
+    rv, scale = init
+    return type(rv)(rv.mean[0], rv.cholesky[0]), scale
+
+
+def _generic_smoothed(sol):
+    """The smoothing pass over a save_at solution: the values time-leading,
+    (T, ...) with the batch axes after, as the solution holds them."""
+    import torch
+
+    from odecheckpts_torch import stats
+
+    margs = stats.markov_marginals(stats.markov_select_terminal(sol.posterior), reverse=True)
+    return sol.ssm.qoi(torch.cat([margs.mean, sol.posterior.init.mean[-1:]]))
+
+
+def _steps_against(nsteps, fused):
+    """Per-lane final step counts (B, T) of the generic solve against a fused
+    engine's: their means, the relative gap and the per-lane differences."""
+    g = nsteps[:, -1].double()
+    f = fused[:, -1].double()
+    diff = (g - f).cpu().numpy()
+    mean_g, mean_f = float(g.mean()), float(f.mean())
+    return {"mean_steps": mean_g, "fused_mean_steps": mean_f,
+            "mean_steps_rel_gap": abs(mean_g - mean_f) / mean_f,
+            "lane_diff_min": int(diff.min()), "lane_diff_max": int(diff.max()),
+            "lane_diff_mean": float(diff.mean()), "lane_diff_mean_abs": float(np.abs(diff).mean()),
+            "lanes_equal_share": float(np.mean(diff == 0))}
+
+
+def _adaptive_row(phase, vf, u0s, tols, save_at, dt0, solver, nu):
+    """One ``ivpsolve.solve_adaptive_save_at`` of the ensemble: its seconds,
+    attempts and solution (values (B, T, d), step counts (B, T))."""
+    import torch
+
+    from odecheckpts_torch import ivpsolve
+
+    init = _generic_init(solver, vf, u0s, nu)
+    save_at_t = torch.tensor(save_at, dtype=u0s.dtype, device=u0s.device)
+    asolver = ivpsolve.adaptive(solver, atol=1e-3 * tols, rtol=tols)
+    torch.cuda.reset_peak_memory_stats(u0s.device)
+    seconds, (sol, attempts) = _timed(lambda: _count_attempts(
+        lambda: ivpsolve.solve_adaptive_save_at(vf, init, save_at=save_at_t, dt0=dt0,
+                                                adaptive_solver=asolver)))
+    info = {"phase": phase, "batch": int(u0s.shape[0]), "seconds": seconds,
+            "attempts": attempts, "ms_per_attempt": 1e3 * seconds / attempts,
+            "peak_bytes": torch.cuda.max_memory_allocated(u0s.device)}
+    return info, sol
+
+
+def _adaptive_checks(name, info, ok, finite, steps):
+    info["steps"] = steps
+    emit(info)
+    if not (ok and finite and steps["mean_steps_rel_gap"] <= ADAPTIVE_STEPS_RTOL):
+        raise AssertionError(f"{name} failed: gates {ok}, finite {finite}, steps {steps}")
+
+
+def phase_adaptive_iso(device, truth, u0s, loop_ll):
+    """The generic adaptive save_at (``ivpsolve.solve_adaptive_save_at``, no
+    kernel) on the f32 main row at rtol 1e-3: phase 4's gates, and K1's mean
+    steps within 5%."""
+    import torch
+
+    from odecheckpts_torch import problems
+
+    vf_p, _, _, params = problems.rigid_body(time_span=TSPAN)
+
+    def vf(u, *, t):
+        return vf_p(u, t=t, p=params)
+
+    nu, kappa = SCHEDULES["parity"][ADAPTIVE_RTOL]
+    tols = torch.full((BATCH,), ADAPTIVE_RTOL, dtype=torch.float32, device=device)
+    solver = _generic_solver("isotropic", nu=nu, kappa=kappa)
+    info, sol = _adaptive_row("adaptive_iso", vf, u0s, tols, _save_at(), DT0, solver, nu)
+    u_s, nsteps = _generic_smoothed(sol).movedim(1, 0), sol.num_steps.T
+    ok, rmse, worst, capped = _gates(u_s, nsteps, truth, ADAPTIVE_RTOL)
+    info.update({"rtol": ADAPTIVE_RTOL, "nu": nu, "kappa": kappa, "gated": "u_smooth",
+                 "rmse_over_rtol": rmse / ADAPTIVE_RTOL,
+                 "worst_lane_over_rtol": worst / ADAPTIVE_RTOL, "capped_lanes": capped,
+                 "fused_kernel": "K1", "fused_seconds": loop_ll["seconds"]})
+    finite = bool(torch.all(torch.isfinite(u_s)))
+    _adaptive_checks("adaptive_iso", info, ok, finite, _steps_against(nsteps, loop_ll["nsteps"]))
+
+
+def phase_adaptive_dense(device, loop):
+    """The generic adaptive save_at on the first ADAPTIVE_DENSE_LANES of the
+    dense TS1 row's lanes (K5's row; the cut keeps the new phases near
+    their time budget): its gates on the filtered values, and K5's mean
+    steps on the same lanes within 5%."""
+    import torch
+
+    vf_p, _, params, dt0 = _dense_problem("brusselator")
+
+    def vf(u, *, t):
+        return vf_p(u, t=t, p=params)
+
+    lanes = ADAPTIVE_DENSE_LANES
+    u0s = loop["u0s"][:lanes]
+    solver = _generic_solver("dense", "ts1", d=u0s.shape[1])
+    info, sol = _adaptive_row("adaptive_dense", vf, u0s, loop["tols"][:lanes], _dense_save_at(),
+                              dt0, solver, 4)
+    u_f, nsteps = sol.u.movedim(1, 0), sol.num_steps.T
+    ok, rmse, worst, capped = _gates(u_f, nsteps, loop["truth"], DENSE_RTOL, DENSE_RMSE_FACTOR,
+                                     DENSE_LANE_FACTOR)
+    info.update({"problem": f"brusselator N={DENSE_N}", "correction": "ts1", "rtol": DENSE_RTOL,
+                 "gated": "u_filt", "rmse_over_rtol": rmse / DENSE_RTOL,
+                 "worst_lane_over_rtol": worst / DENSE_RTOL, "capped_lanes": capped,
+                 "fused_kernel": "K5", "fused_seconds": loop["seconds"]})
+    finite = bool(torch.all(torch.isfinite(u_f)))
+    _adaptive_checks("adaptive_dense", info, ok, finite,
+                     _steps_against(nsteps, loop["nsteps"][:lanes]))
+
+
+def phase_adaptive_bd(device, loop):
+    """The generic adaptive save_at on the blockdiag row's lanes (K6's row)
+    to its third checkpoint (t = 25, ADAPTIVE_BD_CHECKPOINTS; the cut keeps
+    the new phases near their time budget: the row is host-bound, so lanes
+    would not buy it).  In float32 as K6 solves them, at full width: every
+    value finite, every lane done inside the attempt cap, K6's gate bounds
+    on the filtered values over the scale, and K6's mean steps to t = 25
+    within 5%.  u0's second component is 0 in every lane, so that
+    dimension's first residual is exactly 0, its scale the floor
+    tiny^(1/2) and its predicted variance underflows: the correction keeps
+    that dimension's predicted state there (``linalg.rank1_gain``).  The
+    f32 smoothed values are reported, not gated: the generic f32
+    fixedpoint smoother amplifies the filter's error on some lanes
+    (ROADMAP section 3).  Then K6's gates on the smoothed values hold the
+    generic solve in float64 on the 256 truth lanes (adaptive_bd_f64)."""
+    import torch
+
+    vf_p, _, params, dt0 = _bd_problem("anisotropic")
+
+    def vf(u, *, t):
+        return vf_p(u, t=t, p=params)
+
+    k = ADAPTIVE_BD_CHECKPOINTS
+    truth, fused_steps = loop["truth"][:, :k], loop["nsteps"][:, :k]
+    solver = _generic_solver("blockdiag")
+    info, sol = _adaptive_row("adaptive_bd", vf, loop["u0s"], loop["tols"], _save_at()[:k],
+                              dt0, solver, 4)
+    u_s, nsteps = _generic_smoothed(sol).movedim(1, 0), sol.num_steps.T
+    ok, rmse_f, worst_f, capped = _bd_gates(sol.u.movedim(1, 0), nsteps, truth, torch)
+    _, rmse, worst, _ = _bd_gates(u_s, nsteps, truth, torch)
+    finite = (bool(torch.all(torch.isfinite(u_s))) and bool(torch.all(torch.isfinite(sol.u)))
+              and sol.u.dtype == torch.float32)
+    info.update({"dtype": "float32", "problem": f"rigid body x {BD_SCALE}", "tol": BD_TOL,
+                 "t1": float(_save_at()[k - 1]), "gated": "u_filt / scale",
+                 "filtered_rmse_over_tol": rmse_f / BD_TOL,
+                 "filtered_worst_lane_over_tol": worst_f / BD_TOL,
+                 "smoothed_rmse_over_tol": rmse / BD_TOL,
+                 "smoothed_worst_lane_over_tol": worst / BD_TOL, "capped_lanes": capped,
+                 "fused_kernel": "K6", "fused_seconds": loop["seconds"]})
+    _adaptive_checks("adaptive_bd", info, ok, finite, _steps_against(nsteps, fused_steps))
+
+    info, sol = _adaptive_row("adaptive_bd_f64", vf, loop["u0s"][:SAMPLE].double(),
+                              loop["tols"][:SAMPLE].double(),
+                              _save_at()[:k].astype(np.float64), dt0, solver, 4)
+    u_s, nsteps = _generic_smoothed(sol).movedim(1, 0), sol.num_steps.T
+    ok, rmse, worst, capped = _bd_gates(u_s, nsteps, truth, torch)
+    info.update({"dtype": "float64", "t1": float(_save_at()[k - 1]), "gated": "u_smooth / scale",
+                 "rmse_over_tol": rmse / BD_TOL, "worst_lane_over_tol": worst / BD_TOL,
+                 "capped_lanes": capped})
+    finite = bool(torch.all(torch.isfinite(u_s)))
+    _adaptive_checks("adaptive_bd_f64", info, ok, finite,
+                     _steps_against(nsteps, fused_steps[:SAMPLE]))
+
+
+def _pit_levels(window):
+    """Kogge-Stone levels of a prefix over ``window`` lanes."""
+    levels, s = 0, 1
+    while s < window:
+        levels, s = levels + 1, 2 * s
+    return levels
+
+
+def phase_adaptive_pit(device, implementation):
+    """``ivpsolve.solve_adaptive_parallel_in_time(combine_engine="cuda")`` on
+    the fixed-grid row's rigid body in float64 (filter, nu = 3, rtol
+    PIT_ADAPTIVE_RTOL, PIT_ADAPTIVE_SWEEPS sweeps a window): within
+    PIT_F64_GATE of the sequential solve on the discovered grid; K8 launched
+    windows x sweeps x levels times in that solve (its counts set to 0 just
+    before it and read just after).  Then, outside that count, the parallel
+    pass on the solve's grid with the gate off, ``combine_engine="cuda"``
+    equal to ``"ll"`` in every output; its last K8 launch's operands are
+    captured as the wrapper was given them (on blockdiag with the block
+    axis).  Returns (the solve's counts, those operands)."""
+    import torch
+
+    from odecheckpts_torch import ivpsolve, kernels
+
+    vf, _, _, _ = _pit_problem(torch.float64, device, 2)
+    solver = _generic_solver(implementation, nu=PIT_NU, strategy="filter")
+    init = _one_lane(_generic_init(
+        solver, vf, torch.tensor([[1.0, 0.0, 0.9]], dtype=torch.float64, device=device), PIT_NU))
+    asolver = ivpsolve.adaptive(solver, atol=1e-3 * PIT_ADAPTIVE_RTOL, rtol=PIT_ADAPTIVE_RTOL)
+    kw = dict(t0=PIT_TSPAN[0], t1=PIT_TSPAN[1], dt0=DT0, adaptive_solver=asolver,
+              max_steps=PIT_ADAPTIVE_MAX_STEPS, window=PIT_ADAPTIVE_WINDOW,
+              iterations=PIT_ADAPTIVE_SWEEPS, iteration_tol=None, return_diagnostics=True)
+    (seconds, ((sol, diag), attempts)), counts = _path(["pit_combine"], lambda: _timed(
+        lambda: _count_attempts(lambda: ivpsolve.solve_adaptive_parallel_in_time(
+            vf, init, combine_engine="cuda", **kw))))
+    launches = counts["pit_combine"]
+    grid = sol.t
+    t_seq, seq = _timed(lambda: ivpsolve.solve_fixed_grid(vf, init, grid=grid, solver=solver))
+    rel = float(torch.max(torch.abs(sol.u - seq.u)) / torch.max(torch.abs(seq.u)))
+    w = min(PIT_ADAPTIVE_WINDOW, len(grid) - 1)
+    want_launches = diag["num_windows"] * PIT_ADAPTIVE_SWEEPS * _pit_levels(w)
+
+    # the parallel pass with the gate off, every answer the prefix's own, on
+    # the solve's grid, linearized at its filtered means extrapolated one step
+    # (l_k = Phi_k m_{k-1}): kernel against the plain combine.  The wrapper's
+    # block-axis fold launches through a function of its own, so only the
+    # operands the prefix hands the wrapper are recorded.
+    warm = solver.ssm.extrapolate_mean(sol.posterior.init.mean[:-1], torch.diff(grid))[0]
+    calls, launch = [], kernels.pit_combine
+
+    def recording(e_i, e_j):
+        calls.append((e_i, e_j))
+        return launch(e_i, e_j)
+
+    fixed_kw = dict(grid=grid, solver=solver, parallel=True, window=PIT_ADAPTIVE_WINDOW,
+                    iterations=PIT_ADAPTIVE_SWEEPS, form="sqrt", warmstart=warm,
+                    fallback_rtol=None)
+    kernels.pit_combine = recording
+    try:
+        cuda_out = _pit_outputs(ivpsolve.solve_fixed_grid(vf, init, combine_engine="cuda",
+                                                          **fixed_kw))
+    finally:
+        kernels.pit_combine = launch
+    ll_out = _pit_outputs(ivpsolve.solve_fixed_grid(vf, init, combine_engine="ll", **fixed_kw))
+    names = ("u", "u_std", "output_scale", "mean", "cholesky")
+    equal = {n: _same_bits(a, b, torch) for n, a, b in zip(names, cuda_out, ll_out)}
+    finite = all(bool(torch.all(torch.isfinite(x))) for x in _pit_outputs(sol))
+    diverged = int(torch.sum(diag["window_diverged"]))
+    k8_shape = list(calls[-1][0][0].shape) if calls else None
+    want_rank = 4 if implementation == "blockdiag" else 3
+    emit({"phase": "adaptive_pit", "implementation": implementation, "dtype": "float64",
+          "rtol": PIT_ADAPTIVE_RTOL, "grid_points": len(grid), "attempts": attempts,
+          "seconds": seconds, "sequential_seconds": t_seq, "rel_vs_seq": rel,
+          "gate": PIT_F64_GATE, "window": w, "num_windows": diag["num_windows"],
+          "sweeps": PIT_ADAPTIVE_SWEEPS, "window_diverged": diverged,
+          "window_delta": diag["window_delta"].tolist(), "k8_launches": launches,
+          "k8_launches_expected": want_launches, "k8_operand_shape": k8_shape,
+          "cuda_equals_ll_gate_off": equal})
+    if not (finite and rel <= PIT_F64_GATE and launches == want_launches
+            and all(equal.values()) and 1_000 <= len(grid) - 1 <= 4_000
+            and k8_shape is not None and len(k8_shape) == want_rank):
+        raise AssertionError(f"adaptive parallel in time ({implementation}) failed: finite "
+                             f"{finite}, rel {rel}, launches {launches} of {want_launches}, "
+                             f"equal {equal}, {len(grid) - 1} steps, operands {k8_shape}")
+    return counts, calls[-1]
+
+
+def phase_logistic(device):
+    """The logistic quickstart on the card in float64: fixedpoint TS0(3)
+    ``solve_adaptive_save_at`` with ``solver_mle`` at atol = rtol = 1e-8 on 7
+    checkpoints, filtered and smoothed values within rtol 1e-5 of the closed
+    form, u(2.5) = 0.5751."""
+    import torch
+
+    from odecheckpts_torch import ivpsolve, problems
+
+    vf_p, (u0,), tspan, params = problems.logistic()
+
+    def vf(u, *, t):
+        return vf_p(u, t=t, p=params)
+
+    solver = _generic_solver("isotropic", nu=3, d=1, calibration="mle")
+    init = _one_lane(_generic_init(solver, vf, u0.to(device)[None], 3))
+    save_at = np.linspace(*tspan, 7)
+    seconds, (sol, attempts) = _timed(lambda: _count_attempts(
+        lambda: ivpsolve.solve_adaptive_save_at(
+            vf, init, save_at=torch.tensor(save_at, dtype=torch.float64, device=device),
+            dt0=0.1, adaptive_solver=ivpsolve.adaptive(solver, atol=LOGISTIC_TOL,
+                                                       rtol=LOGISTIC_TOL))))
+    exact = 1.0 / (1.0 + 9.0 * np.exp(-save_at))
+    u_f = sol.u[:, 0].cpu().numpy()
+    u_s = _generic_smoothed(sol)[:, 0].cpu().numpy()
+    err_f = float(np.max(np.abs(u_f / exact - 1.0)))
+    err_s = float(np.max(np.abs(u_s / exact - 1.0)))
+    scale = sol.output_scale.cpu().numpy()
+    emit({"phase": "logistic", "dtype": "float64", "calibration": "mle", "tol": LOGISTIC_TOL,
+          "seconds": seconds, "attempts": attempts, "num_steps": int(sol.num_steps[-1]),
+          "u_t1": float(u_f[-1]), "max_rel_err_filtered": err_f, "max_rel_err_smoothed": err_s,
+          "mle_output_scale": float(scale[-1])})
+    if not (err_f <= 1e-5 and err_s <= 1e-5 and abs(u_f[-1] - LOGISTIC_U_T1) < 1e-4
+            and np.all(scale == scale[-1]) and sol.u.dtype == torch.float64):
+        raise AssertionError(f"logistic quickstart failed: {err_f}, {err_s}, u(2.5) = {u_f[-1]}")
+
+
 def _event_timing(times, nbytes, flops, kernel, run):
     return _with_device_time(kernel, run, {
         "event_ms": min(times["kernel"][0], times["kernel2"][0]),
@@ -2310,14 +2717,20 @@ def _event_timing(times, nbytes, flops, kernel, run):
         "flops": flops})
 
 
-def phase_launch_pit(device, captured):
+def phase_launch_pit(device, captured, blocked):
     """One launch of K8 at the main row's shapes against its plain version,
-    float32 (the kernel table's row) and float64 (its ``f64`` entry)."""
+    float32 (the kernel table's row) and float64 (its ``f64`` entry), and the
+    last launch of the blockdiag adaptive parallel-in-time pass, float64 with
+    its block axis (m = 4, c = 1, d = 3: its ``blocked`` entry)."""
     f32 = _launch_pit(captured["last_level"], PEAK_F32_FLOPS)
-    f64 = _launch_pit(captured["f64/last_level"], PEAK_F64_FLOPS)
-    bound_ms, bound_by = _bound(f64)
-    return {**f32, "f64": {k: f64[k] for k in ("ms", "plain_ms", "host_ms", "event_ms")}
-            | {"bound_ms": bound_ms, "bound_by": bound_by}}
+    entries = {}
+    for key, pairs_ij in (("f64", captured["f64/last_level"]), ("blocked", blocked)):
+        info = _launch_pit(pairs_ij, PEAK_F64_FLOPS)
+        bound_ms, bound_by = _bound(info)
+        entries[key] = {k: info[k] for k in ("ms", "plain_ms", "host_ms", "event_ms")} | {
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": info["max_abs_dev"],
+            "operand_shape": list(pairs_ij[0][0].shape)}
+    return {**f32, **entries}
 
 
 def _launch_pit(pairs_ij, peak_flops):
@@ -2328,7 +2741,8 @@ def _launch_pit(pairs_ij, peak_flops):
     from odecheckpts_torch import kernels
 
     e_i, e_j = pairs_ij
-    m, c, pairs = e_i[0].shape[0], e_i[1].shape[1], e_i[0].shape[-1]
+    m, c = e_i[0].shape[0], e_i[1].shape[1]
+    pairs = e_i[0].numel() // (m * m)  # with a block axis: d P pairs
     times = _time_pair((
         ("plain", lambda: kernels.pit_combine_plain(e_i, e_j)),
         ("kernel", lambda: kernels.pit_combine(e_i, e_j)),
@@ -2347,6 +2761,7 @@ def _launch_pit(pairs_ij, peak_flops):
           "bytes": nbytes, "flops": info["flops"]})
     if dev != 0.0:
         raise AssertionError(f"one launch of K8 differs from its plain version by {dev}")
+    info["max_abs_dev"] = dev
     return info
 
 
@@ -2462,11 +2877,17 @@ def phase_qr_packing(device):
                 ("masked", lambda: kernels.qr_packing_masked_plain(x, PACKING_ITERS))))
             nbytes = 2 * x.numel() * 4
             flops = batch * PACKING_ITERS * _qr_flops(10, 10, 10)
+            # the library's R factors of the same batch, one call a QR: the
+            # kernels' PACKING_ITERS QRs cost PACKING_ITERS calls
+            x_b = torch.movedim(x, -1, 0).contiguous()
+            library_ms = PACKING_ITERS * _device_time(
+                "qr", lambda: torch.linalg.qr(x_b, mode="r"))["device_ms"]
             for variant, run, ms in (("cols", run_c, ms_c), ("masked", run_m, ms_m)):
                 name = f"qr_packing_{variant}"
                 timing[name] = _with_device_time(name, lambda run=run: run(x), {
                     "event_ms": ms, "plain_ms": plain[variant][0], "bytes": nbytes,
                     "flops": flops})
+                timing[name]["library_ms"] = library_ms
     return worst, timing
 
 
@@ -2492,17 +2913,20 @@ def main():
                                                 outs_hi[("parity", 1e-7)])
     timing.update(one)
     phase_routed(device, truth, u0s)
+    phase_adaptive_iso(device, truth, u0s, loop_ll)
     worst.update(phase_attempt_dense(device))
     loop_dense, counts_dense = _path(["step_dense_interval"], lambda: phase_main_dense(device))
     timing["step_dense_interval"] = phase_interval_dense(device, loop_dense)
     counts_attempt_dense, timing["step_dense_attempt"] = phase_attempt_engine_dense(device,
                                                                                     loop_dense)
+    phase_adaptive_dense(device, loop_dense)
     del loop_dense
     worst.update(phase_attempt_bd(device))
     loop_bd, counts_bd = _path(["step_bd_interval"], lambda: phase_main_bd(device))
     phase_foil_bd(device, loop_bd)
     timing["step_bd_interval"] = phase_interval_bd(device, loop_bd)
     counts_attempt_bd, timing["step_bd_attempt"] = phase_attempt_engine_bd(device, loop_bd)
+    phase_adaptive_bd(device, loop_bd)
     del loop_bd
     worst.update(phase_attempt_everystep(device))
     row_es, counts_es = _path(["step_everystep_attempt"], lambda: phase_main_everystep(device))
@@ -2512,8 +2936,11 @@ def main():
                 **_capture_second_window(device, torch.float64, "f64/")}
     worst.update(phase_combine_pit(device, captured))
     _, counts_pit = _path(["pit_combine"], lambda: phase_main_pit(device))
-    timing["pit_combine"] = phase_launch_pit(device, captured)
-    del captured
+    counts_apit, _ = phase_adaptive_pit(device, "isotropic")
+    counts_apit_bd, blocked = phase_adaptive_pit(device, "blockdiag")
+    timing["pit_combine"] = phase_launch_pit(device, captured, blocked)
+    del captured, blocked
+    phase_logistic(device)
     (worst_qr, timing["batched_qr_r"]), counts_qr = _path(["batched_qr_r"],
                                                           lambda: phase_batched_qr(device))
     (worst_packing, timing_packing), counts_packing = _path(
@@ -2552,6 +2979,11 @@ def main():
                                       "pairs_per_block", "smem_bytes", "blocks_per_sm")})
         if "f64" in timing[name]:
             rows[-1]["f64"] = timing[name]["f64"]
+        if "blocked" in timing[name]:  # K8 on the blockdiag adaptive parallel-in-time path
+            rows[-1]["blocked"] = timing[name]["blocked"] | {
+                "launches": counts_apit_bd["pit_combine"]}
+            rows[-1]["launches_adaptive_pit"] = counts_apit["pit_combine"]
+    emit({"phase": "done"})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from . import batched, ivpsolvers, kernels
+from . import batched, ivpsolvers, kernels, rounded
 from .batched import _const_matmul, _matmul_ll, _qr_r_cols, _tri_solve_upper_ll
 from .ivpsolve import _State
 from .ssm.base import Conditional, Normal
@@ -116,7 +116,7 @@ class StepBD(batched._StepConstants):
             e2 = e2 + q * q
         # divide by a tensor: torch turns division by a Python scalar into a
         # multiplication by its reciprocal, which rounds differently
-        errn = self.kappa * torch.sqrt(e2 / torch.full_like(e2, d))
+        errn = self.kappa * rounded.sqrt(e2 / torch.full_like(e2, d))
 
         sigma_safe = torch.where(torch.isfinite(sigma), sigma, torch.full_like(sigma, self.big))
         new_scale = torch.clamp(torch.maximum(sigma_safe, tiny_scale), max=self.big)  # (d, B)
@@ -183,9 +183,9 @@ class StepBD(batched._StepConstants):
 
         # -- PI control and accept (as on the isotropic engine)
         errn_s = torch.clamp(errn, min=self.tiny)
-        factor = self.safety * torch.exp(
-            self.neg_n1 * torch.log(errn_s)
-            + self.n2 * (torch.log(errn_prev) - torch.log(errn_s))
+        factor = self.safety * rounded.exp(
+            self.neg_n1 * rounded.log(errn_s)
+            + self.n2 * (rounded.log(errn_prev) - rounded.log(errn_s))
         )
         factor = torch.where(
             torch.isfinite(factor), factor, torch.full_like(factor, self.factor_min)

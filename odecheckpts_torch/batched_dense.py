@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from . import batched, ivpsolvers, kernels
+from . import batched, ivpsolvers, kernels, rounded
 from .batched import _const_matmul, _matmul_ll, _qr_r_cols, _tri_solve_upper_ll
 
 SUPPORTED_NU = (4,)  # K5 is instantiated for nu = 4
@@ -169,7 +169,7 @@ class StepDense(batched._StepConstants):
         ww = white[0] * white[0]
         for i in range(1, d):
             ww = ww + white[i] * white[i]
-        sigma = _div(torch.sqrt(ww), self.sqrt_d)
+        sigma = _div(rounded.sqrt(ww), self.sqrt_d)
         err_u = sigma * (p[0] * self.lq_norms[0])
         tol_w = atol + rtol * torch.abs(u_pred)
         q = err_u / tol_w[0:1]
@@ -177,7 +177,7 @@ class StepDense(batched._StepConstants):
         for r in range(1, d):
             q = err_u / tol_w[r : r + 1]
             e2 = e2 + q * q
-        errn = self.kappa * torch.sqrt(_div(e2, 1.0 * d))
+        errn = self.kappa * rounded.sqrt(_div(e2, 1.0 * d))
 
         sigma_safe = torch.where(torch.isfinite(sigma), sigma, torch.full_like(sigma, self.big))
         new_scale = torch.clamp(torch.maximum(sigma_safe, tiny_scale), max=self.big)
@@ -243,9 +243,9 @@ class StepDense(batched._StepConstants):
 
         # -- PI control
         errn_s = torch.clamp(errn, min=self.tiny)
-        factor = self.safety * torch.exp(
-            self.neg_n1 * torch.log(errn_s)
-            + self.n2 * (torch.log(errn_prev) - torch.log(errn_s))
+        factor = self.safety * rounded.exp(
+            self.neg_n1 * rounded.log(errn_s)
+            + self.n2 * (rounded.log(errn_prev) - rounded.log(errn_s))
         )
         factor = torch.where(
             torch.isfinite(factor), factor, torch.full_like(factor, self.factor_min)

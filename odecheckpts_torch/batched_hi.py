@@ -31,7 +31,7 @@ import hashlib
 import numpy as np
 import torch
 
-from . import batched, ivpsolvers, kernels, taylor
+from . import batched, ivpsolvers, kernels, rounded, taylor
 from . import df32 as df
 from .batched import _const_matmul, _matmul_ll, _tri_solve_upper_ll
 
@@ -157,9 +157,9 @@ class StepHi(batched._StepConstants):
             zz = zz + z_hi[i : i + 1] * z_hi[i : i + 1]
             q = atol + rtol * torch.abs(u_pred[i : i + 1])
             tol_acc = tol_acc + torch.reciprocal(q * q)
-        sigma = torch.sqrt(zz) / (s_unit * self.sqrt_d)
+        sigma = rounded.sqrt(zz) / (s_unit * self.sqrt_d)
         err_u = sigma * (p[0] * self.lq_norms[0])
-        errn = self.kappa * err_u * torch.sqrt(tol_acc / torch.full_like(tol_acc, d))
+        errn = self.kappa * err_u * rounded.sqrt(tol_acc / torch.full_like(tol_acc, d))
 
         sigma_safe = torch.where(
             torch.isfinite(sigma), sigma, torch.full_like(sigma, self.big)
@@ -216,9 +216,9 @@ class StepHi(batched._StepConstants):
 
         # -- PI control
         errn_s = torch.clamp(errn, min=self.tiny)
-        factor = self.safety * torch.exp(
-            self.neg_n1 * torch.log(errn_s)
-            + self.n2 * (torch.log(errn_prev) - torch.log(errn_s))
+        factor = self.safety * rounded.exp(
+            self.neg_n1 * rounded.log(errn_s)
+            + self.n2 * (rounded.log(errn_prev) - rounded.log(errn_s))
         )
         factor = torch.where(
             torch.isfinite(factor), factor, torch.full_like(factor, self.factor_min)

@@ -1,22 +1,40 @@
-"""Adaptive-solve state, step-size control and checkpoint interpolation
-(PyTorch counterpart of the parts of ``odecheckpts_tpu.ivpsolve`` that the
-batched solver runs), and the fixed-grid solve ``solve_fixed_grid``,
-sequential or parallel in time (``parallel_time``).
+"""Adaptive and fixed-grid IVP solve drivers (PyTorch counterpart of
+``odecheckpts_tpu.ivpsolve``).
 
-Every field of ``_State`` may carry a leading batch dimension: the JAX
-package maps one-IVP functions over the ensemble, the port writes the
-batch dimension out and selects branches per lane with ``torch.where``.
+* ``solve_adaptive_save_at``: the paper's driver, O(#checkpoints) memory:
+  per checkpoint the PI-controlled accept/reject loop, then the
+  interpolation at the checkpoint;
+* ``solve_adaptive_terminal_values`` (O(1) memory),
+  ``solve_adaptive_save_every_step`` (every accepted step, one IVP) and its
+  bounded form ``solve_adaptive_save_every_step_bounded`` (a fixed number of
+  attempts, masked; ``compact_bounded_solution`` drops the masked entries);
+* ``solve_adaptive_parallel_in_time``: grid discovery by the bounded filter,
+  then ``solve_fixed_grid(parallel=True)`` on the discovered grid;
+* ``solve_fixed_grid``: a user grid, sequential or parallel in time
+  (``parallel_time``).
+
+Every field of ``_State`` may carry leading batch dimensions: the JAX
+package maps one-IVP functions over an ensemble, the port writes the batch
+dimensions out (``init``'s tensors carry them; ``atol`` / ``rtol`` are
+scalars or of the batch shape) and selects per lane with ``torch.where``.
+``lax.while_loop`` becomes a Python loop with one host read per attempt
+(whether any lane still runs); finished lanes are frozen by ``_tree_select``.
+The vector field is the one-IVP function ``vf(*u, t=t)``; ``ivpsolvers``
+maps it over the batch.  A solve runs on the device of ``init``'s tensors,
+in their dtype, with float32 products at full precision (no TF32).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+import functools
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from . import ivpsolvers
+from . import ivpsolvers, rounded
+from .stats import _tree_map
 from .ssm.base import Conditional, MarkovSeq, Normal, Solution
 
 
@@ -29,6 +47,39 @@ class Control:
     factor_max: float = 10.0
     power_integral: float = 0.3
     power_proportional: float = 0.4
+
+
+def control_proportional_integral(**kwargs) -> Control:
+    return Control(**kwargs)
+
+
+def control_integral(**kwargs) -> Control:
+    """Classic I-controller (no proportional term)."""
+    return Control(power_integral=1.0, power_proportional=0.0, **kwargs)
+
+
+def _control_factor(ctrl: Control, errn, errn_prev, error_order: int):
+    n1 = ctrl.power_integral / error_order
+    n2 = ctrl.power_proportional / error_order
+    factor = ctrl.safety * rounded.pow(errn, -n1) * rounded.pow(errn_prev / errn, n2)
+    factor = torch.where(torch.isfinite(factor), factor, torch.full_like(factor, ctrl.factor_min))
+    return torch.clamp(factor, ctrl.factor_min, ctrl.factor_max)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveSolver:
+    solver: Any
+    atol: Any
+    rtol: Any
+    control: Control
+
+
+def adaptive(solver, *, atol=1e-4, rtol=1e-2, control: Optional[Control] = None):
+    """Wrap a solver in PI-controlled adaptive step selection; ``atol`` and
+    ``rtol`` are scalars or tensors of the ensemble's batch shape."""
+    if control is None:
+        control = control_proportional_integral()
+    return AdaptiveSolver(solver, atol, rtol, control)
 
 
 class _State(NamedTuple):
@@ -60,6 +111,62 @@ def _expand(tree, batch):
     if isinstance(tree, tuple):
         return type(tree)(*(_expand(x, batch) for x in tree))
     return tree.expand(tuple(batch) + tree.shape)
+
+
+def _finfo(dtype, attr):
+    """``np.finfo(dtype).<attr>`` as a numpy scalar of ``dtype`` (powers of
+    it then round in ``dtype``, as the reference's do)."""
+    return getattr(np.finfo(torch.empty((), dtype=dtype).numpy().dtype), attr)
+
+
+def _dt_floor(ssm, dtype):
+    """Smallest dt whose preconditioner stays in the normal range (dt^(nu +
+    1/2) must not underflow)."""
+    return float(_finfo(dtype, "tiny") ** (1.0 / (ssm.num_derivatives + 1.5)))
+
+
+def _tolerance(x, like):
+    """A tolerance against (..., d) values: a Python number as it is, a tensor
+    of the batch shape with a trailing axis."""
+    if isinstance(x, (int, float)):
+        return x
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)[..., None]
+
+
+def _sum_last(x):
+    """Sum over the last (small) axis in order."""
+    acc = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def _init_state(asolver: AdaptiveSolver, init, t0, dt0) -> _State:
+    """The adaptive state at ``t0``; the batch shape is that of ``init``'s
+    mean broadcast with the tolerances'."""
+    ssm = asolver.solver.ssm
+    rv0, scale0 = init
+    dtype, device = rv0.mean.dtype, rv0.mean.device
+    ident1 = ssm.identity_conditional(dtype, device)  # one IVP's shapes
+    batch = rv0.mean.shape[: rv0.mean.dim() - ident1.noise.mean.dim()]
+    for tol in (asolver.atol, asolver.rtol):
+        if not isinstance(tol, (int, float)):
+            batch = torch.broadcast_shapes(batch, torch.as_tensor(tol).shape)
+    rv0 = Normal(*(x.expand(batch + one.shape)
+                   for x, one in zip(rv0, (ident1.noise.mean, ident1.noise.cholesky))))
+    scale0 = ssm.promote_output_scale(torch.as_tensor(scale0, dtype=dtype, device=device))
+    scale0 = scale0.expand(batch + ssm.promote_output_scale(torch.ones((), dtype=dtype)).shape)
+
+    def full(value, dt=dtype):
+        return torch.as_tensor(value, dtype=dt, device=device).expand(batch)
+
+    ident = (_expand(ssm.identity_conditional(dtype, device), batch)
+             if asolver.solver.strategy.needs_reversal else None)
+    return _State(
+        t=full(t0), rv=rv0, bwd=ident, scale_step=scale0, t_prev=full(t0), rv_prev=rv0,
+        bwd_prev=ident, dt=full(dt0), errn_prev=full(1.0),
+        num_steps=full(0, torch.int32), mle_ssq=torch.zeros_like(scale0),
+    )
 
 
 def _interpolate_at(strategy, state: _State, t):
@@ -152,24 +259,314 @@ def _validate_increasing(ts, name):
         raise ValueError(f"{name} must be strictly increasing")
 
 
-def _check_calibration(solver):
-    if solver.calibration not in (ivpsolvers.NONE, ivpsolvers.DYNAMIC):
-        raise NotImplementedError(
-            f"calibration={solver.calibration!r}: the post-hoc MLE rescaling of the posterior "
-            "is not ported yet: ROADMAP queue 1 item 2"
+def _make_step(vf, asolver: AdaptiveSolver, scale_fixed, dt_max=None):
+    """One accept/reject attempt of every lane (``odecheckpts_tpu/ivpsolve.py:
+    153-228``), including the forced acceptance once ``dt`` falls below
+    ``4 eps max(|t|, 1)``; ``dt_max`` bounds the step."""
+    solver = asolver.solver
+    strategy = solver.strategy
+    ssm = strategy.ssm
+    ctrl = asolver.control
+    error_order = ssm.num_derivatives + 1
+    fixedpoint = strategy.kind == ivpsolvers.FIXEDPOINT
+    kappa = strategy.correction.calibration_factor
+    dynamic = solver.calibration == ivpsolvers.DYNAMIC
+
+    def step(s: _State) -> _State:
+        dtype = s.dt.dtype
+        dt = torch.clamp(s.dt, min=_dt_floor(ssm, dtype))
+        if dt_max is not None:
+            dt = torch.minimum(dt, dt_max)
+        t_new = s.t + dt
+        m_pred, cache = ssm.extrapolate_mean(s.rv.mean, dt)
+        z, jacs = ivpsolvers.linearize(strategy, vf, m_pred, t_new)
+        sigma, err = ivpsolvers.error_and_scale(strategy, z, jacs, cache)
+
+        u_pred = ssm.qoi(m_pred)
+        atol, rtol = _tolerance(asolver.atol, u_pred), _tolerance(asolver.rtol, u_pred)
+        q = err / (atol + rtol * torch.abs(u_pred))
+        e2 = _sum_last(q * q)
+        errn = kappa * rounded.sqrt(e2 / torch.full_like(e2, q.shape[-1]))
+
+        if dynamic:
+            scale = torch.maximum(sigma, torch.full_like(sigma, float(_finfo(dtype, "tiny") ** 0.5)))
+        else:
+            scale = ssm.promote_output_scale(
+                torch.as_tensor(scale_fixed, dtype=dtype, device=s.dt.device))
+        rv_pred, bwd_step = ssm.extrapolate_cov(s.rv, m_pred, cache, scale,
+                                                strategy.needs_reversal)
+        rv_cor, _obs = ivpsolvers.correct(strategy, rv_pred, z, jacs)
+        if strategy.needs_reversal:
+            bwd_new = ssm.compose(s.bwd, bwd_step) if fixedpoint else bwd_step
+        else:
+            bwd_new = None
+
+        factor = _control_factor(ctrl, errn, s.errn_prev, error_order)
+        dt_next = dt * factor
+        if dt_max is not None:
+            dt_next = torch.minimum(dt_next, dt_max)
+        # forced acceptance once dt underflows the local time resolution: the
+        # loop stays total on pathological vector fields
+        dt_stall = (4.0 * float(_finfo(dtype, "eps"))) * torch.clamp(torch.abs(s.t), min=1.0)
+        accept = (errn <= 1.0) | (dt <= dt_stall)
+
+        accepted = _State(
+            t=t_new, rv=rv_cor, bwd=bwd_new, scale_step=scale, t_prev=s.t, rv_prev=s.rv,
+            bwd_prev=s.bwd, dt=dt_next,
+            errn_prev=torch.maximum(errn, torch.full_like(errn, float(_finfo(dtype, "tiny")))),
+            num_steps=s.num_steps + 1, mle_ssq=s.mle_ssq + sigma * sigma,
         )
+        return _tree_select(accept, accepted, s._replace(dt=dt_next))
+
+    return step
 
 
-def solve_adaptive_parallel_in_time(*args, **kwargs):
-    """Adaptive grid discovery followed by a parallel-in-time pass on the
-    discovered grid (``odecheckpts_tpu/ivpsolve.py:569-647``): not ported."""
-    raise NotImplementedError(
-        "solve_adaptive_parallel_in_time needs the adaptive single-solve loop (adaptive, "
-        "_make_step, solve_adaptive_save_every_step_bounded), which is not ported yet: ROADMAP "
-        "queue 1 item 2; solve_fixed_grid(parallel=True) takes a grid that is known"
+def _run_until(step, state: _State, t_end) -> _State:
+    """Attempts until every lane has reached ``t_end``; a finished lane is
+    frozen.  One host read per attempt."""
+    running = state.t < t_end
+    while bool(torch.any(running)):
+        state = _tree_select(running, step(state), state)
+        running = state.t < t_end
+    return state
+
+
+def _mle_factor(state: _State):
+    n = torch.clamp(state.num_steps, min=1).to(state.mle_ssq.dtype)
+    n = n.reshape(n.shape + (1,) * (state.mle_ssq.dim() - n.dim()))
+    return rounded.sqrt(state.mle_ssq / n)
+
+
+def _maybe_rescale(solver, state: _State, solution: Solution) -> Solution:
+    """MLE calibration: every covariance factor of the solution times the
+    running-MLE output scale (the RMS of the accepted steps' sigmas)."""
+    if solver.calibration != ivpsolvers.MLE:
+        return solution
+    ssm = solver.ssm
+    factor = _mle_factor(state)
+    post = solution.posterior
+    init = Normal(post.init.mean, ssm.rescale_cholesky(post.init.cholesky, factor))
+    cond = post.conditional
+    if cond is not None:
+        cond = Conditional(cond.matrix, Normal(
+            cond.noise.mean, ssm.rescale_cholesky(cond.noise.cholesky, factor)))
+    marg = solution.marginals
+    if marg is not None:
+        marg = Normal(marg.mean, ssm.rescale_cholesky(marg.cholesky, factor))
+    # one factor per lane (isotropic, dense) or per lane and dimension (blockdiag)
+    factor_u = factor if factor.dim() > state.num_steps.dim() else factor[..., None]
+    return dataclasses.replace(
+        solution, posterior=MarkovSeq(init, cond, ssm=ssm), marginals=marg,
+        u_std=solution.u_std * factor_u,
+        output_scale=factor.expand(solution.output_scale.shape),
     )
 
 
+def _full_precision(fn):
+    """Run the solve with full-precision float32 products (no TF32 on the
+    card): the solver's small covariance algebra is latency-bound, and
+    reduced-precision products corrupt the error estimates.  The caller's
+    setting is restored afterwards."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        before = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.set_float32_matmul_precision(before)
+
+    wrapped.__full_precision__ = True
+    return wrapped
+
+
+def _solution(ssm, t, rvs, conds, nsteps, scales):
+    return Solution(t=t, u=ssm.qoi(rvs.mean), u_std=ssm.qoi_std(rvs), output_scale=scales,
+                    marginals=None, posterior=MarkovSeq(rvs, conds, ssm=ssm),
+                    num_steps=nsteps, ssm=ssm)
+
+
+def _span(t0, t1, like):
+    return torch.as_tensor(t1 - t0, dtype=like.dtype, device=like.device)
+
+
+@_full_precision
+def solve_adaptive_save_at(vf, init, *, save_at, dt0, adaptive_solver):
+    """Adaptive solve with O(#save_at) memory (the paper's driver).
+
+    Returns a ``Solution`` on the ``save_at`` grid: ``u``, ``u_std`` and the
+    posterior stacked over the checkpoints on the leading axis, then the
+    batch axes (for the fixedpoint strategy the conditionals map each
+    checkpoint back to the previous one); ``num_steps`` the accepted steps
+    up to each checkpoint."""
+    asolver = adaptive_solver
+    solver = asolver.solver
+    ssm = solver.ssm
+    strategy = solver.strategy
+    rv0, scale0 = init
+    _validate_increasing(save_at, "save_at")
+    save_at = torch.as_tensor(save_at, dtype=rv0.mean.dtype, device=rv0.mean.device)
+    state = state0 = _init_state(asolver, init, save_at[0], dt0)
+    step = _make_step(vf, asolver, scale0, dt_max=save_at[-1] - save_at[0])
+    emits = [(state0.rv, state0.bwd, torch.zeros_like(state0.num_steps), state0.scale_step)]
+    for t_next in save_at[1:].unbind(0):
+        state = _run_until(step, state, t_next)
+        (rv_e, cond_e), state = _interpolate_at(strategy, state, t_next)
+        emits.append((rv_e, cond_e, state.num_steps, state.scale_step))
+    rvs, conds, nsteps, scales = (_tree_stack([e[i] for e in emits]) for i in range(4))
+    return _maybe_rescale(solver, state, _solution(ssm, save_at, rvs, conds, nsteps, scales))
+
+
+@_full_precision
+def solve_adaptive_terminal_values(vf, init, *, t0, t1, dt0, adaptive_solver):
+    """Adaptive solve keeping only the terminal state (O(1) memory)."""
+    asolver = adaptive_solver
+    solver = asolver.solver
+    rv0, scale0 = init
+    state = _init_state(asolver, init, t0, dt0)
+    step = _make_step(vf, asolver, scale0, dt_max=_span(t0, t1, rv0.mean))
+    state = _run_until(step, state, t1)
+    (rv_e, cond_e), state = _interpolate_at(solver.strategy, state, t1)
+    t = torch.as_tensor(t1, dtype=rv0.mean.dtype, device=rv0.mean.device)
+    sol = _solution(solver.ssm, t, rv_e, cond_e, state.num_steps, state.scale_step)
+    return _maybe_rescale(solver, state, sol)
+
+
+@_full_precision
+def solve_adaptive_save_every_step(vf, init, *, t0, t1, dt0, adaptive_solver):
+    """Adaptive solve storing every accepted step (O(#steps) memory) of ONE
+    IVP: the output length is the IVP's own step count, so an ensemble
+    takes ``solve_adaptive_save_every_step_bounded`` (and
+    ``compact_bounded_solution`` per lane).  The last entry is the solution
+    interpolated at ``t1``."""
+    asolver = adaptive_solver
+    solver = asolver.solver
+    rv0, scale0 = init
+    state = _init_state(asolver, init, t0, dt0)
+    if state.t.dim():
+        raise ValueError(
+            "solve_adaptive_save_every_step solves one IVP (its output has the IVP's own "
+            f"length); got the batch shape {tuple(state.t.shape)}: use "
+            "solve_adaptive_save_every_step_bounded for an ensemble")
+    step = _make_step(vf, asolver, scale0, dt_max=_span(t0, t1, rv0.mean))
+    t1_f = float(t1)
+    emits = [(state.t, state.rv, state.bwd, state.num_steps, state.scale_step)]
+    t_now = float(state.t)
+    while t_now < t1_f:
+        state = step(state)
+        t_new = float(state.t)  # the attempt's one host read
+        if t_now < t_new <= t1_f:
+            emits.append((state.t, state.rv, state.bwd, state.num_steps, state.scale_step))
+        t_now = t_new
+    if t_now > t1_f:
+        (rv_e, cond_e), state = _interpolate_at(solver.strategy, state, t1_f)
+        emits.append((state.t_prev, rv_e, cond_e, state.num_steps, state.scale_step))
+    ts, rvs, conds, nsteps, scales = (_tree_stack([e[i] for e in emits]) for i in range(5))
+    return _maybe_rescale(solver, state, _solution(solver.ssm, ts, rvs, conds, nsteps, scales))
+
+
+@_full_precision
+def solve_adaptive_save_every_step_bounded(vf, init, *, t0, t1, dt0, adaptive_solver,
+                                           max_steps: int):
+    """Save-every-step with a fixed number of attempts, ``max_steps``.
+
+    The outputs have ``max_steps + 1`` entries on the leading axis (then the
+    batch axes): entry k is the state after attempt k, rejected attempts and
+    attempts past ``t1`` repeat the state and are marked invalid.  Returns
+    ``(solution, (valid, (rv_t1, cond_t1)))`` with the solution interpolated
+    at ``t1`` beside it.  Attempts after every lane has finished are not
+    computed (their entries repeat the final state)."""
+    asolver = adaptive_solver
+    solver = asolver.solver
+    rv0, scale0 = init
+    state = state0 = _init_state(asolver, init, t0, dt0)
+    step = _make_step(vf, asolver, scale0, dt_max=_span(t0, t1, rv0.mean))
+    emits = [(state0.t, state0.rv, state0.bwd, torch.zeros_like(state0.num_steps),
+              state0.scale_step, torch.ones_like(state0.t, dtype=torch.bool))]
+    for _ in range(max_steps):
+        running = state.t < t1
+        new = _tree_select(running, step(state), state) if bool(torch.any(running)) else state
+        accepted = (new.t > state.t) & (new.t <= t1)
+        state = new
+        emits.append((new.t, new.rv, new.bwd, new.num_steps, new.scale_step, accepted))
+    (rv_e, cond_e), final = _interpolate_at(solver.strategy, state, t1)
+    ts, rvs, conds, nsteps, scales, valid = (_tree_stack([e[i] for e in emits])
+                                             for i in range(6))
+    sol = _solution(solver.ssm, ts, rvs, conds, nsteps, scales)
+    return _maybe_rescale(solver, final, sol), (valid, (rv_e, cond_e))
+
+
+def compact_bounded_solution(solution: Solution, valid) -> Solution:
+    """Drop the masked entries of one IVP's bounded save-every-step solution
+    (``valid`` of shape (max_steps + 1,)): what the eager driver would have
+    stored, without its interpolated last entry."""
+    valid = torch.as_tensor(valid)
+    if valid.dim() != 1:
+        raise ValueError(
+            f"compact_bounded_solution takes one IVP's valid mask, got the shape "
+            f"{tuple(valid.shape)}: compact each lane of an ensemble on its own")
+    idx = torch.nonzero(valid.to(solution.t.device))[:, 0]
+
+    def take(x):
+        return None if x is None else _tree_map(lambda y: y[idx], x)
+
+    post = solution.posterior
+    return dataclasses.replace(
+        solution, t=take(solution.t), u=take(solution.u), u_std=take(solution.u_std),
+        output_scale=take(solution.output_scale),
+        posterior=MarkovSeq(take(post.init), take(post.conditional), ssm=post.ssm),
+        num_steps=take(solution.num_steps),
+    )
+
+
+@_full_precision
+def solve_adaptive_parallel_in_time(
+    vf, init, *, t0, t1, dt0, adaptive_solver, max_steps,
+    iterations=12, window=16, form="sqrt", warmstart="discovery",
+    damping=0.0, precondition=True, iteration_tol=1e-8,
+    combine_engine=None, return_diagnostics=False,
+):
+    """Adaptive parallel-in-time solve of one IVP: grid discovery, then a
+    parallel-in-time solve on the discovered grid.
+
+    The discovery pass is ``solve_adaptive_save_every_step_bounded`` with the
+    filter strategy (the controller sees the same error estimates as with
+    ``adaptive_solver``'s strategy, so the grid is that solver's adaptive
+    grid); then ``solve_fixed_grid(parallel=True)`` re-solves on the accepted
+    grid with the solver as given.  ``warmstart="discovery"`` linearizes every
+    step at the discovery pass's filtered mean extrapolated one step
+    (``l_k = Phi_k m_{k-1}``); any ``solve_fixed_grid`` warm start passes
+    through.  ``combine_engine="cuda"`` runs every level of the window
+    prefix as one launch of the kernel K8 (``kernels.pit_combine``)."""
+    solver = adaptive_solver.solver
+    strat_f = ivpsolvers.strategy_filter(solver.ssm, solver.strategy.correction)
+    solver_f = (ivpsolvers.solver_dynamic(strat_f)
+                if solver.calibration == ivpsolvers.DYNAMIC else ivpsolvers.solver(strat_f))
+    asolver_f = adaptive(solver_f, atol=adaptive_solver.atol, rtol=adaptive_solver.rtol,
+                         control=adaptive_solver.control)
+    sol_f, (valid, _tail) = solve_adaptive_save_every_step_bounded(
+        vf, init, t0=t0, t1=t1, dt0=dt0, adaptive_solver=asolver_f, max_steps=max_steps)
+    if valid.dim() != 1:
+        raise ValueError("solve_adaptive_parallel_in_time solves one IVP (the grid is its own)")
+    valid_np = valid.cpu().numpy()
+    ts = sol_f.t.cpu().numpy()[valid_np]
+    t1_f = float(t1)
+    if ts[-1] < t1_f:
+        ts = np.concatenate([ts, [t1_f]])
+    grid = torch.as_tensor(ts, dtype=sol_f.t.dtype, device=sol_f.t.device)
+    if isinstance(warmstart, str) and warmstart == "discovery":
+        means_f = sol_f.posterior.init.mean[valid.to(sol_f.t.device)]
+        warmstart = solver.ssm.extrapolate_mean(means_f[: len(ts) - 1], torch.diff(grid))[0]
+    return solve_fixed_grid(
+        vf, init, grid=grid, solver=solver, parallel=True, iterations=iterations,
+        window=window, form=form, warmstart=warmstart, damping=damping,
+        precondition=precondition, iteration_tol=iteration_tol,
+        combine_engine=combine_engine, return_diagnostics=return_diagnostics,
+    )
+
+
+@_full_precision
 def solve_fixed_grid(
     vf, init, *, grid, solver, parallel=False, iterations=8, window=16,
     form="cov", warmstart=None, damping=0.0, precondition=True,
@@ -180,7 +577,7 @@ def solve_fixed_grid(
 
     Counterpart of ``odecheckpts_tpu.ivpsolve.solve_fixed_grid``: the same
     ``Solution`` layout, with the filter / smoother / fixedpoint strategies
-    and the none / dynamic calibrations on the isotropic backend.  The solve
+    and the none / dynamic / MLE calibrations on every backend.  The solve
     runs on the device of ``init``'s tensors, in their dtype.  The
     sequential pass is a Python loop over the grid (one step's small ops per
     iteration).  ``parallel=True`` runs the forward pass parallel in time:
@@ -211,7 +608,6 @@ def solve_fixed_grid(
             f"time_shard={time_shard!r}, combine_engine={combine_engine!r}, "
             f"iteration_tol={iteration_tol!r})."
         )
-    _check_calibration(solver)
     ssm = solver.ssm
     strategy = solver.strategy
     rv0, scale0 = init
@@ -224,6 +620,7 @@ def solve_fixed_grid(
 
     ts, dts = grid[1:], torch.diff(grid)
     rv, rvs, conds, scales = rv0, [], [], []
+    mle_ssq = torch.zeros_like(scale_none)  # per dimension on blockdiag, as its sigma
     for t_new, dt in zip(ts.unbind(0), dts.unbind(0)):
         m_pred, cache = ssm.extrapolate_mean(rv.mean, dt)
         z, jacs = ivpsolvers.linearize(strategy, vf, m_pred, t_new)
@@ -231,6 +628,7 @@ def solve_fixed_grid(
         scale = torch.maximum(sigma, tiny) if dynamic else scale_none
         rv_pred, bwd = ssm.extrapolate_cov(rv, m_pred, cache, scale, strategy.needs_reversal)
         rv, _obs = ivpsolvers.correct(strategy, rv_pred, z, jacs)
+        mle_ssq = mle_ssq + sigma * sigma
         rvs.append(rv)
         conds.append(bwd)
         scales.append(scale)
@@ -242,13 +640,9 @@ def solve_fixed_grid(
         conds = _tree_prepend(ident, _tree_stack(conds)) if conds else _tree_stack([ident])
     else:
         conds = None
-    return Solution(
-        t=grid,
-        u=ssm.qoi(rvs.mean),
-        u_std=ssm.qoi_std(rvs),
-        output_scale=scales,
-        marginals=None,
-        posterior=MarkovSeq(rvs, conds, ssm=ssm),
-        num_steps=torch.arange(len(grid), dtype=torch.int32, device=device),
-        ssm=ssm,
-    )
+    num_steps = torch.arange(len(grid), dtype=torch.int32, device=device)
+    sol = _solution(ssm, grid, rvs, conds, num_steps, scales)
+    state_like = _State(t=grid[-1], rv=rv, bwd=None, scale_step=scales[-1], t_prev=grid[-1],
+                        rv_prev=rv, bwd_prev=None, dt=dts[-1], errn_prev=None,
+                        num_steps=num_steps[-1], mle_ssq=mle_ssq)
+    return _maybe_rescale(solver, state_like, sol)

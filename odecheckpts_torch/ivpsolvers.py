@@ -1,12 +1,12 @@
 """Solver construction: prior, correction, strategy, calibration (PyTorch
 counterpart of ``odecheckpts_tpu.ivpsolvers``).
 
-Ported so far: the IBM prior on the isotropic, the dense and the blockdiag
-backend, the TS0 and TS1 corrections, the filter, smoother and fixedpoint
-strategies, the none and the dynamic calibration, and the single-solve
-building blocks ``linearize`` / ``error_and_scale`` / ``correct`` on the
-isotropic backend (the fixed-grid solves of ``ivpsolve`` and
-``parallel_time``).  Every config object is a frozen dataclass.
+The IBM prior on the isotropic, the dense and the blockdiag backend, the TS0
+and TS1 corrections, the filter, smoother and fixedpoint strategies, the
+none, dynamic and MLE calibrations, and the single-solve building blocks
+``linearize`` / ``error_and_scale`` / ``correct`` that every solve driver of
+``ivpsolve`` and ``parallel_time`` runs.  Every config object is a frozen
+dataclass.  Not ported: ``ode_order`` other than 1 (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -140,50 +140,76 @@ def solver_dynamic(strategy: Strategy) -> Solver:
 
 
 def solver_mle(strategy: Strategy) -> Solver:
-    """Global MLE calibration, applied post hoc to the posterior: not ported."""
-    raise NotImplementedError(
-        "solver_mle (post-hoc rescaling of the posterior) is not ported yet: "
-        "ROADMAP queue 1 item 2"
-    )
+    """Global MLE output-scale calibration, applied post hoc to the posterior
+    (``ivpsolve._maybe_rescale``)."""
+    return Solver(strategy, MLE)
 
 
-def _isotropic_only(ssm, what):
-    if ssm.name != "isotropic":
-        raise NotImplementedError(
-            f"{what} on the {ssm.name} backend (h_q_unit / h_l_rows / correct_affine, the "
-            "blockdiag single-solve methods) is not ported yet: ROADMAP queue 1 item 3"
-        )
+def _call_vf(vf, args, t):
+    """``vf(*args, t=t)`` on arguments with leading batch axes: ``vf`` is the
+    one-IVP function (arguments (d,)), mapped over the batch by
+    ``torch.func.vmap``, with ``t`` a scalar or of the batch shape."""
+    batch = args[0].shape[:-1]
+    if not batch:
+        return vf(*args, t=t)
+    flat = [a.reshape((-1, a.shape[-1])) for a in args]
+    t_flat = torch.as_tensor(t, dtype=args[0].dtype, device=args[0].device).expand(batch)
+    out = torch.func.vmap(lambda *a: vf(*a[:-1], t=a[-1]))(*flat, t_flat.reshape(-1))
+    return out.reshape(batch + out.shape[1:])
+
+
+def _jacobians(vf, args, t):
+    """The (..., d, d) Jacobians of ``vf`` in each of its state arguments,
+    by ``torch.func.jacfwd``, mapped over the batch axes; in the state's
+    dtype (forward-mode tangents of a vector field with Python-float
+    parameters come out in float64 for float32 inputs)."""
+    batch = args[0].shape[:-1]
+    dtype = args[0].dtype
+    t = torch.as_tensor(t, dtype=dtype, device=args[0].device)
+    out = []
+    for k in range(len(args)):
+        jac_k = torch.func.jacfwd(lambda *a: vf(*a[:-1], t=a[-1]), argnums=k)
+        if batch:
+            # forward-mode duals need inputs that own their memory (no expanded views)
+            flat = [a.reshape((-1, a.shape[-1])).contiguous() for a in args]
+            jac = torch.func.vmap(jac_k)(*flat, t.expand(batch).reshape(-1).contiguous())
+            jac = jac.reshape(batch + jac.shape[1:])
+        else:
+            jac = jac_k(*(a.contiguous() for a in args), t)
+        out.append(jac.to(dtype))
+    return tuple(out)
 
 
 def linearize(strategy: Strategy, vf, m_pred, t):
     """Residual ``z = u^(o) - vf(u, ..., u^(o-1), t)`` of the ODE constraint
-    at the predicted mean, and the Jacobians (TS0: none).  ``m_pred`` may
-    carry leading batch axes if ``vf`` takes them."""
+    at the predicted mean, and (TS1) the vector field's Jacobians.
+    ``m_pred`` may carry leading batch axes: ``vf`` is the one-IVP function
+    and is mapped over them (``_call_vf``)."""
     ssm = strategy.ssm
     o = strategy.correction.ode_order
-    if strategy.correction.method != "ts0":
-        raise NotImplementedError(
-            "the TS1 linearization of a single solve (Jacobians by torch.func.jacfwd) comes "
-            "with the dense adapter: ROADMAP queue 1 item 3"
-        )
     args = tuple(ssm.select_deriv(m_pred, i) for i in range(o))
-    z = ssm.select_deriv(m_pred, o) - vf(*args, t=t)
-    return z, ()
+    z = ssm.select_deriv(m_pred, o) - _call_vf(vf, args, t)
+    if strategy.correction.method == "ts0":
+        return z, ()
+    return z, _jacobians(vf, args, t)
 
 
 def error_and_scale(strategy: Strategy, z, jacobians, cache):
-    """Per-step MLE output scale (sigma-hat) and local error estimate."""
-    del jacobians
+    """Local error estimate and per-step MLE output scale (sigma-hat)."""
     ssm = strategy.ssm
-    _isotropic_only(ssm, "error_and_scale")
-    return ssm.error_and_scale_deriv(
-        z, cache, strategy.correction.ode_order, unit=strategy.correction.error_unit
-    )
+    o = strategy.correction.ode_order
+    unit = strategy.correction.error_unit
+    if ssm.name in ("isotropic", "blockdiag"):
+        return ssm.error_and_scale_deriv(z, cache, o, unit=unit)
+    h_q = ssm.h_q_unit(cache, o, jacobians)
+    return ssm.error_and_scale(z, h_q, cache, unit=unit)
 
 
 def correct(strategy: Strategy, rv_pred, z, jacobians):
     """Square-root correction of the predicted state on the ODE constraint."""
-    del jacobians
     ssm = strategy.ssm
-    _isotropic_only(ssm, "correct")
-    return ssm.correct_deriv(rv_pred, z, strategy.correction.ode_order)
+    o = strategy.correction.ode_order
+    if ssm.name in ("isotropic", "blockdiag"):
+        return ssm.correct_deriv(rv_pred, z, o)
+    h_l = ssm.h_l_rows(rv_pred.cholesky, o, jacobians)
+    return ssm.correct_affine(rv_pred, z, h_l)

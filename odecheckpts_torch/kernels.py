@@ -871,20 +871,36 @@ def pit_combine(e_i, e_j):
     ``e_i`` with later ``e_j``; each a tuple (A, b, U, eta, Z) of lanes-last
     (m, m, P), (m, c, P), (m, m, P), (m, c, P), (m, m, P) tensors, float32 or
     float64.  One launch; five new output tensors.  Built for m in {3, 4, 5}
-    and c in {1, 2, 3}.  On CPU tensors the plain version runs; on CUDA
-    tensors the kernel runs or this raises."""
+    and c in {1, 2, 3}.  A block axis between the matrix axes and the lanes,
+    (m, m, d, P) and (m, c, d, P) (the blockdiag adapter's independent chain
+    per ODE dimension), is folded into the lanes as the contiguous view
+    (m, m, d P): still one launch, no copy; operands that are not contiguous
+    are refused.  On CPU tensors the plain version runs; on CUDA tensors the
+    kernel runs or this raises."""
     if len(e_i) != 5 or len(e_j) != 5:
         raise ValueError("pit_combine takes two elements of five arrays (A, b, U, eta, Z)")
     device = e_i[0].device
     if device.type == "cpu":
         return pit_combine_plain(e_i, e_j)
     _require_cuda("pit_combine", device)
+    if e_i[0].dim() == 4:
+        if not all(x.dim() == 4 and x.is_contiguous() for x in (*e_i, *e_j)):
+            raise ValueError(
+                "pit_combine folds a block axis into the lanes as a view: every operand must "
+                "be a contiguous (m, k, d, P) tensor (not contiguous, or of mixed rank)")
+        outs = _pit_combine_lanes(*(tuple(x.view(x.shape[0], x.shape[1], -1) for x in e)
+                                    for e in (e_i, e_j)))
+        return tuple(o.view(x.shape) for o, x in zip(outs, e_i))
     if e_i[0].dim() != 3:
-        raise NotImplementedError(
-            "pit_combine takes (m, m, P) and (m, c, P) operands; batch axes between the matrix "
-            "axes and the lanes come with the blockdiag adapter: ROADMAP queue 1 item 3"
-        )
-    dtype = e_i[0].dtype
+        raise ValueError(
+            f"pit_combine takes (m, k, P) operands or (m, k, d, P) with a block axis, got "
+            f"{tuple(e_i[0].shape)}")
+    return _pit_combine_lanes(e_i, e_j)
+
+
+def _pit_combine_lanes(e_i, e_j):
+    """The launch of K8 on lanes-last (m, k, P) operands on the card."""
+    dtype, device = e_i[0].dtype, e_i[0].device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"pit_combine takes float32 or float64 operands, got {dtype}")
     m, pairs, c = e_i[0].shape[0], e_i[0].shape[-1], e_i[1].shape[1]

@@ -131,3 +131,57 @@ def revert_markov(a_l, l_q, l_prev):
     gain = rounded.solve_triangular_upper(r_yy, r_yx).transpose(-1, -2)
     l_bwd = r_xx.transpose(-1, -2)
     return l_pred, gain, l_bwd
+
+
+def revert_observation(l_prev, h_l, l_noise=None):
+    """Square-root correction for a linear observation ``y = H x + eps``.
+
+    ``l_prev``: (..., n, n) lower prior factor; ``h_l``: (..., m, n) =
+    ``H @ L``; ``l_noise``: optional (..., m, m) lower observation-noise
+    factor (None: the exact constraint of the TS corrections).  One QR of
+    ``[[ (H L)^T, L^T ], [ L_eps^T, 0 ]]`` gives the observation factor
+    (m, m, lower), the Kalman gain ``K = Sigma H^T S^{-1}`` and the corrected
+    factor (n, n, lower; without noise of rank n - m, zero-padded).
+    """
+    n = l_prev.shape[-1]
+    m = h_l.shape[-2]
+    h_l, l_prev = _broadcast_batch(h_l, l_prev)
+    x = torch.cat([h_l.transpose(-1, -2), l_prev.transpose(-1, -2)], dim=-1)
+    if l_noise is not None:
+        l_noise = l_noise.expand(x.shape[:-2] + l_noise.shape[-2:])
+        zeros = l_noise.new_zeros(l_noise.shape[:-2] + (m, n))
+        x = torch.cat([x, torch.cat([l_noise.transpose(-1, -2), zeros], dim=-1)], dim=-2)
+    r = qr_r(x)
+    r_yy = r[..., :m, :m]
+    r_yx = r[..., :m, m:]
+    r_xx = r[..., m:, m:]
+    l_obs = r_yy.transpose(-1, -2)
+    gain = rounded.solve_triangular_upper(r_yy, r_yx).transpose(-1, -2)
+    if r_xx.shape[-2] < n:
+        r_xx = torch.cat([r_xx, r_xx.new_zeros(r_xx.shape[:-2] + (n - r_xx.shape[-2], n))],
+                         dim=-2)
+    l_cor = r_xx[..., :n, :].transpose(-1, -2)
+    return l_obs, gain, l_cor
+
+
+def tri_logdet(l):
+    """log |det L| of a triangular factor (the sum of log |diagonal|)."""
+    diag = torch.diagonal(l, dim1=-2, dim2=-1)
+    return torch.sum(rounded.log(torch.abs(diag)), dim=-1)
+
+
+def tri_solve_lower(l, b):
+    """Solve ``L x = b`` for lower-triangular ``L`` (batched)."""
+    return rounded.solve_triangular_lower(l, b)
+
+
+def rank1_gain(crosscov, s2):
+    """The gain ``crosscov / s2`` of a rank-1 factor update, ``crosscov``
+    (..., k) and ``s2`` (...); zero where ``s2`` is below the dtype's
+    smallest normal number.  Such a variance has underflowed (a dimension
+    whose output scale sits at its floor): the update keeps the predicted
+    state, as an exact zero residual needs none, where ``0 / 0`` would make
+    it NaN."""
+    ok = s2 >= torch.finfo(s2.dtype).tiny
+    gain = crosscov / torch.where(ok, s2, torch.ones_like(s2))[..., None]
+    return torch.where(ok[..., None], gain, torch.zeros_like(gain))

@@ -31,12 +31,15 @@ Kogge-Stone in plain torch ops, ``pit_fused``) and ``"cuda"`` (the same scan
 with each level one launch of ``kernels.pit_combine``; the port's name for
 the reference's ``"pallas"``).
 
-Ported: the isotropic backend with TS0 and ``ode_order=1``.  Not ported, each
-raising ``NotImplementedError``: the dense and blockdiag adapters,
-``time_shard``.
+The isotropic, dense (TS0 and TS1) and blockdiag backends with
+``ode_order=1``.  Blockdiag's elements carry a block axis, one independent
+chain per ODE dimension; with a combine engine its lanes-last prefix runs on
+(m, m, d, P) operands.  Not ported: ``time_shard`` (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -285,40 +288,90 @@ def _associative_scan(fn, elems):
     return tuple(out)
 
 
-def _adapters(ssm):
-    """Backend adapter: ``materialize(dt, scale, o) -> (Phi, Qc, H)`` for
-    stacks of steps (``dt`` and ``scale`` of shape (w,)), and the element
-    dimensions ``(m_dim, c_dim)``.  The isotropic backend: the state matrix
-    acts on the derivative axis and d mean columns ride along one shared
-    (n, n) covariance, so mean and column layout coincide."""
-    if ssm.name != "isotropic":
-        raise NotImplementedError(
-            f"parallel in time on the {ssm.name} backend is not ported yet (the dense adapter "
-            "needs ssm/dense's h_q_unit, error_and_scale, correct_affine and h_l_rows, the "
-            "blockdiag one its single-solve methods): ROADMAP queue 1 item 3"
-        )
-    nu, n = ssm.num_derivatives, ssm.n
+class _Adapter(NamedTuple):
+    """A backend's element layout for the parallel driver.
 
-    def materialize(dt, scale, o):
+    ``materialize(dt, scale, jacs, o) -> (Phi, Qc, H)`` for a stack of steps
+    (``dt`` (w,), ``scale`` (w,) or (w, d), ``jacs`` the (w, d, d) Jacobians
+    of TS1); ``to_cols`` / ``from_cols`` map between a stack of SSM means and
+    the elements' (m, c) column form; ``per_state`` spreads a (w, n)
+    per-derivative vector (the preconditioner) over the elements' state
+    axis; ``obs_cols`` puts the residuals (w, d) in the elements'
+    observation layout; ``deriv_rows(x, o)`` is the derivative rows 0..o of
+    a stack of SSM means (what the residual and Jacobian read);
+    ``blocked``: the elements carry a block axis between the step axis and
+    the matrix axes."""
+    materialize: Callable
+    to_cols: Callable
+    from_cols: Callable
+    per_state: Callable
+    obs_cols: Callable
+    deriv_rows: Callable
+    m_dim: int
+    c_dim: int
+    blocked: bool
+
+
+def _adapters(ssm):
+    """The backend's ``_Adapter``.
+
+    Isotropic: the state matrix acts on the derivative axis and d mean
+    columns ride along one shared (n, n) covariance.  Dense: one (nd, nd)
+    factor, derivative-major, one column, H carrying the Jacobians.
+    Blockdiag: the same per-step matrices serve each dimension with its own
+    scale, so every dimension is an independent element chain on a block
+    axis."""
+    nu, n, d = ssm.num_derivatives, ssm.n, ssm.d
+
+    def system(dt):
         phi = prior.phi_direct(dt, nu)
         p, _ = prior.preconditioner(dt, nu)
         _, l_q = prior.system_matrices(nu, dtype=dt.dtype, device=dt.device)
-        qc = scale[..., None, None] * (p[..., :, None] * l_q)
+        return phi, p[..., :, None] * l_q
+
+    def unit_row(dt, o):
         h = torch.zeros(dt.shape + (1, n), dtype=dt.dtype, device=dt.device)
         h[..., 0, o] = 1.0
-        return phi, qc, h
+        return h
 
-    return materialize, n, ssm.d
+    def column(mean):
+        return mean[..., None]
 
+    def uncolumn(b):
+        return b[..., 0]
 
-def _vmap_vf(vf):
-    """``vf(*args, t=t)`` mapped over a leading step axis of every argument
-    and of ``t``."""
+    if ssm.name == "isotropic":  # means (w, n, d)
+        def materialize(dt, scale, jacs, o):
+            phi, pl = system(dt)
+            return phi, scale[..., None, None] * pl, unit_row(dt, o)
 
-    def mapped(*args, t):
-        return torch.func.vmap(lambda *a: vf(*a[:-1], t=a[-1]))(*args, t)
+        def identity(x):
+            return x
 
-    return mapped
+        return _Adapter(materialize, identity, identity, identity,
+                        lambda z: z[..., None, :], lambda x, o: x[:, : o + 1], n, d, False)
+    if ssm.name == "blockdiag":  # means (w, d, n)
+        def materialize(dt, scale, jacs, o):
+            phi, pl = system(dt)
+            qc = scale[..., :, None, None] * pl[..., None, :, :]
+            return phi[..., None, :, :], qc, unit_row(dt, o)[..., None, :, :]
+
+        return _Adapter(materialize, column, uncolumn, lambda p: p[:, None],
+                        lambda z: z[..., None, None], lambda x, o: x[..., : o + 1], n, 1, True)
+    if ssm.name == "dense":  # means (w, n d)
+        def materialize(dt, scale, jacs, o):
+            phi, pl = system(dt)
+            h = torch.zeros(dt.shape + (d, n * d), dtype=dt.dtype, device=dt.device)
+            h[..., :, o * d : (o + 1) * d] = torch.eye(d, dtype=dt.dtype, device=dt.device)
+            for k, jac in enumerate(jacs):
+                h[..., :, k * d : (k + 1) * d] += -jac
+            return ssm._kron_eye(phi), ssm._kron_eye(scale[..., None, None] * pl), h
+
+        return _Adapter(materialize, column, uncolumn,
+                        lambda p: torch.repeat_interleave(p, d, dim=-1),
+                        lambda z: z[..., :, None], lambda x, o: x[:, : (o + 1) * d],
+                        n * d, 1, False)
+    raise NotImplementedError(ssm.name)
 
 
 def _warmstart_rk(vf, ssm, rv0_mean, grid, o, nu, stride=1, method="rk4"):
@@ -487,12 +540,13 @@ def solve_fixed_grid_parallel(
 def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, form,
                                warmstart, damping, precondition, deviation, fallback_rtol,
                                combine_engine, iteration_tol, return_diagnostics):
-    from .ivpsolve import _check_calibration, _tree_prepend, _validate_increasing
+    from .ivpsolve import _tree_prepend, _validate_increasing
 
     ssm = solver.ssm
     strategy = solver.strategy
     corr = strategy.correction
-    _check_calibration(solver)
+    if solver.calibration == _solvers.MLE:
+        raise NotImplementedError("mle calibration is post-hoc; use none/dynamic")
     dynamic = solver.calibration == _solvers.DYNAMIC
     rv0, scale0 = init
     dtype, device = rv0.mean.dtype, rv0.mean.device
@@ -500,8 +554,9 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
     grid = torch.as_tensor(grid, dtype=dtype, device=device)
 
     o = corr.ode_order
-    materialize, m_dim, c_dim = _adapters(ssm)
-    vf_steps = _vmap_vf(vf)
+    adapter = _adapters(ssm)
+    materialize, to_cols, from_cols = adapter.materialize, adapter.to_cols, adapter.from_cols
+    m_dim, c_dim = adapter.m_dim, adapter.c_dim
     ts, dts = grid[1:], torch.diff(grid)
     t1 = len(ts)
     if t1 == 0:
@@ -545,6 +600,10 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
     tiny = eps * torch.clamp(torch.abs(scale_none), min=1.0)
     ident = _identity_element(m_dim, c_dim, dtype, device)
 
+    def steps_like(mask, x):
+        """The step mask ``mask`` (w,) shaped to broadcast against ``x``."""
+        return mask.reshape(mask.shape + (1,) * (x.dim() - 1))
+
     make_element = (
         (lambda phi, qc, h, v, drift=None: _element(phi, qc @ _mT(qc), h, v, drift))
         if form == "cov" else _element_sqrt
@@ -552,16 +611,18 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
     combine = _combine if form == "cov" else _combine_sqrt
     marginal = _marginal_from_prefix_cov if form == "cov" else _marginal_from_prefix_sqrt
     # the fused build (element construction, prefix and marginal all
-    # lanes-last, pit_fused) serves the sqrt form whenever a combine engine is
-    # named; the cov form and engine None keep the step-leading build
-    use_fused_build = form == "sqrt" and combine_engine is not None
+    # lanes-last, pit_fused) serves the shared-covariance sqrt layouts whenever
+    # a combine engine is named; blockdiag and the cov form keep the
+    # step-leading build (blockdiag with the lanes-last prefix, its block axis
+    # between the matrix axes and the steps)
+    use_fused_build = form == "sqrt" and combine_engine is not None and not adapter.blocked
     prefix_engine = "cuda" if combine_engine == "cuda" else "torch"
 
     def lin_one(lin, t, dt):
         """Linearization of every step of a window (the vector-field work of
         one sweep): residuals, Jacobians (none for TS0) and sigmas."""
         _, cache = ssm.extrapolate_mean(lin, dt)  # only the cache (p, p_inv)
-        z, jacs = _solvers.linearize(strategy, vf_steps, lin, t)
+        z, jacs = _solvers.linearize(strategy, vf, lin, t)
         sigma, _err = _solvers.error_and_scale(strategy, z, jacs, cache)
         return z, jacs, sigma
 
@@ -569,53 +630,60 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
         """Largest elementwise relative change of the re-linearization over
         the window's valid steps, on the derivative rows 0..o that enter the
         elements (residual and Jacobian)."""
-        lr, lf = lin_ret[:, : o + 1], lin_fin[:, : o + 1]
+        lr, lf = adapter.deriv_rows(lin_ret, o), adapter.deriv_rows(lin_fin, o)
         rel = torch.abs(lr - lf) / (1.0 + torch.abs(lf))
-        return torch.max(torch.where(ok_k[:, None, None], rel, torch.zeros_like(rel)))
+        return torch.max(torch.where(steps_like(ok_k, rel), rel, torch.zeros_like(rel)))
 
-    def build_all(lin, r_prev, dts_k, ok_k, z_k, scale_k, pv_k, pinv_k, pv_prev):
+    def build_all(r_cols, r_prev, dts_k, ok_k, z_k, jacs_k, scale_k, pv_k, pinv_k, pv_prev):
         """Step-leading element build of a window (``_element_sqrt`` /
-        ``_element`` over the step axis)."""
-        phi, qc, h = materialize(dts_k, scale_k, o)
-        z_c = z_k[:, None, :]
+        ``_element`` over the step axis, and the block axis of blockdiag)."""
+        phi, qc, h = materialize(dts_k, scale_k, jacs_k, o)
+        v_obs = adapter.obs_cols(z_k)
         if deviation:
             # deviation state dx_k = x_k - r_k with reference r_k = lin_k: the
             # observation value is the local residual -z and the transition
             # drift Phi r_{k-1} - r_k the (small) prediction-filter gap
-            drift = phi @ r_prev - lin
-            v = -z_c
+            drift = phi @ r_prev - r_cols
+            v = -v_obs
         else:
             drift = None
-            v = h @ lin - z_c  # exact observation H x_k = v
+            v = h @ r_cols - v_obs  # exact observation H x_k = v
         if precondition:
             # x_hat_k = T_k^-1 x_k: the incoming state is in the previous
             # interface's coordinates
-            phi = pinv_k[:, :, None] * phi * pv_prev[:, None, :]
-            qc = pinv_k[:, :, None] * qc
-            h = h * pv_k[:, None, :]
+            phi = pinv_k[..., :, None] * phi * pv_prev[..., None, :]
+            qc = pinv_k[..., :, None] * qc
+            h = h * pv_k[..., None, :]
             if drift is not None:
-                drift = pinv_k[:, :, None] * drift
+                drift = pinv_k[..., :, None] * drift
         el = make_element(phi, qc, h, v, drift)
         ident_k = list(ident)
         if deviation:
             # padded slots must be physical identities: dx carries through
             # with the reference shift r_{k-1} - r_k as drift
-            ident_k[1] = pinv_k[:, :, None] * (r_prev - lin)
-        okb = ok_k[:, None, None]
-        return tuple(torch.where(okb, e, i) for e, i in zip(el, ident_k))
+            ident_k[1] = pinv_k[..., :, None] * (r_prev - r_cols)
+        return tuple(torch.where(steps_like(ok_k, e), e, i) for e, i in zip(el, ident_k))
 
-    def build_fused(r_cols, r_prev, dts_k, ok_k, z_k, scale_k, pv_k, pinv_k, pv_prev,
+    def prefix_ll(els):
+        """The window prefix of step-leading blockdiag elements (w, d, m, k)
+        by ``pit_fused.prefix_scan_sqrt_ll`` on (m, k, d, w)."""
+        pre = pit_fused.prefix_scan_sqrt_ll(
+            tuple(torch.movedim(torch.movedim(x, 0, -1), 0, -2) for x in els),
+            engine=prefix_engine)
+        return tuple(torch.movedim(torch.movedim(x, -2, 0), -1, 0) for x in pre)
+
+    def build_fused(r_cols, r_prev, dts_k, ok_k, z_k, jacs_k, scale_k, pv_k, pinv_k, pv_prev,
                     m0_for_marg, p0_h):
         """Element build, prefix and window marginal lanes-last (pit_fused),
         the step axis last."""
-        phi_w, qc_w, h_w = materialize(dts_k, scale_k, o)
+        phi_w, qc_w, h_w = materialize(dts_k, scale_k, jacs_k, o)
 
         def ll(x):
             return torch.movedim(x, 0, -1)
 
         phi_l, qc_l, h_l = ll(phi_w), ll(qc_w), ll(h_w)
         lin_l, rprev_l = ll(r_cols), ll(r_prev)
-        z_l = ll(z_k[:, None, :])
+        z_l = ll(adapter.obs_cols(z_k))
         if deviation:
             drift_l = pit_fused._mat(phi_l, rprev_l) - lin_l
             v_l = -z_l
@@ -640,27 +708,30 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
         return torch.movedim(mch_l, -1, 0), torch.movedim(cvh_l, -1, 0)
 
     def window_step(carry, ts_k, dts_k, ok_k, ok_host, lin0):
-        m0c, p0 = carry  # p0: covariance ("cov") or its factor ("sqrt")
+        m0c, p0 = carry  # column form; p0: covariance ("cov") or its factor ("sqrt")
 
         if precondition:
             # per-step preconditioning: element k lives in its own T(dt_k)
             # coordinates, A_hat_k = T_k^{-1} Phi_k T_{k-1}; the window-start
             # interface uses the first step's coordinates (T_0 := T_1)
-            pv_k, pinv_k = prior.preconditioner(dts_k, ssm.num_derivatives)
+            pv_k, pinv_k = (adapter.per_state(x)
+                            for x in prior.preconditioner(dts_k, ssm.num_derivatives))
             pv_prev = torch.cat([pv_k[:1], pv_k[:-1]])
         else:
-            pv_k = pinv_k = pv_prev = torch.ones((w, m_dim), dtype=dtype, device=device)
+            pv_k = pinv_k = pv_prev = adapter.per_state(
+                torch.ones((w, ssm.n), dtype=dtype, device=device))
         # carry into the window-start hat coordinates
-        m0c_h = pinv_k[0][:, None] * m0c
-        p0_h = (pinv_k[0][:, None] * p0 * pinv_k[0][None, :] if form == "cov"
-                else pinv_k[0][:, None] * p0)
+        m0c_h = pinv_k[0][..., :, None] * m0c
+        p0_h = (pinv_k[0][..., :, None] * p0 * pinv_k[0][..., None, :] if form == "cov"
+                else pinv_k[0][..., :, None] * p0)
         # dx_0 = x_0 - r_0 = 0 (r_0 is the window-start mean)
         m0_for_marg = torch.zeros_like(m0c_h) if deviation else m0c_h
 
         def sweep(lin):
-            r_cols = lin  # deviation references r_k (mean and column layout coincide)
+            r_cols = to_cols(lin)  # deviation references r_k
             r_prev = torch.cat([m0c[None], r_cols[:-1]])
-            z_k, _jacs_k, sig_k = lin_one(lin, ts_k, dts_k)
+            z_k, jacs_k, sig_k = lin_one(lin, ts_k, dts_k)
+            ok_s = steps_like(ok_k, sig_k)
             if dynamic and dtype == torch.float32:
                 # per-window sigma floor at sqrt(eps) times the window's largest
                 # sigma, float32 only: once the linearization is accurate to
@@ -670,28 +741,33 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
                 # and a converged window's legitimate spread can exceed
                 # 1 / sqrt(eps64), so f64 stays unfloored.
                 sigma_floor = eps ** 0.5 * torch.max(
-                    torch.where(ok_k, sig_k, torch.zeros_like(sig_k)))
+                    torch.where(ok_s, sig_k, torch.zeros_like(sig_k)))
             else:
                 sigma_floor = torch.zeros((), dtype=dtype, device=device)
             if dynamic:
                 scale_k = torch.maximum(sig_k, torch.maximum(sigma_floor, tiny))
             else:
-                scale_k = scale_none.expand(ok_k.shape)
+                scale_k = scale_none.expand(ok_k.shape + scale_none.shape)
+            args = (r_cols, r_prev, dts_k, ok_k, z_k, jacs_k, scale_k, pv_k, pinv_k, pv_prev)
             if use_fused_build:
-                means_ch, covs_h = build_fused(r_cols, r_prev, dts_k, ok_k, z_k, scale_k,
-                                               pv_k, pinv_k, pv_prev, m0_for_marg, p0_h)
+                means_ch, covs_h = build_fused(*args, m0_for_marg, p0_h)
             else:
-                els = build_all(lin, r_prev, dts_k, ok_k, z_k, scale_k, pv_k, pinv_k, pv_prev)
-                means_ch, covs_h = marginal(_associative_scan(combine, els), m0_for_marg, p0_h)
-            scales = torch.where(ok_k, scale_k, scale_none)
+                els = build_all(*args)
+                if combine_engine is not None:
+                    prefix = prefix_ll(els)
+                else:
+                    prefix = _associative_scan(combine, els)
+                means_ch, covs_h = marginal(prefix, m0_for_marg, p0_h)
+            scales = torch.where(steps_like(ok_k, scale_k), scale_k, scale_none)
             # back to physical coordinates, per step
-            pv_s = pv_k[:, :, None]
-            means = pv_s * means_ch
+            pv_s = pv_k[..., :, None]
+            means_c = pv_s * means_ch
             if deviation:
-                means = means + r_cols
+                means_c = means_c + r_cols
             covs = pv_s * covs_h * _mT(pv_s) if form == "cov" else pv_s * covs_h
+            means = from_cols(means_c)
             # next linearization: l_k = Phi_k m_{k-1}, m_0 = window start
-            m_prev = torch.cat([m0c[None], means[:-1]])
+            m_prev = torch.cat([from_cols(m0c)[None], means[:-1]])
             lin_next = ssm.extrapolate_mean(m_prev, dts_k)[0]
             if damping:
                 lin_next = damping * lin + (1.0 - damping) * lin_next
@@ -707,7 +783,7 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
                 chol0 = _cholesky_small(p0 + jit0[..., None, None] * eye_m)
             else:
                 chol0 = p0
-            rv = Normal(m0c, chol0)
+            rv = Normal(from_cols(m0c), chol0)
             means_s, covs_s, scales_s = [], [], []
             for t_k, dt_k, ok_1 in zip(ts_k.unbind(0), dts_k.unbind(0), ok_host):
                 if ok_1:  # a padded slot carries the state and the base scale
@@ -722,7 +798,7 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
                 means_s.append(rv.mean)
                 covs_s.append(rv.cholesky @ _mT(rv.cholesky) if form == "cov" else rv.cholesky)
                 scales_s.append(scale)
-            return (rv.mean, covs_s[-1]), (
+            return (to_cols(rv.mean), covs_s[-1]), (
                 torch.stack(means_s), torch.stack(covs_s), torch.stack(scales_s))
 
         def finite(means, covs):
@@ -732,7 +808,7 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
         if lin is None:
             # constant initial trajectory at the window-start mean: short
             # windows keep the iteration inside its contraction region
-            lin = m0c.expand((w,) + m0c.shape)
+            lin = from_cols(m0c).expand((w,) + rv0.mean.shape)
         if iteration_tol is not None:
             # adaptive sweep count: iterate until the proposed re-linearization
             # moves less than iteration_tol (relative), up to iterations - 1
@@ -753,7 +829,7 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
         # and the per-window convergence diagnostic
         delta = iter_delta(lin_ret, lin, ok_k)
         diverged = torch.zeros((), dtype=torch.bool, device=device)
-        carry = (means[-1], covs[-1])  # identity padding: the last valid state
+        carry = (to_cols(means[-1]), covs[-1])  # identity padding: the last valid state
         if fallback_rtol is not None:
             # gate on output finiteness too: a window can converge in its
             # observed rows while its covariance factors are already
@@ -765,7 +841,7 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
         return carry, (means, covs, scales, delta, diverged, finite(means, covs))
 
     p0_init = rv0.cholesky @ _mT(rv0.cholesky) if form == "cov" else rv0.cholesky
-    carry, outs = (rv0.mean, p0_init), []
+    carry, outs = (to_cols(rv0.mean), p0_init), []
     for k in range(num_w):
         lin0 = None if lin_warm_w is None else lin_warm_w[k]
         carry, out = window_step(carry, ts_w[k], dts_w[k], valid_w[k], valid_host[k], lin0)

@@ -27,6 +27,17 @@ import torch
 from . import df32 as df
 
 
+def logistic():
+    """du/dt = a u (1 - u / K), u0 = 0.1 on (0, 2.5), a = K = 1."""
+
+    def vf(u, *, t, p):
+        a, k = p
+        return a * u * (1.0 - u / k)
+
+    u0 = torch.tensor([0.1], dtype=torch.float64)
+    return vf, (u0,), (0.0, 2.5), (1.0, 1.0)
+
+
 def rigid_body(*, time_span=(0.0, 10.0)):
     """Euler's equations of a free rigid body (u0=(1, 0, 0.9),
     p=(-2, 1.25, -0.5))."""

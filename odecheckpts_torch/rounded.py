@@ -9,7 +9,7 @@ rigid-body ensemble move by a few percent between MKL's AVX-512, AVX2 and
 SSE4.2 code on one machine, and with them whether a lane's last step falls
 just short of a checkpoint (``ivpsolve._interpolate_at``).
 
-So on the CPU these functions compute f32 ``sqrt``, ``exp`` and ``log`` in
+So on the CPU these functions compute f32 ``sqrt``, ``exp``, ``log`` and ``pow`` in
 f64 and round once (for ``sqrt`` that is the IEEE root, as on the card and
 in the kernels; f64 carries more than twice f32's bits, so the double
 rounding is exact), and form products and triangular solves as explicit
@@ -40,6 +40,11 @@ def log(x):
     return _widen(torch.log, x)
 
 
+def pow(x, exponent):
+    """``x ** exponent`` for a Python-float exponent."""
+    return _widen(lambda v: torch.pow(v, exponent), x)
+
+
 def matmul(a, b):
     """``a @ b`` for (..., n, k) and (..., k, m) (batch axes broadcast); on
     the CPU summed over k in order, each product and sum rounded once."""
@@ -49,6 +54,21 @@ def matmul(a, b):
     for j in range(1, a.shape[-1]):
         out = out + a[..., :, j : j + 1] * b[..., j : j + 1, :]
     return out
+
+
+def solve_triangular_lower(l, b):
+    """``X`` with ``L X = B`` for lower-triangular (..., n, n) ``L`` and
+    (..., n, m) ``B``; on the CPU by forward substitution in row order."""
+    if l.device.type != "cpu":
+        return torch.linalg.solve_triangular(l, b, upper=False)
+    n = l.shape[-1]
+    rows = [None] * n
+    for i in range(n):
+        acc = b[..., i, :]
+        for j in range(i):
+            acc = acc - l[..., i, j, None] * rows[j]
+        rows[i] = acc / l[..., i, i, None]
+    return torch.stack(rows, dim=-2)
 
 
 def solve_triangular_upper(r, b):

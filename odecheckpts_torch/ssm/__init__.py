@@ -25,3 +25,8 @@ def choose(implementation: str, *, ode_shape: tuple, num_derivatives: int):
     raise ValueError(
         f"unknown implementation {implementation!r}; available: {sorted(_BACKENDS)}"
     )
+
+
+def register(name: str, cls) -> None:
+    """Make ``cls`` available to ``choose`` (and ``prior_ibm``) as ``name``."""
+    _BACKENDS[name] = cls

@@ -5,14 +5,11 @@ One independent (n, n) covariance factor and one output scale per ODE
 dimension: the factorization for systems whose components live at very
 different magnitudes.  TS0 corrections only.  Layout: mean (..., d, n),
 factor (..., d, n, n), output scale (..., d); ``dt`` carries the batch shape
-alone.  Every method broadcasts over leading batch dimensions.
+alone.  Every method broadcasts over leading batch dimensions; products go
+through ``rounded`` (the same sums on every host).
 
-Ported: what the batched blockdiag driver and the generic stack between
-kernel launches call (state construction, the unpreconditioned
-extrapolation of the interpolation, the conditionals of the smoothing
-pass).  The generic single-solve surface (``extrapolate_mean`` / ``_cov``,
-``error_and_scale_deriv``, ``correct_deriv``, ``condition_qoi``, sampling)
-is ROADMAP queue 1 item 3.
+Not ported: ``condition_qoi`` and the sampling methods, ROADMAP queue 1
+item 4.
 """
 
 from __future__ import annotations
@@ -21,13 +18,13 @@ import dataclasses
 
 import torch
 
-from .. import linalg, prior
+from .. import linalg, prior, rounded
 from .base import Conditional, Normal
 
 
 def _mv(matrix, vec):
     """(..., d, n, n) @ (..., d, n) -> (..., d, n)."""
-    return (matrix @ vec[..., None])[..., 0]
+    return rounded.matmul(matrix, vec[..., None])[..., 0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,10 +63,45 @@ class BlockDiagSSM:
     def qoi(self, mean):
         return mean[..., :, 0]
 
+    def select_deriv(self, mean, i):
+        return mean[..., :, i]
+
+    def qoi_std(self, rv):
+        """Marginal standard deviation of the solution, (..., d)."""
+        return rounded.sqrt(torch.sum(rv.cholesky[..., :, 0, :] ** 2, dim=-1))
+
     def _system(self, like):
         return prior.system_matrices(
             self.num_derivatives, dtype=like.dtype, device=like.device
         )
+
+    def extrapolate_mean(self, mean, dt):
+        """Predicted mean in preconditioned coordinates and the cache
+        ``(p, p_inv)``, each (..., n), shared by the d dimensions."""
+        a, _ = self._system(mean)
+        p, p_inv = prior.preconditioner(dt, self.num_derivatives)
+        m_pred = p[..., None, :] * _mv(a, p_inv[..., None, :] * mean)
+        return m_pred, (p, p_inv)
+
+    def extrapolate_cov(self, rv, m_pred, cache, output_scale, reversal):
+        """Predicted factors (and, with ``reversal``, the backward
+        conditionals) of the preconditioned transition, per dimension with
+        that dimension's output scale."""
+        a, l_q = self._system(rv.mean)
+        p, p_inv = cache
+        p_c, p_inv_c = p[..., None, :, None], p_inv[..., None, :, None]
+        l_bar = p_inv_c * rv.cholesky  # (..., d, n, n)
+        a_l = rounded.matmul(a, l_bar)
+        l_q_scaled = output_scale[..., :, None, None] * l_q
+        if not reversal:
+            l_pred_bar = linalg.chol_from_stack(a_l.transpose(-1, -2),
+                                                l_q_scaled.transpose(-1, -2))
+            return Normal(m_pred, p_c * l_pred_bar), None
+        l_pred_bar, gain_bar, l_bwd_bar = linalg.revert_markov(a_l, l_q_scaled, l_bar)
+        gain = (p_c * gain_bar) * p_inv[..., None, None, :]
+        noise_mean = rv.mean - _mv(gain, m_pred)
+        bwd = Conditional(gain, Normal(noise_mean, p_c * l_bwd_bar))
+        return Normal(m_pred, p_c * l_pred_bar), bwd
 
     def extrapolate_direct(self, rv, dt, output_scale, reversal):
         """Extrapolation in unpreconditioned coordinates (interpolation
@@ -80,13 +112,38 @@ class BlockDiagSSM:
         _, l_q = self._system(rv.mean)
         q_chol = output_scale[..., :, None, None] * (p[..., :, None] * l_q)[..., None, :, :]
         m_pred = _mv(phi, rv.mean)
-        a_l = phi @ rv.cholesky
+        a_l = rounded.matmul(phi, rv.cholesky)
         if not reversal:
             l_pred = linalg.chol_from_stack(a_l.transpose(-1, -2), q_chol.transpose(-1, -2))
             return Normal(m_pred, l_pred), None
         l_pred, gain, l_bwd = linalg.revert_markov(a_l, q_chol, rv.cholesky)
         noise_mean = rv.mean - _mv(gain, m_pred)
         return Normal(m_pred, l_pred), Conditional(gain, Normal(noise_mean, l_bwd))
+
+    def error_and_scale_deriv(self, z, cache, o, unit="qoi"):
+        """Per-dimension MLE scales ``sigma_i = |z_i| / s_unit`` and error
+        estimates in solution units (``unit="qoi"``) or residual units, each
+        (..., d)."""
+        _, l_q = self._system(z)
+        p, _ = cache
+        s_unit = p[..., o, None] * rounded.sqrt(torch.sum(l_q[o, :] ** 2))
+        sigma = torch.abs(z) / s_unit
+        if unit == "residual":
+            return sigma, sigma * s_unit
+        return sigma, sigma * p[..., 0, None] * rounded.sqrt(torch.sum(l_q[0, :] ** 2))
+
+    def correct_deriv(self, rv, z, o):
+        """Exact constraint update on the o-th derivative (TS0), per
+        dimension: the rank-1 factor update of the isotropic backend (none in
+        a dimension whose variance underflowed: ``linalg.rank1_gain``)."""
+        l = rv.cholesky  # (..., d, n, n)
+        l_obs = l[..., :, o, :]  # (..., d, n)
+        s2 = torch.sum(l_obs**2, dim=-1)
+        s = rounded.sqrt(s2)
+        gain = linalg.rank1_gain(_mv(l, l_obs), s2)
+        mean = rv.mean - gain * z[..., :, None]
+        chol = l - gain[..., :, :, None] * l_obs[..., :, None, :]
+        return Normal(mean, chol), Normal(z, s)
 
     def identity_conditional(self, dtype, device=None):
         eye = torch.eye(self.n, dtype=dtype, device=device).expand(self.d, self.n, self.n)
@@ -99,17 +156,21 @@ class BlockDiagSSM:
     def marginalize(self, rv, cond):
         mean = _mv(cond.matrix, rv.mean) + cond.noise.mean
         chol = linalg.chol_from_stack(
-            (cond.matrix @ rv.cholesky).transpose(-1, -2),
+            rounded.matmul(cond.matrix, rv.cholesky).transpose(-1, -2),
             cond.noise.cholesky.transpose(-1, -2),
         )
         return Normal(mean, chol)
 
     def compose(self, outer, inner):
         """Conditional composition: outer(inner(x)), both backward-in-time."""
-        matrix = outer.matrix @ inner.matrix
+        matrix = rounded.matmul(outer.matrix, inner.matrix)
         mean = _mv(outer.matrix, inner.noise.mean) + outer.noise.mean
         chol = linalg.chol_from_stack(
-            (outer.matrix @ inner.noise.cholesky).transpose(-1, -2),
+            rounded.matmul(outer.matrix, inner.noise.cholesky).transpose(-1, -2),
             outer.noise.cholesky.transpose(-1, -2),
         )
         return Conditional(matrix, Normal(mean, chol))
+
+    def rescale_cholesky(self, tree_chol, factor):
+        """Factors times the per-dimension output scales ``factor`` (..., d)."""
+        return tree_chol * factor[..., :, None, None]

@@ -129,14 +129,15 @@ class IsotropicSSM:
 
     def correct_deriv(self, rv, z, o):
         """Exact constraint update on the o-th derivative (TS0): the rank-1
-        factor update ``L - (c / s^2) l_obs`` with ``c = Sigma e_o``; returns
-        the corrected state and the observed ``Normal(z, s)``."""
+        factor update ``L - (c / s^2) l_obs`` with ``c = Sigma e_o`` (none
+        where ``s^2`` underflowed: ``linalg.rank1_gain``); returns the
+        corrected state and the observed ``Normal(z, s)``."""
         l = rv.cholesky
         l_obs = l[..., o, :]
         s2 = torch.sum(l_obs**2, dim=-1)
         s = rounded.sqrt(s2)
         crosscov = rounded.matmul(l, l_obs[..., None])
-        gain = crosscov[..., 0] / s2[..., None]
+        gain = linalg.rank1_gain(crosscov[..., 0], s2)
         mean = rv.mean - gain[..., :, None] * z[..., None, :]
         chol = l - gain[..., :, None] * l_obs[..., None, :]
         return Normal(mean, chol), Normal(z, s)
@@ -166,3 +167,7 @@ class IsotropicSSM:
             outer.noise.cholesky.transpose(-1, -2),
         )
         return Conditional(matrix, Normal(mean, chol))
+
+    def rescale_cholesky(self, tree_chol, factor):
+        """Factors times the output-scale ``factor`` (of the batch shape)."""
+        return tree_chol * factor[..., None, None]

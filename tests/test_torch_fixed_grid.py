@@ -282,20 +282,32 @@ def test_calibration_constants_and_what_is_left_out():
         jsolvers.NONE, jsolvers.DYNAMIC, jsolvers.MLE)
     jsolver, tsolver = _solvers("filter", "none")
     assert tsolver.calibration == tsolvers.NONE == jsolver.calibration
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tsolvers.solver_mle(tsolver.strategy)
-    _, tinit = _inits(jsolver, tsolver)
+    # MLE calibration: the sequential fixed-grid solve rescales its posterior
+    # by the RMS of the step sigmas, as the reference does (rtol 1e-10)
+    mle_t = tsolvers.solver_mle(tsolver.strategy)
+    mle_j = jsolvers.solver_mle(jsolver.strategy)
+    assert mle_t.calibration == tsolvers.MLE == mle_j.calibration
+    jinit, tinit = _inits(jsolver, tsolver)
     tvf, _ = _problem(tproblems)
-    mle = tsolvers.Solver(tsolver.strategy, tsolvers.MLE)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tivpsolve.solve_fixed_grid(tvf, tinit, grid=np.linspace(0, 1, 3), solver=mle)
+    jvf, _ = _problem(jproblems)
+    grid = np.linspace(0.0, 1.0, 9)
+    jsol = jivpsolve.solve_fixed_grid(jvf, jinit, grid=jnp.asarray(grid), solver=mle_j)
+    tsol = tivpsolve.solve_fixed_grid(tvf, tinit, grid=grid, solver=mle_t)
+    for got, want in ((tsol.output_scale, jsol.output_scale), (tsol.u_std, jsol.u_std),
+                      (tsol.posterior.init.cholesky, jsol.posterior.init.cholesky)):
+        _close(got, want, rtol=1e-10)
+    # TS1 needs the dense backend; there it carries the vector field's Jacobian
     dense = tsolvers.prior_ibm(num_derivatives=NU, ode_shape=(D,), implementation="dense")
+    with pytest.raises(ValueError, match="dense"):
+        tsolvers.strategy_filter(tsolver.ssm, tsolvers.correction_ts1())
     ts1 = tsolvers.strategy_filter(dense, tsolvers.correction_ts1())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tsolvers.linearize(ts1, tvf, torch.zeros(N * D, dtype=torch.float64), 0.0)
-    ts0_dense = tsolvers.strategy_filter(dense, tsolvers.correction_ts0())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tsolvers.correct(ts0_dense, None, None, ())
+    m = np.random.default_rng(7).standard_normal(N * D)
+    z, (jac,) = tsolvers.linearize(ts1, tvf, torch.tensor(m), 0.0)
+    jz, (jjac,) = jsolvers.linearize(jsolvers.strategy_filter(
+        jsolvers.prior_ibm(num_derivatives=NU, ode_shape=(D,), implementation="dense"),
+        jsolvers.correction_ts1()), jvf, jnp.asarray(m), 0.0)
+    _close(z, jz)
+    _close(jac, jjac)
     with pytest.raises(ValueError, match="error_unit"):
         tsolvers.correction_ts0(error_unit="bogus")
 

@@ -1029,9 +1029,12 @@ def test_pit_combine_k8_refuses_what_it_is_not_built_for(cuda_device):
                                   for x in els), els)
     with pytest.raises(ValueError, match="float32 or float64"):
         kernels.pit_combine(tuple(x.half() for x in els), tuple(x.half() for x in els))
-    blocked = tuple(x[:, :, None, :].contiguous() for x in els)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        kernels.pit_combine(blocked, blocked)
+    # a block axis folds into the lanes only as a view of contiguous operands
+    blocked = tuple(x.reshape(x.shape[0], x.shape[1], 2, 4) for x in els)
+    with pytest.raises(ValueError, match="not contiguous"):
+        kernels.pit_combine(tuple(x.transpose(2, 3) for x in blocked), blocked)
+    with pytest.raises(ValueError, match="block axis"):
+        kernels.pit_combine(tuple(x[..., None] for x in blocked), blocked)
 
 
 @pytest.mark.cuda

@@ -213,15 +213,27 @@ def test_what_is_left_out_raises_and_the_cuda_engine_has_no_fallback():
         tivpsolve.solve_fixed_grid(tvf, tinit, time_shard=(object(), "t"), **kw)
     with pytest.raises(RuntimeError, match="CUDA tensors"):  # CPU tensors: no card, no answer
         tivpsolve.solve_fixed_grid(tvf, tinit, combine_engine="cuda", **kw)
-    for implementation in ("dense", "blockdiag"):
-        prior = tsolvers.prior_ibm(num_derivatives=NU, ode_shape=(D,),
-                                   implementation=implementation)
-        with pytest.raises(NotImplementedError, match="item 3"):
-            tpt._adapters(prior)
-    mle = tsolvers.Solver(tsolver.strategy, tsolvers.MLE)
-    with pytest.raises(NotImplementedError, match="item 2"):
+    from odecheckpts_tpu import parallel_time as jpt
+
+    # every backend has its adapter, with the reference's element dimensions
+    for implementation in ("isotropic", "dense", "blockdiag"):
+        port = tpt._adapters(tsolvers.prior_ibm(num_derivatives=NU, ode_shape=(D,),
+                                                implementation=implementation))
+        *_, m_dim, c_dim, n_blocks = jpt._adapters(jsolvers.prior_ibm(
+            num_derivatives=NU, ode_shape=(D,), implementation=implementation))
+        assert (port.m_dim, port.c_dim, port.blocked) == (m_dim, c_dim, n_blocks > 0), \
+            implementation
+    # MLE calibration is post hoc: the parallel pass refuses it, as the reference does
+    mle = tsolvers.solver_mle(tsolver.strategy)
+    with pytest.raises(NotImplementedError, match="post-hoc"):
         tivpsolve.solve_fixed_grid(tvf, tinit, grid=GRID, solver=mle, parallel=True)
     with pytest.raises(NotImplementedError, match="item 5"):
         tsolvers.correction_ts0(ode_order=2)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tivpsolve.solve_adaptive_parallel_in_time(tvf, tinit, t0=0.0, t1=1.0)
+    # the adaptive parallel-in-time solve discovers one IVP's grid
+    batched = (tinit[0]._replace(mean=tinit[0].mean.expand(2, *tinit[0].mean.shape),
+                                 cholesky=tinit[0].cholesky.expand(2, *tinit[0].cholesky.shape)),
+               tinit[1])
+    with pytest.raises(ValueError, match="one IVP"):
+        tivpsolve.solve_adaptive_parallel_in_time(
+            tvf, batched, t0=0.0, t1=1.0, dt0=0.1, max_steps=4,
+            adaptive_solver=tivpsolve.adaptive(tsolver, atol=1e-6, rtol=1e-6))
