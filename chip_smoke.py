@@ -220,10 +220,31 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
     ``solve_adaptive_save_at`` with ``solver_mle`` at atol = rtol = 1e-8 on 7
     checkpoints: filtered and smoothed values within rtol 1e-5 of the closed
     form, u(2.5) within 1e-4 of 0.5751, one MLE output scale.
-30. the kernel table line and the result line.
+30. train: the training path (no kernel) at experiment 7's full
+    configuration (``experiments/7_learn_ode_dynamics/learn_ode.py``), in
+    float64 from numpy seed TRAIN_SEED: 16 trajectories of the saturating
+    spiral field from u0 uniform in [-0.6, 1] over linspace(0, 10, 48), from
+    ``facade.solve_rk("tsit5", atol = rtol = 1e-8, dt0 = 0.1)``; the softplus
+    MLP (2, 4, 4, 2); the loss the batch mean of -``log_marginal_likelihood``
+    at noise 1e-2 through ``facade.solve("ts0-4", dt0 = 1, atol = rtol =
+    1e-3, calibrate="none")`` under ``control_flow.overwrite_with_bounded(
+    512, remat=True)``.  Gates: on a minibatch of 4 lanes and the first
+    curriculum horizon (9 checkpoints) the card's loss and gradient equal the
+    port's CPU result on the same inputs to relative TRAIN_CPU_RTOL, with
+    every lane's accepted steps equal; ``train.fit`` with
+    ``torch.optim.Adam(lr=3e-3)`` for 5 steps on that minibatch gives finite
+    losses and weights and a last loss below the first; one full-data loss
+    and gradient (16 lanes, 48 checkpoints) is finite (its seconds, attempts
+    and peak ``max_memory_allocated`` with ``remat`` on and off reported);
+    one MSE-through-``solve_rk("tsit5", tol 1e-3)`` gradient on the
+    minibatch is finite and equals the CPU result to TRAIN_CPU_RTOL.  Any
+    lane a bounded loop left at its bound is reported (``capped_lanes``) and
+    fails the phase.
+31. the kernel table line and the result line.
 
-Phases 26-29 run beside the rows whose lanes they reuse: 26 after 9,
-adaptive_dense after 13, adaptive_bd after 18, 28 and 29 after 22.
+Phases 26-30 run beside the rows whose lanes they reuse: 26 after 9,
+adaptive_dense after 13, adaptive_bd after 18, 28 and 29 after 22; 30 after
+29.
 
 Every kernel's ``ms`` is its device time (``_device_time``: DEVICE_LAUNCHES
 launches back to back behind a sleep of the stream, so the wrapper's host
@@ -376,6 +397,19 @@ ADAPTIVE_DENSE_LANES = 16_384  # cut from 32,768 for the script's time (phase 27
 ADAPTIVE_BD_CHECKPOINTS = 3  # blockdiag generic rows solve to t = 25 (phase 27)
 ADAPTIVE_MAX_ATTEMPTS = 20_000  # about 10x the most a generic row takes (K6's row: 1,913)
 LOGISTIC_U_T1 = 0.5751  # u(2.5), .claude/skills/verify/SKILL.md
+# experiment 7's training configuration (experiments/7_learn_ode_dynamics/learn_ode.py:153-163)
+TRAIN_SEED = 5678
+TRAIN_LANES = 16
+TRAIN_POINTS = 48
+TRAIN_MINIBATCH = 4
+TRAIN_HORIZON = 9  # the curriculum's first horizon: max(2, int(48 * 0.2))
+TRAIN_SIZES = (2, 4, 4, 2)
+TRAIN_TOL = 1e-3
+TRAIN_NOISE = 1e-2
+TRAIN_MAX_STEPS = 512
+TRAIN_LR = 3e-3
+TRAIN_ADAM_STEPS = 5
+TRAIN_CPU_RTOL = 1e-6
 QR_SHAPES = ((130, 10, 5), (128, 6, 6), (64, 4, 2), (32_768, 10, 5))
 PACKING_ITERS = 200
 PACKING_BATCHES = (8_192, 32_768, 262_144)
@@ -2891,6 +2925,202 @@ def phase_qr_packing(device):
     return worst, timing
 
 
+def _spiral(u, *, t=None, p=()):
+    """The saturating rotation field of experiment 7's data
+    (``learn_ode.py:40-42``)."""
+    import torch
+
+    x = u / (1.0 + u)
+    return torch.stack([x[1], -x[0]])
+
+
+def _softplus_mlp(u, *, t=None, p=None):
+    """Experiment 7's model (``learn_ode.py:52-76``): softplus hidden layers,
+    a linear last layer."""
+    import torch
+
+    x = u
+    for w, b in p[:-1]:
+        x = torch.log(1.0 + torch.exp(x @ w + b))
+    w, b = p[-1]
+    return x @ w + b
+
+
+def _train_params(device, requires_grad=True):
+    """The MLP's weights from numpy: N(0, 1 / fan_in), as ``mlp_init`` draws."""
+    import torch
+
+    rng = np.random.default_rng(TRAIN_SEED + 1)
+    params = []
+    for fan_in, fan_out in zip(TRAIN_SIZES[:-1], TRAIN_SIZES[1:]):
+        scale = 1.0 / np.sqrt(fan_in)
+        params.append(tuple(
+            torch.tensor(scale * rng.standard_normal(shape), dtype=torch.float64, device=device,
+                         requires_grad=requires_grad)
+            for shape in ((fan_in, fan_out), (fan_out,))))
+    return params
+
+
+def _leaves(params):
+    return [x for layer in params for x in layer]
+
+
+def _train_nlml(solve, params, ys):
+    """Experiment 7's loss on (T, B, 2) data: the batch mean of -lml, and the
+    accepted steps of every lane."""
+    from odecheckpts_torch import stats
+
+    _u, aux = solve((ys[0],), params)
+    lml = stats.log_marginal_likelihood(ys, standard_deviation=TRAIN_NOISE,
+                                        posterior=aux["solution"].posterior)
+    return -lml.mean(), aux["solution"].num_steps[-1]
+
+
+def _loss_and_grad(loss_fn, params, remat=True):
+    """``loss_fn(params)`` and its gradient in the weights under the bounded
+    loop; its seconds, the attempts and capped lanes of its loops, and the
+    bytes of the tensors the autograd tape saved outside the ``remat``
+    regions (``tape_bytes``; inside them only the attempts' inputs stay)."""
+    import torch
+
+    from odecheckpts_torch import control_flow
+
+    tape = [0]
+
+    def pack(t):
+        tape[0] += t.numel() * t.element_size()
+        return t
+
+    control_flow.reset_counters()
+    t0 = time.perf_counter()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        with control_flow.overwrite_with_bounded(max_steps=TRAIN_MAX_STEPS, remat=remat):
+            loss, extra = loss_fn(params)
+    grads = torch.autograd.grad(loss, _leaves(params))
+    grads = [g.detach().cpu() for g in grads]  # the host read ends the timed region
+    seconds = time.perf_counter() - t0
+    return (float(loss.detach()), extra, grads,
+            {"seconds": seconds, **dict(control_flow.counters), "tape_bytes": tape[0]})
+
+
+def _grad_rel_err(got, want):
+    """The largest deviation of each gradient leaf over that leaf's largest
+    entry."""
+    return max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+
+
+def phase_train(device):
+    """Experiment 7's training path on the card in float64 (phase 30): the
+    port's CPU result on the minibatch as the reference, Adam on it, the full
+    data with and without ``remat``, and the gradient through RK."""
+    import functools
+
+    import torch
+
+    from odecheckpts_torch import control_flow, facade, train
+
+    rng = np.random.default_rng(TRAIN_SEED)
+    ts = np.linspace(0.0, 10.0, TRAIN_POINTS)
+    u0s = rng.uniform(-0.6, 1.0, (TRAIN_LANES, 2))
+    t0 = time.perf_counter()
+    data = facade.solve_rk("tsit5", _spiral, None, ts, dt0=0.1, atol=1e-8, rtol=1e-8)
+    ys, aux = data((torch.tensor(u0s, device=device),), ())
+    data_s = time.perf_counter() - t0
+    lanes = rng.permutation(TRAIN_LANES)[:TRAIN_MINIBATCH]
+    ts_mb = ts[:TRAIN_HORIZON]
+    ys_mb = ys[:TRAIN_HORIZON, lanes].contiguous()
+    info = {"phase": "train", "dtype": "float64", "lanes": TRAIN_LANES,
+            "checkpoints": TRAIN_POINTS, "max_solver_steps": TRAIN_MAX_STEPS,
+            "data_seconds": data_s, "data_rk_steps_mean": float(aux["num_steps"].double().mean()),
+            "minibatch": [int(i) for i in lanes], "minibatch_checkpoints": TRAIN_HORIZON}
+    prob = {}
+
+    def prob_solve(points):
+        if points not in prob:
+            prob[points] = facade.solve("ts0-4", _softplus_mlp, np.zeros(2), ts[:points], dt0=1.0,
+                                        atol=TRAIN_TOL, rtol=TRAIN_TOL, calibrate="none")
+        return prob[points]
+
+    def mb_loss(params, ys_):
+        return _train_nlml(prob_solve(TRAIN_HORIZON), params, ys_)
+
+    # the card against the port's own CPU result on the same minibatch
+    card = _loss_and_grad(lambda p: mb_loss(p, ys_mb), _train_params(device))
+    cpu = _loss_and_grad(lambda p: mb_loss(p, ys_mb.cpu()), _train_params("cpu"))
+    steps_card, steps_cpu = card[1].cpu(), cpu[1]
+    info["card_vs_cpu"] = {
+        "nlml_card": card[0], "nlml_cpu": cpu[0], "nlml_rel_err": abs(card[0] / cpu[0] - 1.0),
+        "grad_rel_err": _grad_rel_err(card[2], cpu[2]),
+        "steps_card": steps_card.tolist(), "steps_equal": bool(torch.equal(steps_card, steps_cpu)),
+        "card": card[3], "cpu": cpu[3]}
+    finite = [all(bool(torch.all(torch.isfinite(g))) for g in r[2]) for r in (card, cpu)]
+
+    # five Adam steps on the fixed minibatch through train.nlml + train.fit
+    loss_fn = train.nlml(prob_solve(TRAIN_HORIZON),
+                         train.Observations(ts_mb, ys_mb, TRAIN_NOISE), u0=(ys_mb[0],))
+    control_flow.reset_counters()
+    t0 = time.perf_counter()
+    theta, losses = train.fit(loss_fn, _train_params(device, requires_grad=False),
+                              functools.partial(torch.optim.Adam, lr=TRAIN_LR),
+                              num_steps=TRAIN_ADAM_STEPS, max_solver_steps=TRAIN_MAX_STEPS)
+    info["adam"] = {"losses": losses, "seconds": time.perf_counter() - t0,
+                    **dict(control_flow.counters)}
+    theta_finite = all(bool(torch.all(torch.isfinite(x))) for x in _leaves(theta))
+
+    # one full-data loss and gradient, remat on and off; the peak counts
+    # what was allocated before the call (``base_bytes``: cuBLAS's
+    # workspaces among it, once the first products have run)
+    full = {}
+    for remat in (True, False):
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        loss, _, grads, stats_ = _loss_and_grad(
+            lambda p: _train_nlml(prob_solve(TRAIN_POINTS), p, ys), _train_params(device), remat)
+        peak = torch.cuda.max_memory_allocated(device)
+        full["remat" if remat else "no_remat"] = {
+            "nlml": loss, **stats_, "peak_bytes": peak, "base_bytes": base,
+            "peak_above_base_bytes": peak - base,
+            "finite": bool(np.isfinite(loss)) and all(bool(torch.all(torch.isfinite(g)))
+                                                      for g in grads)}
+    info["full"] = full
+
+    # MSE through the adaptive Tsit5 solve on the minibatch
+    rk = facade.solve_rk("tsit5", _softplus_mlp, None, ts_mb, dt0=0.1, atol=TRAIN_TOL,
+                         rtol=TRAIN_TOL)
+
+    def mse(params, ys_):
+        u, aux_ = rk((ys_[0],), params)
+        return torch.mean((u - ys_) ** 2), aux_["num_steps"]
+
+    rk_card = _loss_and_grad(lambda p: mse(p, ys_mb), _train_params(device))
+    rk_cpu = _loss_and_grad(lambda p: mse(p, ys_mb.cpu()), _train_params("cpu"))
+    info["rk"] = {"mse_card": rk_card[0], "mse_cpu": rk_cpu[0],
+                  "mse_rel_err": abs(rk_card[0] / rk_cpu[0] - 1.0),
+                  "grad_rel_err": _grad_rel_err(rk_card[2], rk_cpu[2]),
+                  "attempts_card": rk_card[1].cpu().tolist(),
+                  "steps_equal": bool(torch.equal(rk_card[1].cpu(), rk_cpu[1])),
+                  "seconds": rk_card[3]["seconds"],
+                  "finite": all(bool(torch.all(torch.isfinite(g))) for g in rk_card[2])}
+    capped = sum(r[3]["capped_lanes"] for r in (card, cpu, rk_card, rk_cpu))
+    capped += info["adam"]["capped_lanes"] + sum(f["capped_lanes"] for f in full.values())
+    info["capped_lanes"] = capped
+    emit(info)
+    cvc = info["card_vs_cpu"]
+    failed = {
+        "card_vs_cpu": not (cvc["nlml_rel_err"] <= TRAIN_CPU_RTOL
+                            and cvc["grad_rel_err"] <= TRAIN_CPU_RTOL and cvc["steps_equal"]
+                            and all(finite)),
+        "adam": not (theta_finite and all(np.isfinite(losses)) and losses[-1] < losses[0]),
+        "full": not all(f["finite"] for f in full.values()),
+        "rk": not (info["rk"]["finite"] and info["rk"]["mse_rel_err"] <= TRAIN_CPU_RTOL
+                   and info["rk"]["grad_rel_err"] <= TRAIN_CPU_RTOL and info["rk"]["steps_equal"]),
+        "capped": capped != 0,
+    }
+    if any(failed.values()):
+        raise AssertionError(f"train failed: {[k for k, v in failed.items() if v]}")
+
+
 def main():
     device, _smi = phase_device()
     import torch
@@ -2941,6 +3171,7 @@ def main():
     timing["pit_combine"] = phase_launch_pit(device, captured, blocked)
     del captured, blocked
     phase_logistic(device)
+    phase_train(device)
     (worst_qr, timing["batched_qr_r"]), counts_qr = _path(["batched_qr_r"],
                                                           lambda: phase_batched_qr(device))
     (worst_packing, timing_packing), counts_packing = _path(

@@ -12,7 +12,11 @@ step-count bucketing and the precision-routed driver
 kernel K6) and the save-every-step engine (``batched_everystep``, kernel K7);
 the fixed-grid solve of one IVP, sequential or parallel in time
 (``ivpsolve.solve_fixed_grid``, ``parallel_time``, ``pit_fused``, kernel K8)
-and the standalone kernels K9 (``batched_qr``) and K10 / K11 (``qr_packing``).
+and the standalone kernels K9 (``batched_qr``) and K10 / K11 (``qr_packing``);
+the training path, on no kernel: gradients through the adaptive solve under
+the bounded loop (``control_flow``), the marginal likelihood and sampling
+(``stats``), the Runge-Kutta baselines (``rk``), the solve factories
+(``facade``), ``train`` and ``checkpointing``.
 The kernels are hand-written CUDA (``csrc/``, wrappers in ``kernels``).  This
 package never imports JAX.
 """
@@ -24,7 +28,10 @@ from . import (  # noqa: F401
     batched_everystep,
     batched_hi,
     batched_qr,
+    checkpointing,
+    control_flow,
     df32,
+    facade,
     harness,
     interop,
     ivpsolve,
@@ -36,7 +43,9 @@ from . import (  # noqa: F401
     prior,
     problems,
     qr_packing,
+    rk,
     ssm,
     stats,
     taylor,
+    train,
 )

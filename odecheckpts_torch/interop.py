@@ -19,6 +19,10 @@ The fixed-grid path carries an initial condition, a ``Solution`` with its
 dict: ``init_to_torch``, ``solution_to_numpy``, ``elements_to_torch`` /
 ``elements_to_numpy`` (step-leading numpy on the outside, step-leading or
 lanes-last tensors inside) and ``diagnostics_to_numpy`` carry those.
+
+Learned weights (the training path) are nested lists, tuples and dicts of
+arrays, such as a list of ``(w, b)`` layers: ``params_to_torch`` and
+``params_to_numpy`` carry them across with their nesting.
 """
 
 from __future__ import annotations
@@ -150,3 +154,25 @@ def diagnostics_to_numpy(diag):
     """The diagnostics dict of ``solve_fixed_grid(parallel=True,
     return_diagnostics=True)``: tensors to numpy arrays, ints kept."""
     return {k: to_numpy(v) if isinstance(v, torch.Tensor) else v for k, v in diag.items()}
+
+
+def params_to_torch(params, *, device="cpu"):
+    """Nested lists / tuples / dicts of numpy arrays or floats (the reference's
+    parameter pytree, e.g. a list of ``(w, b)`` layers) -> the same nesting of
+    tensors on ``device`` (copies, dtypes kept)."""
+    if isinstance(params, dict):
+        return {k: params_to_torch(v, device=device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        items = [params_to_torch(x, device=device) for x in params]
+        return items if isinstance(params, list) else _rebuild(params, items)
+    return torch.tensor(np.asarray(params), device=device)
+
+
+def params_to_numpy(params):
+    """The inverse of ``params_to_torch``: the same nesting of numpy arrays."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        items = [params_to_numpy(x) for x in params]
+        return items if isinstance(params, list) else _rebuild(params, items)
+    return params.detach().cpu().numpy()

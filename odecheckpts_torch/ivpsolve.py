@@ -17,8 +17,12 @@ Every field of ``_State`` may carry leading batch dimensions: the JAX
 package maps one-IVP functions over an ensemble, the port writes the batch
 dimensions out (``init``'s tensors carry them; ``atol`` / ``rtol`` are
 scalars or of the batch shape) and selects per lane with ``torch.where``.
-``lax.while_loop`` becomes a Python loop with one host read per attempt
-(whether any lane still runs); finished lanes are frozen by ``_tree_select``.
+Each accept/reject loop runs through ``control_flow.while_loop``: by
+default a Python loop with one host read per attempt (whether any lane still
+runs), under ``control_flow.overwrite_with_bounded`` a loop of at most
+``max_steps`` attempts per checkpoint interval (for reverse-mode gradients);
+finished lanes are frozen by ``_tree_select``.  As in the reference, the
+step-size controller is not differentiated (``_control_factor``).
 The vector field is the one-IVP function ``vf(*u, t=t)``; ``ivpsolvers``
 maps it over the batch.  A solve runs on the device of ``init``'s tensors,
 in their dtype, with float32 products at full precision (no TF32).
@@ -33,7 +37,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from . import ivpsolvers, rounded
+from . import control_flow, ivpsolvers, rounded
 from .stats import _tree_map
 from .ssm.base import Conditional, MarkovSeq, Normal, Solution
 
@@ -59,6 +63,9 @@ def control_integral(**kwargs) -> Control:
 
 
 def _control_factor(ctrl: Control, errn, errn_prev, error_order: int):
+    # step-size control is a discrete decision: the reference stops its
+    # gradient (reverse mode through errn**-n1 near a zero error norm is inf)
+    errn, errn_prev = errn.detach(), errn_prev.detach()
     n1 = ctrl.power_integral / error_order
     n2 = ctrl.power_proportional / error_order
     factor = ctrl.safety * rounded.pow(errn, -n1) * rounded.pow(errn_prev / errn, n2)
@@ -96,15 +103,7 @@ class _State(NamedTuple):
     mle_ssq: torch.Tensor
 
 
-def _tree_select(pred, a, b):
-    """Leafwise ``where(pred, a, b)``; ``pred`` holds the batch shape and is
-    broadcast against the trailing axes of every leaf."""
-    if a is None:
-        return None
-    if isinstance(a, tuple):
-        return type(a)(*(_tree_select(pred, x, y) for x, y in zip(a, b)))
-    extra = max(a.dim(), b.dim()) - pred.dim()
-    return torch.where(pred.reshape(pred.shape + (1,) * extra), a, b)
+_tree_select = control_flow.tree_select
 
 
 def _expand(tree, batch):
@@ -322,13 +321,10 @@ def _make_step(vf, asolver: AdaptiveSolver, scale_fixed, dt_max=None):
 
 
 def _run_until(step, state: _State, t_end) -> _State:
-    """Attempts until every lane has reached ``t_end``; a finished lane is
-    frozen.  One host read per attempt."""
-    running = state.t < t_end
-    while bool(torch.any(running)):
-        state = _tree_select(running, step(state), state)
-        running = state.t < t_end
-    return state
+    """Attempts until every lane has reached ``t_end`` (``control_flow.
+    while_loop``, as ``odecheckpts_tpu/ivpsolve.py:391`` and ``:430``); a
+    finished lane is frozen."""
+    return control_flow.while_loop(lambda s: s.t < t_end, step, state)
 
 
 def _mle_factor(state: _State):

@@ -38,7 +38,7 @@ def _scaled_col_stats(colm, is_j, eps):
     cok = torch.isfinite(cmax) & (cmax > 0)
     one = torch.ones_like(cmax)
     ce = torch.exp2(torch.floor(torch.log2(torch.where(cok, cmax, one))))
-    ce = torch.where(cok, ce, one)
+    ce = torch.where(cok, ce, one).detach()  # an exponent, not differentiated (the reference's)
     cs = colm / ce
     norm2 = torch.sum(cs * cs, dim=-1, keepdim=True)
     norm = rounded.sqrt(norm2 + eps)
@@ -90,7 +90,7 @@ def qr_r(x):
     one = torch.ones_like(amax)
     e = torch.floor(torch.log2(torch.where(ok, amax, one)))
     band = _finfo_maxexp(x.dtype) // 3
-    c = torch.where(ok & (torch.abs(e) > band), torch.exp2(e), one)
+    c = torch.where(ok & (torch.abs(e) > band), torch.exp2(e), one).detach()
     r = _qr_r_householder(x / c)
     d = _sign_safe(torch.diagonal(r, dim1=-2, dim2=-1))
     return r[..., :k, :] * (c * d[..., :, None])

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import df32 as df
@@ -185,3 +186,35 @@ def rigid_body_df(params=(-2.0, 1.25, -0.5)):
     vf_df.device_functor = "rigid_body_df"
     vf_df.params = (p1, p2, p3)
     return vf_df
+
+
+def neural_ode_mlp(*, layer_sizes: tuple):
+    """Tanh MLP vector field ``f(u, t) = mlp(params, [u, t])`` for neural-ODE
+    training (counterpart of ``odecheckpts_tpu/problems.py:208-234``).
+
+    The parameters are ``(params,)`` with ``params`` a list of ``(w, b)``
+    float64 tensors, ``w`` (fan_in, fan_out) and ``b`` (fan_out,), drawn
+    from N(0, 1 / fan_in) with numpy's generator of seed 0 (the reference
+    draws its own with ``jax.random``; ``interop.params_to_torch`` carries
+    those across).  ``vf`` is the one-IVP function: (d,) states."""
+
+    def mlp(params, inputs):
+        for w, b in params:
+            outputs = inputs @ w + b
+            inputs = torch.tanh(outputs)
+        return outputs
+
+    def vf(u, *, t, p):
+        t = torch.as_tensor(t, dtype=u.dtype, device=u.device)
+        return mlp(*p, torch.cat([u, t.reshape(1)]))
+
+    u0 = torch.tensor([0.1], dtype=torch.float64)
+    rng = np.random.default_rng(0)
+    params = []
+    sizes = list(layer_sizes)
+    for fan_in, fan_out in zip(sizes[:-1], sizes[1:]):
+        scale = 1.0 / math.sqrt(1.0 * fan_in)
+        w = torch.tensor(scale * rng.standard_normal((fan_in, fan_out)))
+        b = torch.tensor(scale * rng.standard_normal(fan_out))
+        params.append((w, b))
+    return vf, (u0,), (0.0, 1.0), (params,)

@@ -7,14 +7,12 @@ different magnitudes.  TS0 corrections only.  Layout: mean (..., d, n),
 factor (..., d, n, n), output scale (..., d); ``dt`` carries the batch shape
 alone.  Every method broadcasts over leading batch dimensions; products go
 through ``rounded`` (the same sums on every host).
-
-Not ported: ``condition_qoi`` and the sampling methods, ROADMAP queue 1
-item 4.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -62,6 +60,9 @@ class BlockDiagSSM:
 
     def qoi(self, mean):
         return mean[..., :, 0]
+
+    def qoi_from_sample(self, sample):
+        return sample[..., :, 0]
 
     def select_deriv(self, mean, i):
         return mean[..., :, i]
@@ -170,6 +171,36 @@ class BlockDiagSSM:
             outer.noise.cholesky.transpose(-1, -2),
         )
         return Conditional(matrix, Normal(mean, chol))
+
+    def condition_qoi(self, rv, data, obs_std):
+        """Observe ``data = qoi(x) + N(0, obs_std^2 I_d)``: a Potter update per
+        dimension; returns the Gaussian log-likelihood of ``data`` (summed
+        over the dimensions) and the conditioned state.  ``obs_std`` is a
+        scalar or of the batch shape."""
+        l = rv.cholesky
+        l0 = l[..., :, 0, :]  # (..., d, n)
+        std = torch.as_tensor(obs_std, dtype=l.dtype, device=l.device)[..., None]
+        s2 = torch.sum(l0**2, dim=-1) + std**2
+        s = rounded.sqrt(s2)
+        crosscov = _mv(l, l0)
+        gain = crosscov / s2[..., :, None]
+        resid = rv.mean[..., :, 0] - data
+        mean = rv.mean - gain * resid[..., :, None]
+        beta = (1.0 / (s * (s + std)))[..., :, None, None]
+        chol = l - beta * crosscov[..., :, :, None] * l0[..., :, None, :]
+        loglik = torch.sum(
+            -0.5 * resid**2 / s2 - rounded.log(s) - 0.5 * math.log(2.0 * math.pi), dim=-1
+        )
+        return loglik, Normal(mean, chol)
+
+    def base_shape(self):
+        return (self.d, self.n)
+
+    def transform_base(self, rv, xi):
+        return rv.mean + _mv(rv.cholesky, xi)
+
+    def conditional_sample(self, cond, x, xi):
+        return _mv(cond.matrix, x) + cond.noise.mean + _mv(cond.noise.cholesky, xi)
 
     def rescale_cholesky(self, tree_chol, factor):
         """Factors times the per-dimension output scales ``factor`` (..., d)."""

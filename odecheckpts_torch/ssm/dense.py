@@ -8,15 +8,12 @@ Layout: derivative-major flat state ``x = (u^(0), ..., u^(nu))`` with each
 leading batch dimensions: a mean is (..., nd), a factor (..., nd, nd), and
 ``dt`` / ``output_scale`` carry the batch shape alone.  Products go through
 ``rounded`` (the same sums on every host).
-
-Not ported: ``condition_qoi`` and the sampling methods (``qoi_from_sample``,
-``base_shape``, ``transform_base``, ``conditional_sample``), ROADMAP queue 1
-item 4.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -72,6 +69,9 @@ class DenseSSM:
 
     def qoi(self, mean):
         return mean[..., : self.d]
+
+    def qoi_from_sample(self, sample):
+        return sample[..., : self.d]
 
     def qoi_std(self, rv):
         """Marginal standard deviation of the solution, (..., d)."""
@@ -222,6 +222,35 @@ class DenseSSM:
             outer.noise.cholesky.transpose(-1, -2),
         )
         return Conditional(matrix, Normal(mean, chol))
+
+    def condition_qoi(self, rv, data, obs_std):
+        """Observe ``data = qoi(x) + N(0, obs_std^2 I_d)`` by one QR
+        (``linalg.revert_observation``); returns the Gaussian log-likelihood
+        of ``data`` and the conditioned state.  ``obs_std`` is a scalar or of
+        the batch shape."""
+        l = rv.cholesky
+        h_l = l[..., : self.d, :]
+        std = torch.as_tensor(obs_std, dtype=l.dtype, device=l.device)
+        l_noise = std[..., None, None] * torch.eye(self.d, dtype=l.dtype, device=l.device)
+        l_obs, gain, l_cor = linalg.revert_observation(l, h_l, l_noise)
+        resid = rv.mean[..., : self.d] - data
+        mean = rv.mean - _mv(gain, resid)
+        white = linalg.tri_solve_lower(l_obs, resid[..., None])[..., 0]
+        loglik = (
+            -0.5 * torch.sum(white**2, dim=-1)
+            - linalg.tri_logdet(l_obs)
+            - 0.5 * self.d * math.log(2.0 * math.pi)
+        )
+        return loglik, Normal(mean, l_cor)
+
+    def base_shape(self):
+        return (self.ndim,)
+
+    def transform_base(self, rv, xi):
+        return rv.mean + _mv(rv.cholesky, xi)
+
+    def conditional_sample(self, cond, x, xi):
+        return _mv(cond.matrix, x) + cond.noise.mean + _mv(cond.noise.cholesky, xi)
 
     def rescale_cholesky(self, tree_chol, factor):
         """Factors times the output-scale ``factor`` (of the batch shape)."""

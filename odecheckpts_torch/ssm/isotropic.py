@@ -50,6 +50,9 @@ class IsotropicSSM:
     def qoi(self, mean):
         return mean[..., 0, :]
 
+    def qoi_from_sample(self, sample):
+        return sample[..., 0, :]
+
     def select_deriv(self, mean, i):
         return mean[..., i, :]
 
@@ -167,6 +170,38 @@ class IsotropicSSM:
             outer.noise.cholesky.transpose(-1, -2),
         )
         return Conditional(matrix, Normal(mean, chol))
+
+    def condition_qoi(self, rv, data, obs_std):
+        """Observe ``data = qoi(x) + N(0, obs_std^2 I_d)`` (a Potter update);
+        returns the Gaussian log-likelihood of ``data`` (of the batch shape)
+        and the conditioned state.  ``obs_std`` is a scalar or of the batch
+        shape."""
+        l = rv.cholesky
+        l0 = l[..., 0, :]
+        s2 = torch.sum(l0**2, dim=-1) + obs_std**2
+        s = rounded.sqrt(s2)
+        crosscov = rounded.matmul(l, l0[..., None])[..., 0]
+        gain = crosscov / s2[..., None]
+        resid = rv.mean[..., 0, :] - data
+        mean = rv.mean - gain[..., :, None] * resid[..., None, :]
+        beta = 1.0 / (s * (s + obs_std))
+        chol = l - beta[..., None, None] * crosscov[..., :, None] * l0[..., None, :]
+        loglik = (
+            -0.5 * torch.sum(resid**2, dim=-1) / s2
+            - self.d * rounded.log(s)
+            - 0.5 * self.d * math.log(2.0 * math.pi)
+        )
+        return loglik, Normal(mean, chol)
+
+    def base_shape(self):
+        return (self.n, self.d)
+
+    def transform_base(self, rv, xi):
+        return rv.mean + rounded.matmul(rv.cholesky, xi)
+
+    def conditional_sample(self, cond, x, xi):
+        return (rounded.matmul(cond.matrix, x) + cond.noise.mean
+                + rounded.matmul(cond.noise.cholesky, xi))
 
     def rescale_cholesky(self, tree_chol, factor):
         """Factors times the output-scale ``factor`` (of the batch shape)."""
