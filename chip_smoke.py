@@ -240,11 +240,50 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
     minibatch is finite and equals the CPU result to TRAIN_CPU_RTOL.  Any
     lane a bounded loop left at its bound is reported (``capped_lanes``) and
     fails the phase.
-31. the kernel table line and the result line.
+31. three_body (experiment 5's batched configuration,
+    ``experiments/5_vs_interpolation/batched_tpu.py:65-125``): the restricted
+    three-body problem in second-order form (``problems.
+    three_body_restricted``, ``ode_order=2``), the exact Arenstorf initial
+    condition on all 8,192 lanes (perturbed lanes fall into the moon
+    singularity), 50 checkpoints over one period, dt0 0.01, TS0(4),
+    fixedpoint: rtol 1e-4 on ``solve_save_at_batched(engine="cuda-loop")``
+    (K1) and ``"cuda"`` (K3), rtol 1e-7 on ``batched_hi.make_hi_solver(
+    engine="cuda-loop")`` (K2) and ``"cuda"`` (K4), each one solve after a
+    warm-up (seconds, solves/s, mean steps, launches).  Gates, the
+    reference's own: every value finite, no lane at the attempt cap, lane 0
+    within RMSE 0.1 of LSODA(1e-12) at the checkpoints.  Each of K1-K4 with
+    the fixedpoint and the filter strategy: one launch on all 8,192 lanes
+    from the solve's start (K1, K2 the first interval; K3, K4 one attempt)
+    against its plain version (``kernels.<kernel>_plain``) on the same
+    inputs, and a second launch against the first, every output equal bit
+    for bit, the launch timed (``_o2_launch``); and the solve against its
+    twin (``engine="torch"`` on the card) on 256 lanes over the first 3
+    checkpoints, every output equal bit for bit.
+32. vdp_ensemble (experiment 1's stiff ensemble,
+    ``experiments/1_van_der_pol/tpu_ensemble.py:47-90``): Van der Pol in
+    second-order form, 4,096 lanes, u0 2 (1 + 1e-2 N(0, 1)) from numpy seed
+    0, du0 0, TS1(4), filter, tol 1e-3, save_at linspace(0, 6.3, 4), dt0
+    0.01: the df32 engine (K2) over mu in geomspace(10, 1000, 8), the f32
+    engine (K1) from mu = 10 up the sweep until a mu where it leaves a lane
+    non-finite or at the cap (the largest it finishes is reported), and K2
+    at mu = 10 with ``error_unit="residual"``.  Gates: finite, no capped
+    lane on K2, K1 finishes mu = 10; ``tests/test_batched_hi.py:184`` on the
+    card (mu = 1e3, save_at [0, 0.5, 1], 4 lanes at (2, 0): within 1e-2 of
+    LSODA(1e-10)); at mu = 10 every Van der Pol instantiation of K1-K4
+    (fixedpoint and filter, TS0 and TS1) against its plain version on all
+    4,096 lanes (over (0, 0.5), or one attempt; timed) and against its
+    twin's solve on 256 lanes over (0, 0.5), and the residual unit (TS1,
+    filter) likewise over (0, 0.2), each bit for bit.
+33. the kernel table line and the result line.  K1-K4's rows carry their
+    instantiations of order 2 (``instantiations``: ptxas registers and
+    spills, launches in phases 31 and 32, the full-width launch's deviation
+    from its plain version, its device and plain times and bound (the
+    filter's operations without the reversal, ``_attempt_flops``), the twin
+    solve's deviation).
 
 Phases 26-30 run beside the rows whose lanes they reuse: 26 after 9,
 adaptive_dense after 13, adaptive_bd after 18, 28 and 29 after 22; 30 after
-29.
+29.  31 and 32 run before 29.
 
 Every kernel's ``ms`` is its device time (``_device_time``: DEVICE_LAUNCHES
 launches back to back behind a sleep of the stream, so the wrapper's host
@@ -253,7 +292,7 @@ time overlaps the card's busy wait), with the wrapper's host time per call
 which holds the wrapper's host time) and torch.profiler's device time in a
 ``device_time`` line each.
 
-Each path of phases 4, 6, 8, 9, 11, 13, 15, 18, 20, 22 and 28 runs with the
+Each path of phases 4, 6, 8, 9, 11, 13, 15, 18, 20, 22, 28, 31 and 32 runs with the
 launch counts set to 0 just before it and read just after; a kernel of the
 path that did not launch fails the run.  Kernel-against-plain comparisons run outside those
 windows.  Each kernel's ``bound_ms`` is the larger of its state's bytes
@@ -430,6 +469,31 @@ BD_CAPS = (1, 2, 4, 8)
 HI_CAPS = (1, 2, 4, 8)
 # the attempt caps at which phase 8 times K1 from K3's state
 LL_CAPS = (1, 2, 4, 8)
+# experiment 5's batched configuration (experiments/5_vs_interpolation/batched_tpu.py:65-125):
+# the exact Arenstorf orbit on every lane, 50 checkpoints over one period
+TB_BATCH = 8_192
+TB_CHECKPOINTS = 50
+TB_DT0 = 0.01
+TB_ROWS = (("step_ll_interval", 1e-4, "cuda-loop"), ("step_ll_attempt", 1e-4, "cuda"),
+           ("step_hi_interval", 1e-7, "cuda-loop"), ("step_hi_attempt", 1e-7, "cuda"))
+TB_RMSE_BOUND = 0.1  # lane 0 against LSODA(1e-12): batched_tpu.py:116-122
+TB_TWIN_CHECKPOINTS = 3  # the twin's solve; the kernel's first interval is held at full width
+TWIN_LANES = 256
+# experiment 1's stiff ensemble (experiments/1_van_der_pol/tpu_ensemble.py:47-90)
+VDP_BATCH = 4_096
+VDP_MUS = tuple(float(m) for m in np.geomspace(10.0, 1000.0, 8))
+VDP_TOL = 1e-3
+VDP_SAVE = (0.0, 6.3, 4)
+VDP_DT0 = 0.01
+VDP_NOISE = 1e-2
+VDP_STIFF_SAVE = (0.0, 0.5, 1.0)  # tests/test_batched_hi.py:184-209
+VDP_STIFF_BOUND = 1e-2
+VDP_TWIN_MU = 10.0
+# the spans of the twin comparisons and of the full-width launches against
+# the plain version: (0, 0.5), and (0, 0.2) for the residual unit (~40x the
+# steps of "qoi" in f32), cut for the script's time
+VDP_TWIN_T = 0.5
+VDP_RESIDUAL_TWIN_T = 0.2
 # device-only times: launches back to back behind a sleep of the stream
 DEVICE_LAUNCHES = 20
 SLEEP_CYCLES = 200_000_000
@@ -825,14 +889,19 @@ def _lane_errors(u_s, truth):
     return np.sqrt(np.mean((u - truth) ** 2, axis=(1, 2)))
 
 
+def _capped(nsteps):
+    """Lanes whose accepted steps in a checkpoint interval reached the cap."""
+    inc = np.diff(nsteps.cpu().numpy().astype(np.int64), axis=1)
+    return int(np.sum(np.any(inc >= MAX_ATTEMPTS, axis=1)))
+
+
 def _gates(u_s, nsteps, truth, rtol, rmse_factor=RMSE_FACTOR, lane_factor=LANE_FACTOR):
     from odecheckpts_torch import harness
 
     u = u_s[:SAMPLE].double().cpu().numpy()
     rmse = float(harness.rmse_absolute(truth)(u))
     worst = float(np.max(_lane_errors(u_s, truth)))
-    inc = np.diff(nsteps.cpu().numpy().astype(np.int64), axis=1)
-    capped = int(np.sum(np.any(inc >= MAX_ATTEMPTS, axis=1)))
+    capped = _capped(nsteps)
     ok = (np.isfinite(rmse) and rmse < rmse_factor * rtol and worst < lane_factor * rtol
           and capped == 0)
     return ok, rmse, worst, capped
@@ -1296,11 +1365,17 @@ def _qr_flops(m, nc, nr):
     return sum(2 * (m - j) + 4 * (m - j) * (nc - j - 1) for j in range(min(nr, m - 1)))
 
 
-def _attempt_flops(kernel, nu, d):
+def _attempt_flops(kernel, nu, d, strategy="fixedpoint"):
     """f32 operations of one accepted attempt, from the step's shapes: its
     QRs, triangular solves and products (scalar work of O(n) is left out,
-    so this is a lower count)."""
+    so this is a lower count).  K1-K4's filter (``strategy``) reverts
+    nothing: one (2n, n) QR of [A L; Lq], the product A L, the mean's
+    extrapolation and the rank-1 update."""
     n = nu + 1
+    if strategy == "filter" and kernel.startswith("step_ll"):
+        return _qr_flops(2 * n, n, n) + 2 * n**3 + 2 * n * n * d + 2 * n * n
+    if strategy == "filter" and kernel.startswith("step_hi"):
+        return _qr_flops(2 * n, n, n) + 2 * n**3 + 2 * n * n + 20 * d * n * (n - 1) // 2
     if kernel.startswith("step_ll"):
         return (_qr_flops(2 * n, 2 * n, 2 * n) + _qr_flops(2 * n, n, n) + n**3
                 + 6 * n**3 + 6 * n * n * d + 2 * n * n)
@@ -3121,9 +3196,369 @@ def phase_train(device):
         raise AssertionError(f"train failed: {[k for k, v in failed.items() if v]}")
 
 
+def _o2_problem(name, mu=None):
+    """The vector field of experiment 5's or 1's problem."""
+    from odecheckpts_torch import problems
+
+    if name == "three_body":
+        return problems.three_body_restricted()[0]
+    return problems.van_der_pol(mu)[0]
+
+
+def _o2_solver(vf, save_at, dt0, kernel, engine, **options):
+    """``solve(u0s, tols) -> (u_s, u_f, nsteps)`` of the f32 engine (K1, K3)
+    or of the df32 engine (K2, K4: (hi, lo) pairs) with ``ode_order=2``."""
+    from odecheckpts_torch import batched, batched_hi
+
+    if kernel.startswith("step_hi"):
+        return batched_hi.make_hi_solver(vf, (), save_at=save_at, dt0=dt0, engine=engine,
+                                         ode_order=2, max_attempts=MAX_ATTEMPTS, **options)
+    return lambda u0s, tols: batched.solve_save_at_batched(
+        vf, u0s, (), save_at=save_at, dt0=dt0, tols=tols, engine=engine, ode_order=2,
+        max_attempts=MAX_ATTEMPTS, **options)
+
+
+def _o2_values(out, kernel):
+    """(smoothed values in f64, step counts) of an ``_o2_solver`` result."""
+    from odecheckpts_torch import batched_hi
+
+    u_s, _u_f, nsteps = out
+    if kernel.startswith("step_hi"):
+        u_s = batched_hi.combine64(u_s)
+    return u_s.double(), nsteps
+
+
+def _o2_flat(out):
+    """The arrays of an ``_o2_solver`` result, pairs as their halves."""
+    flat = []
+    for x in out:
+        flat.extend(x if isinstance(x, tuple) else (x,))
+    return flat
+
+
+def _o2_entry(kernel, problem, strategy, correction):
+    """The ptxas key of a K1-K4 instantiation on a functor of order 2
+    (``kernels.parse_ptxas``): the C++ name of the functor is its device
+    name in CamelCase."""
+    name = "".join(w.capitalize() for w in O2_FUNCTORS[problem].split("_"))
+    if kernel.startswith("step_hi"):
+        name = f"HiChannel<{name}>"
+    return f"4/{name}/{strategy}/{correction}"
+
+
+def _o2_variants(problem=None):
+    """(problem, strategy, correction) of the instantiations of order 2 on
+    K1-K4 (``kernels.order_two_instantiations``), of ``problem`` or all."""
+    from odecheckpts_torch import kernels
+
+    problems = {f: p for p, f in O2_FUNCTORS.items()}
+    return [(problems[f], s, c) for f, s, c in kernels.order_two_instantiations()
+            if problem in (None, problems[f])]
+
+
+# the phases' problems of order 2 and their device functors
+O2_FUNCTORS = {"three_body": "three_body_restricted", "vdp": "van_der_pol"}
+O2_KERNELS = ("step_ll_interval", "step_ll_attempt", "step_hi_interval", "step_hi_attempt")
+O2_ENGINES = {"step_ll_interval": "cuda-loop", "step_ll_attempt": "cuda",
+              "step_hi_interval": "cuda-loop", "step_hi_attempt": "cuda"}
+
+
+def _o2_rows(o2, kernel):
+    """The kernel line's entries of ``kernel``'s instantiations of order 2:
+    launches in phases 31-32; one launch on the phase's ensemble against the
+    plain version (``max_abs_err``), its device, event and plain times and
+    bound; the deviation from the twin's solve; ptxas counts."""
+    return [{"entry": e, "launches": v.get("launches", 0), "max_abs_err": v["max_abs_err"],
+             "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+             "bound_by": v["bound_by"], "host_ms": v["host_ms"], "event_ms": v["event_ms"],
+             "accepted": v["accepted"], "twin_max_abs_dev": v["twin_max_abs_dev"],
+             **({"residual": v["residual"]} if "residual" in v else {}),
+             **{k: v["ptxas"].get(k) for k in ("registers", "spill_stores", "spill_loads",
+                                               "stack")}}
+            for (k, e), v in o2.items() if k == kernel]
+
+
+def phase_build_o2(ptxas):
+    """ptxas registers, spills and stack of every K1-K4 instantiation of
+    order 2 (``_o2_variants``, at nu = 4); fails where ptxas reported none."""
+    out, missing = {}, []
+    for kernel in O2_KERNELS:
+        for problem, strategy, correction in _o2_variants():
+            key = _o2_entry(kernel, problem, strategy, correction)
+            info = ptxas.get(kernel, {}).get(key)
+            if not info or "registers" not in info:
+                missing.append((kernel, key))
+                continue
+            out[(kernel, key)] = info
+            emit({"phase": "build_o2", "kernel": KERNELS[kernel][0], "form": kernel,
+                  "entry": key, **info})
+    if missing:
+        raise RuntimeError(f"ptxas reported no kernel for {missing}")
+    return out
+
+
+def _truth_three_body(save_at):
+    """LSODA(1e-12) positions of the exact Arenstorf orbit at the
+    checkpoints (the reference's ``_truth``, batched_tpu.py:49-63)."""
+    import scipy.integrate
+
+    mu, mp = 0.012277471, 1.0 - 0.012277471
+
+    def f(_t, y):
+        x1, x2, dx1, dx2 = y
+        r1 = ((x1 + mu) ** 2 + x2**2) ** 1.5
+        r2 = ((x1 - mp) ** 2 + x2**2) ** 1.5
+        return [dx1, dx2, x1 + 2 * dx2 - mp * (x1 + mu) / r1 - mu * (x1 - mp) / r2,
+                x2 - 2 * dx1 - mp * x2 / r1 - mu * x2 / r2]
+
+    sol = scipy.integrate.solve_ivp(
+        f, y0=[0.994, 0.0, 0.0, -2.00158510637908252240537862224],
+        t_span=(float(save_at[0]), float(save_at[-1])), t_eval=save_at, rtol=1e-12,
+        atol=1e-12, method="LSODA")
+    return sol.y[:2].T
+
+
+def _o2_equal(got, want, torch):
+    """(every array equal bit for bit, the largest absolute deviation)."""
+    equal = all(_same_bits(g, w, torch) for g, w in zip(got, want))
+    dev = max(float(torch.max(torch.abs(g.double() - w.double()))) for g, w in zip(got, want))
+    return equal, dev
+
+
+def _o2_compare(solve_kernel, solve_twin, u0s, tols, torch):
+    """One solve on the kernel's engine against the twin (``engine="torch"``)
+    on the card: every output array equal bit for bit.  Returns (equal, the
+    largest absolute deviation)."""
+    got, want = _o2_flat(solve_kernel(u0s, tols)), _o2_flat(solve_twin(u0s, tols))
+    torch.cuda.synchronize()
+    return _o2_equal(got, want, torch)
+
+
+def _o2_launch(kernel, strategy, correction, vf, u0s, tols, save_at, dt0, torch,
+               error_unit="qoi", t_next=None):
+    """``kernel``'s instantiation on the phase's whole ensemble, from the
+    state the solve starts from: K1 and K2 over the first interval (or to
+    ``t_next``), K3 and K4 one attempt.  The plain version
+    (``kernels.<kernel>_plain``, the twin's loop) runs once and the kernel
+    twice on the same inputs, each timed with CUDA events (``_time_pair``):
+    the kernel must equal the plain version and itself bit for bit.  Also
+    the kernel's device time (``_device_time``), the accepted attempts, and
+    the bytes and operations of its bound."""
+    from odecheckpts_torch import batched, batched_hi, kernels
+
+    b, d = u0s[0].shape
+    t_next = torch.full((1, b), float(save_at[1] if t_next is None else t_next),
+                        device=u0s[0].device)
+    kw = dict(ode_order=2, strategy=strategy, correction=correction, error_unit=error_unit)
+    if kernel.startswith("step_hi"):
+        state, inputs = batched_hi.initial_state(vf, u0s, (), save_at=save_at, dt0=dt0,
+                                                 tols=tols, ode_order=2)
+        step = batched_hi.make_step_hi(batched_hi.wrap_vf_plain(vf, ()), nu=4, d=d, **kw)
+        nsteps_at = 11
+    else:
+        state, _, inputs = batched.initial_state(vf, u0s, (), save_at=save_at, dt0=dt0,
+                                                 tols=tols, strategy=strategy, ode_order=2)
+        step = batched.make_step_ll(vf, (), nu=4, d=d, **kw)
+        nsteps_at = 15
+    cap = dict(max_attempts=MAX_ATTEMPTS) if kernel.endswith("interval") else {}
+
+    def run(fn):
+        return lambda: fn(step, state, t_next, **inputs, **cap)
+
+    times = _time_pair((("plain", run(getattr(kernels, f"{kernel}_plain"))),
+                        ("kernel", run(getattr(kernels, kernel))),
+                        ("kernel2", run(getattr(kernels, kernel)))))
+    out = times["kernel"][1]
+    equal, err = _o2_equal(out, times["plain"][1], torch)
+    accepted = float(torch.sum(out[nsteps_at] - state[nsteps_at]))
+    nbytes = 2 * sum(x.numel() * x.element_size() for x in state) + 6 * b * 4
+    dev = _device_time(kernel, run(getattr(kernels, kernel)))
+    info = {"ms": dev["device_ms"], "host_ms": dev["host_ms"],
+            "event_ms": min(times["kernel"][0], times["kernel2"][0]),
+            "plain_ms": times["plain"][0], "plain_equal": equal,
+            "kernel_runs_equal": _runs_equal(times, out, torch), "max_abs_err": err,
+            "accepted": accepted, "bytes": nbytes,
+            "flops": accepted * _attempt_flops(kernel, 4, d, strategy)}
+    bound_ms, bound_by = _bound(info)
+    return {**info, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_three_body(device, o2):
+    """Experiment 5's batched configuration (module docstring, phase 31).
+    Records each row's launches and, per K1-K4 instantiation, the twin
+    comparison and one launch's device time in ``o2``."""
+    import torch
+
+    from odecheckpts_torch import problems
+
+    vf, (u0, du0), tspan = problems.three_body_restricted()
+    save_at = np.linspace(*tspan, TB_CHECKPOINTS).astype(np.float32)
+    u0s = tuple(x.float().to(device)[None].expand(TB_BATCH, 2).contiguous() for x in (u0, du0))
+    truth = _truth_three_body(save_at.astype(np.float64))
+    failed = []
+    for kernel, rtol, engine in TB_ROWS:
+        solve = _o2_solver(vf, save_at, TB_DT0, kernel, engine)
+        tols = torch.full((TB_BATCH,), rtol, dtype=torch.float32, device=device)
+        solve(u0s, tols)  # warm-up (and the df32 engine's f64 Taylor init)
+        (secs, out), counts = _path([kernel], lambda s=solve, t=tols: _timed(lambda: s(u0s, t)))
+        u_s, nsteps = _o2_values(out, kernel)
+        entry = _o2_entry(kernel, "three_body", "fixedpoint", "ts0")
+        o2.setdefault((kernel, entry), {})["launches"] = counts[kernel]
+        finite = bool(torch.all(torch.isfinite(u_s)))
+        capped = _capped(nsteps)
+        rmse = float(np.sqrt(np.mean((u_s[0].cpu().numpy() - truth) ** 2)))
+        row = {"phase": "three_body", "kernel": KERNELS[kernel][0], "engine": engine,
+               "rtol": rtol, "batch": TB_BATCH, "checkpoints": TB_CHECKPOINTS,
+               "seconds": secs, "solves_per_sec": TB_BATCH / secs,
+               "mean_steps": float(nsteps[:, -1].double().mean()),
+               "launches": counts[kernel], "finite": finite, "capped_lanes": capped,
+               "lane0_rmse": rmse}
+        emit(row)
+        if not (finite and capped == 0 and rmse < TB_RMSE_BOUND):
+            failed.append(row)
+    # every instantiation against its plain version on the whole ensemble
+    # (one launch, timed) and against its twin's solve on TWIN_LANES lanes
+    lanes = tuple(u[:TWIN_LANES].contiguous() for u in u0s)
+    for kernel in O2_KERNELS:
+        rtol = 1e-7 if kernel.startswith("step_hi") else 1e-4
+        tols = torch.full((TWIN_LANES,), rtol, dtype=torch.float32, device=device)
+        for _, strategy, correction in _o2_variants("three_body"):
+            kw = dict(strategy=strategy, correction=correction)
+            eq, dev = _o2_compare(
+                _o2_solver(vf, save_at[:TB_TWIN_CHECKPOINTS], TB_DT0, kernel,
+                           O2_ENGINES[kernel], **kw),
+                _o2_solver(vf, save_at[:TB_TWIN_CHECKPOINTS], TB_DT0, kernel, "torch", **kw),
+                lanes, tols, torch)
+            entry = _o2_entry(kernel, "three_body", strategy, correction)
+            timing = _o2_launch(kernel, strategy, correction, vf, u0s,
+                                torch.full((TB_BATCH,), rtol, dtype=torch.float32, device=device),
+                                save_at, TB_DT0, torch)
+            o2.setdefault((kernel, entry), {}).update(twin_equal=eq, twin_max_abs_dev=dev,
+                                                      **timing)
+            emit({"phase": "three_body_twin", "kernel": KERNELS[kernel][0], "entry": entry,
+                  "batch": TB_BATCH, "lanes": TWIN_LANES, "checkpoints": TB_TWIN_CHECKPOINTS,
+                  "twin_equal": eq, "twin_max_abs_dev": dev, **timing})
+            if not (eq and timing["plain_equal"] and timing["kernel_runs_equal"]):
+                failed.append((kernel, entry, "twin or plain"))
+    if failed:
+        raise AssertionError(f"experiment 5's rows failed: {failed}")
+
+
+def _vdp_ensemble(batch, device, torch):
+    """Experiment 1's ensemble: u0 2 (1 + 1e-2 N(0, 1)) from numpy seed SEED,
+    du0 0, float32."""
+    rng = np.random.default_rng(SEED)
+    u = 2.0 * (1.0 + VDP_NOISE * rng.standard_normal((batch, 1)))
+    return (torch.tensor(u, dtype=torch.float32, device=device),
+            torch.zeros((batch, 1), dtype=torch.float32, device=device))
+
+
+def _vdp_truth(mu, save_at):
+    import scipy.integrate
+
+    def f(_t, y):
+        return [y[1], mu * ((1 - y[0] ** 2) * y[1] - y[0])]
+
+    return scipy.integrate.solve_ivp(f, y0=[2.0, 0.0], t_span=(save_at[0], save_at[-1]),
+                                     t_eval=save_at, rtol=1e-10, atol=1e-10,
+                                     method="LSODA").y[0]
+
+
+def phase_vdp_ensemble(device, o2):
+    """Experiment 1's stiff ensemble (module docstring, phase 32)."""
+    import torch
+
+    u0s = _vdp_ensemble(VDP_BATCH, device, torch)
+    tols = torch.full((VDP_BATCH,), VDP_TOL, dtype=torch.float32, device=device)
+    save_at = np.linspace(*VDP_SAVE).astype(np.float32)
+    opts = dict(correction="ts1", strategy="filter")
+    entry = {k: _o2_entry(k, "vdp", "filter", "ts1") for k in O2_KERNELS}
+    failed, f32_ok = [], []
+    rows = [("step_hi_interval", float(mu), "qoi") for mu in VDP_MUS]
+    rows += [("step_ll_interval", float(mu), "qoi") for mu in VDP_MUS]
+    rows += [("step_hi_interval", VDP_TWIN_MU, "residual")]
+    for kernel, mu, unit in rows:
+        if kernel == "step_ll_interval" and f32_ok and f32_ok[-1] is None:
+            continue  # the f32 engine stopped finishing at a smaller mu
+        vf = _o2_problem("vdp", mu)
+        solve = _o2_solver(vf, save_at, VDP_DT0, kernel, "cuda-loop", error_unit=unit, **opts)
+        solve(u0s, tols)  # warm-up (and the df32 engine's f64 Taylor init)
+        (secs, out), counts = _path([kernel], lambda s=solve: _timed(lambda: s(u0s, tols)))
+        u_s, nsteps = _o2_values(out, kernel)
+        finite = bool(torch.all(torch.isfinite(u_s)))
+        capped = _capped(nsteps)
+        key = (kernel, entry[kernel])
+        o2.setdefault(key, {}).setdefault("launches", 0)
+        o2[key]["launches"] += counts[kernel]
+        row = {"phase": "vdp_ensemble", "kernel": KERNELS[kernel][0], "mu": mu,
+               "error_unit": unit, "batch": VDP_BATCH, "tol": VDP_TOL, "seconds": secs,
+               "solves_per_sec": VDP_BATCH / secs,
+               "mean_steps": float(nsteps[:, -1].double().mean()),
+               "max_steps": int(nsteps[:, -1].max()), "launches": counts[kernel],
+               "finite": finite, "capped_lanes": capped}
+        emit(row)
+        if kernel == "step_ll_interval":
+            f32_ok.append(mu if finite and capped == 0 else None)
+        elif not (finite and capped == 0):
+            failed.append(row)
+    f32_mus = [m for m in f32_ok if m is not None]
+    emit({"phase": "vdp_f32_reach", "largest_mu_finished": max(f32_mus) if f32_mus else None,
+          "mus_tried": len(f32_ok)})
+    if not f32_mus or f32_mus[0] != float(VDP_MUS[0]):
+        failed.append(("f32 engine", "mu = 10 did not finish"))
+
+    # tests/test_batched_hi.py:184-209 on the card: mu = 1e3 before the first jump
+    stiff_save = np.asarray(VDP_STIFF_SAVE, np.float32)
+    solve = _o2_solver(_o2_problem("vdp", 1000.0), stiff_save, VDP_DT0, "step_hi_interval",
+                       "cuda-loop", **opts)
+    exact = (torch.full((4, 1), 2.0, device=device), torch.zeros((4, 1), device=device))
+    u, _ = _o2_values(solve(exact, torch.full((4,), VDP_TOL, device=device)), "step_hi")
+    ref = _vdp_truth(1000.0, stiff_save.astype(np.float64))
+    err = float(np.max(np.abs(u[:, :, 0].cpu().numpy() - ref[None])))
+    emit({"phase": "vdp_stiff_check", "mu": 1000.0, "save_at": list(VDP_STIFF_SAVE),
+          "max_abs_err_vs_lsoda": err, "bound": VDP_STIFF_BOUND})
+    if not err < VDP_STIFF_BOUND:
+        failed.append(("stiff check", err))
+
+    # every instantiation at mu = 10 against its plain version on the whole
+    # ensemble (one launch over the twin's span, timed) and against its
+    # twin's solve on TWIN_LANES lanes
+    vf = _o2_problem("vdp", VDP_TWIN_MU)
+    lanes = tuple(u[:TWIN_LANES].contiguous() for u in u0s)
+    cases = [(k, s, c, "qoi") for k in O2_KERNELS for _, s, c in _o2_variants("vdp")]
+    cases += [(k, "filter", "ts1", "residual") for k in O2_KERNELS]
+    for kernel, strategy, correction, unit in cases:
+        kw = dict(strategy=strategy, correction=correction, error_unit=unit)
+        t_end = VDP_TWIN_T if unit == "qoi" else VDP_RESIDUAL_TWIN_T
+        few = np.asarray([0.0, t_end], np.float32)
+        eq, dev = _o2_compare(
+            _o2_solver(vf, few, VDP_DT0, kernel, O2_ENGINES[kernel], **kw),
+            _o2_solver(vf, few, VDP_DT0, kernel, "torch", **kw), lanes, tols[:TWIN_LANES], torch)
+        key = (kernel, _o2_entry(kernel, "vdp", strategy, correction))
+        timing = _o2_launch(kernel, strategy, correction, vf, u0s, tols, save_at, VDP_DT0, torch,
+                            error_unit=unit, t_next=t_end)
+        if unit == "qoi":
+            o2.setdefault(key, {}).update(twin_equal=eq, twin_max_abs_dev=dev, **timing)
+        else:
+            o2[key]["residual"] = {"twin_equal": eq, "twin_max_abs_dev": dev,
+                                   **{k: timing[k] for k in (
+                                       "plain_equal", "kernel_runs_equal", "max_abs_err", "ms",
+                                       "plain_ms", "accepted")}}
+        emit({"phase": "vdp_twin", "kernel": KERNELS[kernel][0], "entry": key[1],
+              "error_unit": unit, "mu": VDP_TWIN_MU, "batch": VDP_BATCH, "lanes": TWIN_LANES,
+              "save_at": [float(t) for t in few], "twin_equal": eq, "twin_max_abs_dev": dev,
+              **timing})
+        if not (eq and timing["plain_equal"] and timing["kernel_runs_equal"]):
+            failed.append((kernel, key[1], unit, "twin or plain"))
+    if failed:
+        raise AssertionError(f"experiment 1's rows failed: {failed}")
+
+
 def main():
     device, _smi = phase_device()
     import torch
+
+    from odecheckpts_torch import kernels
 
     geometry = phase_build()
     worst = phase_attempt(device)
@@ -3170,6 +3605,10 @@ def main():
     counts_apit_bd, blocked = phase_adaptive_pit(device, "blockdiag")
     timing["pit_combine"] = phase_launch_pit(device, captured, blocked)
     del captured, blocked
+    o2 = {(k, e): {"ptxas": info} for (k, e), info in
+          phase_build_o2(kernels.parse_ptxas(kernels.library().log)).items()}
+    phase_three_body(device, o2)
+    phase_vdp_ensemble(device, o2)
     phase_logistic(device)
     phase_train(device)
     (worst_qr, timing["batched_qr_r"]), counts_qr = _path(["batched_qr_r"],
@@ -3210,6 +3649,8 @@ def main():
                                       "pairs_per_block", "smem_bytes", "blocks_per_sm")})
         if "f64" in timing[name]:
             rows[-1]["f64"] = timing[name]["f64"]
+        if name in O2_KERNELS:  # the instantiations of order 2 (phases 31 and 32)
+            rows[-1]["instantiations"] = _o2_rows(o2, name)
         if "blocked" in timing[name]:  # K8 on the blockdiag adaptive parallel-in-time path
             rows[-1]["blocked"] = timing[name]["blocked"] | {
                 "launches": counts_apit_bd["pit_combine"]}

@@ -11,10 +11,13 @@ it converts the state to batch-leading tensors, interpolates at the
 checkpoint, and converts back.  After the last interval it runs the
 smoothing pass.
 
-Ported configuration: isotropic backend, TS0, ``ode_order=1``, fixedpoint,
-dynamic calibration, ``error_unit="qoi"``, any error calibration (kappa),
-``num_derivatives`` in {2, 3, 4}.  Everything else raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+Ported configuration: isotropic backend, ``ode_order`` 1 or 2 (the residual
+observes derivative ``o``: ``z = u^(o) - vf(u, ..., u^(o-1))``), TS0 at any d
+and TS1 at d = 1 (per-lane Jacobians by ``torch.func.jvp``), the fixedpoint
+and the filter strategy, dynamic calibration, ``error_unit`` "qoi" or
+"residual", any error calibration (kappa), ``num_derivatives`` in
+{2, 3, 4}.  Everything else raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
 
 ``engine="cuda"`` runs the per-attempt kernel K3 (``kernels.step_ll_attempt``)
 under a host loop instead; ``make_bucketed_solver`` sorts a mixed-tolerance
@@ -43,6 +46,7 @@ from .ssm.base import Conditional, MarkovSeq, Normal
 #   13 dt (1,B)      14 errn_prev (1,B) 15 nsteps (1,B) float  16 mle (1,B)
 NUM_STATE = 17
 SUPPORTED_NU = (2, 3, 4)
+ODE_ORDERS = (1, 2)
 
 
 def _constants(nu):
@@ -196,6 +200,23 @@ class _StepConstants:
             )[:, :, None]
         return self._lq[key]
 
+    def _unit_scale(self, p, jacs):
+        """The (1, B) scale of the residual under the unit-scale prior, for
+        the isotropic steps (``StepLL``, ``batched_hi.StepHi``: they set
+        ``ode_order``, ``ts1`` and ``ts1_floor``): ``||H P Lq||`` (TS1,
+        floored at 1.2e-7 of the TS0 unit) or ``p_o ||Lq[o, :]||``."""
+        o = self.ode_order
+        if not self.ts1:
+            return p[o] * self.lq_norms[o]
+        s2u = None
+        for jc in range(self.nu + 1):
+            v = p[o] * self.lq_rows[o][jc]
+            for k in range(o):
+                v = v - jacs[k] * (p[k] * self.lq_rows[k][jc])
+            s2u = v * v if s2u is None else s2u + v * v
+        floor = self.ts1_floor * (p[o] * self.lq_norms[o])
+        return rounded.sqrt(s2u + floor * floor)
+
     def _precond(self, dt):
         """The (1, B) rows p_i = sqrt(dt) dt^(nu-i) / (nu-i)!."""
         n = self.nu + 1
@@ -219,14 +240,23 @@ def functor_params(vf, params):
 
 
 class StepLL(_StepConstants):
-    """One lanes-last adaptive attempt of the isotropic TS0 solver with
-    dynamic calibration: the plain-torch twin of the K1 and K3 kernels
-    (``strategy="fixedpoint"``) and of K7 (``"smoother"``, ``"filter"``).
+    """One lanes-last adaptive attempt of the isotropic solver with dynamic
+    calibration (``odecheckpts_tpu/batched.py:171-480``): the plain-torch
+    twin of the K1 and K3 kernels (``strategy`` "fixedpoint" or "filter")
+    and of K7 (``"smoother"``, ``"filter"``).
 
     The fixedpoint strategy accumulates the backward conditional since the
     last checkpoint; the smoother keeps the one-step conditional of the
     attempt; the filter runs no reversal (a (2n, n) QR gives the predicted
     factor, and the backward arrays pass through unchanged).
+
+    ``ode_order`` o: the residual observes derivative o against
+    ``vf(m_pred[0], ..., m_pred[o-1])``.  ``ts1`` (d = 1 only): the
+    observation row is ``E_o - sum_k J_k E_k`` with the per-lane Jacobians
+    ``J_k`` of ``vf`` in its k-th argument, each a unit-tangent
+    ``torch.func.jvp``, and the error unit ``||H P Lq||`` with the
+    reference's cancellation floor.  ``residual``: the error unit is the
+    residual's own scale, ``err = sigma s_unit``.
 
     Every constant is a Python float, rounded to ``dtype`` once (see
     ``_StepConstants``).  Sums over the small row axes run in the
@@ -234,10 +264,18 @@ class StepLL(_StepConstants):
     """
 
     def __init__(self, vf, params, *, nu, d, error_calibration, control=None,
-                 dtype=torch.float32, strategy="fixedpoint"):
+                 dtype=torch.float32, strategy="fixedpoint", ode_order=1, ts1=False,
+                 residual=False):
         if strategy not in STRATEGIES:
             raise ValueError(f"strategy must be one of {STRATEGIES}, got {strategy!r}")
+        if ts1 and d != 1:
+            raise NotImplementedError(
+                "the isotropic lanes-last step covers ts1 only at d=1 (d > 1: "
+                "batched_dense, where solve_save_at_batched sends it)")
+        if int(ode_order) != ode_order or ode_order < 1:
+            raise ValueError(f"ode_order must be a positive integer, got {ode_order!r}")
         self.strategy = strategy
+        self.ode_order, self.ts1, self.residual = int(ode_order), bool(ts1), bool(residual)
         if nu not in SUPPORTED_NU:
             raise NotImplementedError(
                 f"num_derivatives={nu} is not ported yet (the kernel is "
@@ -247,15 +285,27 @@ class StepLL(_StepConstants):
                          control=control, dtype=dtype)
         self.vf, self.params = vf, params
         self.four_eps = 4.0 * float(torch.finfo(dtype).eps)
+        self.ts1_floor = self.rnd(1.2e-7)
         self.device_functor = getattr(vf, "device_functor", None)
         self.functor_params = functor_params(vf, params)
+
+    def _jacobians(self, args, t):
+        """Per-lane scalar Jacobians d f / d u^(k), k < o (d = 1): a
+        unit-tangent jvp in each argument."""
+        out = []
+        for k in range(self.ode_order):
+            def fk(a, _k=k):
+                return self.vf(*args[:_k], a, *args[_k + 1:], t=t, p=self.params)
+
+            out.append(torch.func.jvp(fk, (args[k],), (torch.ones_like(args[k]),))[1])
+        return out
 
     def packed_constants(self):
         """The kernel's constant buffer (layout of ``Consts`` in step_ll.cu)."""
         return self._pack(max(SUPPORTED_NU) + 1, [
             self.max_lq, self.a_inf_norm, self.sqrt_d, self.kappa, self.neg_n1,
             self.n2, self.safety, self.factor_min, self.factor_max, self.big,
-            self.clip,
+            self.clip, self.ts1_floor, float(self.residual),
         ])
 
     def state_shapes(self, batch):
@@ -279,12 +329,15 @@ class StepLL(_StepConstants):
         m_bar = mean / p_arr[:, None, :]
         m_pred = p_arr[:, None, :] * _const_matmul(self.a_rows, m_bar)
 
-        # -- TS0 residual on the first derivative
+        # -- the residual on derivative o (TS0 / TS1)
+        o = self.ode_order
         u_pred = m_pred[0]
-        z = m_pred[1] - self.vf(m_pred[0], t=t_new[0], p=self.params)
+        args = tuple(m_pred[k] for k in range(o))
+        z = m_pred[o] - self.vf(*args, t=t_new[0], p=self.params)
+        jacs = self._jacobians(args, t_new[0]) if self.ts1 else ()
 
-        # -- local scale and error (solution units)
-        s_unit = p[1] * self.lq_norms[1]
+        # -- local scale and error (solution units, or the residual's)
+        s_unit = self._unit_scale(p, jacs)
         zz = z[0:1] * z[0:1]
         q = atol + rtol * torch.abs(u_pred[0:1])
         tol_acc = torch.reciprocal(q * q)
@@ -293,7 +346,7 @@ class StepLL(_StepConstants):
             q = atol + rtol * torch.abs(u_pred[i : i + 1])
             tol_acc = tol_acc + torch.reciprocal(q * q)
         sigma = rounded.sqrt(zz) / (s_unit * self.sqrt_d)
-        err_u = sigma * (p[0] * self.lq_norms[0])
+        err_u = sigma * s_unit if self.residual else sigma * (p[0] * self.lq_norms[0])
         # divide by a tensor: torch turns division by a Python scalar into a
         # multiplication by its reciprocal, which rounds differently
         errn = self.kappa * err_u * rounded.sqrt(tol_acc / torch.full_like(tol_acc, d))
@@ -343,8 +396,11 @@ class StepLL(_StepConstants):
             bwd_L_step = p_arr[:, None, :] * l_bwd_bar
             bwd_m_step = mean - _matmul_ll(gain, m_pred, n)
 
-        # -- TS0 correction (rank-1 update on the observation row)
-        l_obs = l_pred[1]
+        # -- correction (rank-1 update on the observation row; TS1 subtracts
+        # the Jacobian rows)
+        l_obs = l_pred[o]
+        for k in range(o if self.ts1 else 0):
+            l_obs = l_obs - jacs[k] * l_pred[k]
         m2 = torch.abs(l_obs[0:1])
         for i in range(1, n):
             m2 = torch.maximum(m2, torch.abs(l_obs[i : i + 1]))
@@ -428,13 +484,21 @@ class StepLL(_StepConstants):
 
 
 def make_step_ll(vf, params, *, nu, d, error_calibration=None, control=None,
-                 dtype=torch.float32, strategy="fixedpoint"):
-    """The twin of K1 and K3 (or, with ``strategy`` "smoother" or "filter",
-    of K7) for ``vf`` (row-wise, see ``problems``)."""
+                 dtype=torch.float32, strategy="fixedpoint", ode_order=1, correction="ts0",
+                 error_unit="qoi"):
+    """The twin of K1 and K3 (strategy "fixedpoint" or "filter"; or, with
+    "smoother" or "filter", of K7) for ``vf`` (row-wise, see ``problems``),
+    a vector field of order ``ode_order``; ``correction`` "ts0" or "ts1"
+    (d = 1), ``error_unit`` "qoi" or "residual"."""
+    if correction not in ("ts0", "ts1"):
+        raise ValueError(f"correction must be 'ts0' or 'ts1', got {correction!r}")
+    if error_unit not in ("qoi", "residual"):
+        raise ValueError(f"error_unit must be 'qoi' or 'residual', got {error_unit!r}")
     if error_calibration is None:
-        error_calibration = ivpsolvers.default_error_calibration("ts0", "qoi")
+        error_calibration = ivpsolvers.default_error_calibration(correction, error_unit)
     return StepLL(vf, params, nu=nu, d=d, error_calibration=error_calibration,
-                  control=control, dtype=dtype, strategy=strategy)
+                  control=control, dtype=dtype, strategy=strategy, ode_order=ode_order,
+                  ts1=correction == "ts1", residual=error_unit == "residual")
 
 
 def _state_to_generic(state, needs_rev=True):
@@ -559,13 +623,13 @@ def _check_engine(engine):
 def _check_config(*, strategy, calibration, ode_order, correction, error_unit,
                   implementation, num_derivatives, supported_nu=SUPPORTED_NU,
                   corrections=("ts0",), implementations=("isotropic",),
-                  strategies=("fixedpoint",)):
+                  strategies=("fixedpoint",), ode_orders=(1,), error_units=("qoi",)):
     for name, value, ported in (
         ("strategy", strategy, strategies),
         ("calibration", calibration, ("dynamic",)),
-        ("ode_order", ode_order, (1,)),
+        ("ode_order", ode_order, ode_orders),
         ("correction", correction, corrections),
-        ("error_unit", error_unit, ("qoi",)),
+        ("error_unit", error_unit, error_units),
         ("implementation", implementation, implementations),
     ):
         if value not in ported:
@@ -593,8 +657,19 @@ def interval_fn(engine, interval_kernel, attempt_kernel, active):
     return run
 
 
+def _initial_tuple(u0s, ode_order):
+    """``u0s`` as a tuple of ``ode_order`` (B, d) arrays (a bare (B, d)
+    tensor is one array)."""
+    u0s = u0s if isinstance(u0s, tuple) else (u0s,)
+    if len(u0s) != ode_order:
+        raise ValueError(
+            f"ode_order={ode_order} needs {ode_order} initial arrays, got {len(u0s)}")
+    return u0s
+
+
 def initial_state(vf, u0s, params, *, save_at, dt0, tols, num_derivatives=4,
-                  atol_factor=1e-3, implementation="isotropic", strategy="fixedpoint"):
+                  atol_factor=1e-3, implementation="isotropic", strategy="fixedpoint",
+                  ode_order=1):
     """Taylor-initialized lanes-last state and the per-lane kernel inputs.
 
     Returns ``(state0, rv0, inputs)`` where ``inputs`` is the dict of (1, B)
@@ -603,23 +678,27 @@ def initial_state(vf, u0s, params, *, save_at, dt0, tols, num_derivatives=4,
     whose layout the state takes: "isotropic" ((n, d, B) means, (n, n, B)
     factors) or "dense" ((nd, B) means, (nd, nd, B) factors); the blockdiag
     layout is ``batched_blockdiag.initial_state``.  With
-    ``strategy="filter"`` the backward arrays are zeros.
+    ``strategy="filter"`` the backward arrays are zeros.  ``u0s`` is a
+    (B, d) tensor or a tuple of ``ode_order`` of them.
     """
     s0, rv0, inputs = initial_generic(
         vf, u0s, params, save_at=save_at, dt0=dt0, tols=tols,
         num_derivatives=num_derivatives, atol_factor=atol_factor,
-        implementation=implementation, strategy=strategy)
-    return _generic_to_state(s0, u0s.dtype, s0.bwd is not None), rv0, inputs
+        implementation=implementation, strategy=strategy, ode_order=ode_order)
+    return _generic_to_state(s0, rv0.mean.dtype, s0.bwd is not None), rv0, inputs
 
 
 def initial_generic(vf, u0s, params, *, save_at, dt0, tols, num_derivatives=4,
-                    atol_factor=1e-3, implementation="isotropic", strategy="fixedpoint"):
+                    atol_factor=1e-3, implementation="isotropic", strategy="fixedpoint",
+                    ode_order=1):
     """``initial_state`` before the layout conversion: the batch-leading
     ``_State`` at ``save_at[0]``, ``rv0`` and the kernel inputs.  The
     blockdiag backend gets one output scale and one ``mle_ssq`` per
-    dimension."""
-    b, d = u0s.shape
-    dtype, device = u0s.dtype, u0s.device
+    dimension.  The Taylor init takes ``nu + 1 - ode_order`` derivatives
+    beyond the initial arrays (``odecheckpts_tpu/batched.py:854-866``)."""
+    u0s = _initial_tuple(u0s, ode_order)
+    b, d = u0s[0].shape
+    dtype, device = u0s[0].dtype, u0s[0].device
     nu = num_derivatives
     save_at = torch.as_tensor(save_at, dtype=dtype, device=device)
     ssm = ivpsolvers.prior_ibm(num_derivatives=nu, ode_shape=(d,),
@@ -627,13 +706,14 @@ def initial_generic(vf, u0s, params, *, save_at, dt0, tols, num_derivatives=4,
     make_strategy = {"fixedpoint": ivpsolvers.strategy_fixedpoint,
                      "smoother": ivpsolvers.strategy_smoother,
                      "filter": ivpsolvers.strategy_filter}[strategy]
-    strat = make_strategy(ssm, ivpsolvers.correction_ts0())
+    strat = make_strategy(ssm, ivpsolvers.correction_ts0(ode_order=ode_order))
     solver_cfg = ivpsolvers.solver_dynamic(strat)
 
     # Taylor init of the whole ensemble at once: the row-wise vector field
     # takes (d, B) states
     tco = taylor.odejet_padded_scan(
-        lambda y: vf(y, t=save_at[0], p=params), (u0s.T,), num=nu
+        lambda *y: vf(*y, t=save_at[0], p=params), tuple(u.T for u in u0s),
+        num=nu + 1 - ode_order,
     )
     rv0, _ = solver_cfg.initial_condition([c.T for c in tco], 1.0)
 
@@ -705,6 +785,12 @@ def solve_save_at_batched(
     goes to the dense engine ``batched_dense.solve_save_at_batched_dense``
     (kernel K5), as in the reference (``odecheckpts_tpu/batched.py:765-793``).
 
+    ``u0s`` is a (B, d) tensor or a tuple of ``ode_order`` of them (for
+    ``ode_order=2``: positions and velocities).  ``correction="ts1"`` at
+    d = 1 runs on this engine (per-lane Jacobians inside the step).  With
+    ``strategy="filter"`` no backward pass runs: the smoothed output is the
+    filtered one (``odecheckpts_tpu/batched.py:954-976``).
+
     Returns ``(u_smooth (B, T, d), u_filt (B, T, d), num_steps (B, T))``.
     """
     if implementation == "blockdiag":
@@ -735,12 +821,13 @@ def solve_save_at_batched(
         strategy=strategy, calibration=calibration, ode_order=ode_order,
         correction=correction, error_unit=error_unit,
         implementation=implementation, num_derivatives=num_derivatives,
+        corrections=("ts0", "ts1"), strategies=("fixedpoint", "filter"),
+        ode_orders=ODE_ORDERS, error_units=("qoi", "residual"),
     )
     _check_engine(engine)
-    if isinstance(u0s, tuple):
-        (u0s,) = u0s
-    b, d = u0s.shape
-    dtype, device = u0s.dtype, u0s.device
+    u0s = _initial_tuple(u0s, ode_order)
+    b, d = u0s[0].shape
+    dtype, device = u0s[0].dtype, u0s[0].device
     nu = num_derivatives
     save_at = torch.as_tensor(save_at, dtype=dtype, device=device)
     check_hbm_budget(
@@ -748,24 +835,32 @@ def solve_save_at_batched(
         budget=hbm_budget, device=device,
     )
     ssm = ivpsolvers.prior_ibm(num_derivatives=nu, ode_shape=(d,))
-    strat = ivpsolvers.strategy_fixedpoint(
-        ssm, ivpsolvers.correction_ts0(error_calibration=error_calibration)
-    )
+    make_strategy = {"fixedpoint": ivpsolvers.strategy_fixedpoint,
+                     "filter": ivpsolvers.strategy_filter}[strategy]
+    # the generic scaffolding (Taylor init, interpolation) is the same for
+    # both fused corrections
+    strat = make_strategy(ssm, ivpsolvers.correction_ts0(ode_order=ode_order))
     step = make_step_ll(
-        vf, params, nu=nu, d=d, error_calibration=strat.correction.calibration_factor,
-        dtype=dtype,
+        vf, params, nu=nu, d=d, error_calibration=error_calibration, dtype=dtype,
+        strategy=strategy, ode_order=ode_order, correction=correction,
+        error_unit=error_unit,
     )
     state, rv0, inputs = initial_state(
         vf, u0s, params, save_at=save_at, dt0=dt0, tols=tols,
-        num_derivatives=nu, atol_factor=atol_factor,
+        num_derivatives=nu, atol_factor=atol_factor, strategy=strategy,
+        ode_order=ode_order,
     )
     interval = interval_fn(engine, kernels.step_ll_interval, kernels.step_ll_attempt,
                            kernels.active_ll)
+    convert = _CONVERT if strat.needs_reversal else _CONVERT_FILTER
     return solve_intervals(interval, step, state, rv0, inputs, strat=strat,
-                           save_at=save_at, max_attempts=max_attempts)
+                           save_at=save_at, max_attempts=max_attempts, convert=convert)
 
 
 _CONVERT = (_state_to_generic, _generic_to_state)
+# the filter's: no backward conditionals
+_CONVERT_FILTER = (lambda state: _state_to_generic(state, False),
+                   lambda s, dtype: _generic_to_state(s, dtype, False))
 
 
 def advance_checkpoint(interval, step, state, t_next, inputs, *, strat, max_attempts,
@@ -794,7 +889,8 @@ def solve_intervals(interval, step, state, rv0, inputs, *, strat, save_at, max_a
     move the lane axis and serve the isotropic and the dense layout alike;
     the blockdiag driver passes its own pair as ``convert``).
     After the last one, the backward pass over the checkpoints gives the
-    smoothed means.  Returns ``(u_smooth, u_filt, num_steps)``.
+    smoothed means (the filter strategy has none: its smoothed output is the
+    filtered one).  Returns ``(u_smooth, u_filt, num_steps)``.
     """
     ssm = strat.ssm
     b = state[0].shape[-1]
@@ -814,12 +910,15 @@ def solve_intervals(interval, step, state, rv0, inputs, *, strat, save_at, max_a
             return type(first)(*(stack([it[i] for it in items]) for i in range(len(first))))
         return torch.stack(items)
 
-    rvs, conds = stack(rvs), stack(conds)
+    rvs = stack(rvs)
     u_filt = torch.cat([ssm.qoi(rv0.mean)[:, None], ssm.qoi(rvs.mean).transpose(0, 1)], dim=1)
     nsteps = torch.cat(
         [torch.zeros((b, 1), dtype=torch.int32, device=device), torch.stack(nsteps, dim=1)],
         dim=1,
     )
+    if not strat.needs_reversal:
+        return u_filt, u_filt, nsteps
+    conds = stack(conds)
 
     # smoothed means: backward pass over the checkpoints, batched over lanes
     ident = _expand(ssm.identity_conditional(dtype, device), (1, b))
@@ -862,24 +961,25 @@ def make_bucketed_solver(vf, params, *, save_at, dt0, num_buckets=4, **solve_kwa
     """
 
     def solve(u0s, tols):
-        if isinstance(u0s, tuple):
-            (u0s,) = u0s
+        is_tuple = isinstance(u0s, tuple)
+        like = u0s[0] if is_tuple else u0s
         tols_np = _host_rtols(tols)
-        tols = torch.as_tensor(tols, dtype=u0s.dtype, device=u0s.device)
+        tols = torch.as_tensor(tols, dtype=like.dtype, device=like.device)
         b = tols_np.shape[0]
         nb = max(1, min(num_buckets, b))
         order = np.argsort(tols_np, kind="stable")[::-1]  # loosest first
         chunks = np.array_split(order, nb)
         outs = []
         for idx in chunks:
-            idx_t = torch.as_tensor(idx.copy(), device=u0s.device)
+            idx_t = torch.as_tensor(idx.copy(), device=like.device)
+            take = tuple(u[idx_t] for u in u0s) if is_tuple else u0s[idx_t]
             outs.append(solve_save_at_batched(
-                vf, u0s[idx_t], params, save_at=save_at, dt0=dt0, tols=tols[idx_t],
+                vf, take, params, save_at=save_at, dt0=dt0, tols=tols[idx_t],
                 **solve_kwargs,
             ))
         inv = np.empty(b, dtype=np.int64)
         inv[np.concatenate(chunks)] = np.arange(b)
-        inv_t = torch.as_tensor(inv, device=u0s.device)
+        inv_t = torch.as_tensor(inv, device=like.device)
         u_s, u_f, nsteps = (torch.cat([o[i] for o in outs])[inv_t] for i in range(3))
         bucket_max_steps = [int(torch.max(o[2][:, -1])) for o in outs]
         return (u_s, u_f, nsteps), bucket_max_steps

@@ -16,12 +16,13 @@ it as the hand-written CUDA kernel ``csrc/step_hi.cu`` and
 them; ``make_routed_solver`` sends loose lanes to the f32 engine of
 ``batched`` and tight lanes here.
 
-Ported configuration: isotropic TS0, ``ode_order=1``, fixedpoint, dynamic
-calibration, ``error_unit="qoi"``, any error calibration (kappa),
-``num_derivatives`` in {4, 5}, f32 pairs (``dtype=torch.float32``) and the
-f64-pair ("double-double") oracle mode (``dtype=torch.float64``, plain
-versions only).  Everything else raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+Ported configuration: isotropic backend, ``ode_order`` 1 or 2, TS0 at any
+d and TS1 at d = 1 (f32 Jacobians from the hi channel), the fixedpoint and
+the filter strategy, dynamic calibration, ``error_unit`` "qoi" or
+"residual", any error calibration (kappa), ``num_derivatives`` in {4, 5},
+f32 pairs (``dtype=torch.float32``) and the f64-pair ("double-double")
+oracle mode (``dtype=torch.float64``, plain versions only).  Everything else
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -78,38 +79,62 @@ def _taylor_extrap_df(mean, dt, nu):
 
 class StepHi(batched._StepConstants):
     """One lanes-last df32 attempt (``odecheckpts_tpu/batched_hi.py:136-398``,
-    the TS0 fixedpoint dynamic "qoi" branch): the plain-torch twin of the K2
-    and K4 kernels.
+    dynamic calibration): the plain-torch twin of the K2 and K4 kernels.
 
-    ``vf_df(args, t)`` takes ``args = ((u_hi, u_lo),)`` with (d, B) halves
-    and a (hi, lo) time pair and returns the (hi, lo) pair of f(u).  Steps
-    clamp to ``t_next``: an accepted clamped step snaps the time axis to
-    exactly ``t_next`` and leaves the controller state untouched.  Constants
-    are rounded to ``dtype`` once (``batched._StepConstants``); every
-    division is by a tensor and every square by a product.
+    ``vf_df(args, t)`` takes ``args``, a tuple of ``ode_order`` (u_hi, u_lo)
+    pairs of (d, B) halves, and a (hi, lo) time pair and returns the (hi, lo)
+    pair of f(u).  Steps clamp to ``t_next``: an accepted clamped step snaps
+    the time axis to exactly ``t_next`` and leaves the controller state
+    untouched.  ``ts1`` (d = 1): the Jacobians are unit-tangent jvps of the
+    hi word of ``vf_df`` in each argument's hi word (its lo word 0), in
+    plain f32; they steer the error unit and the observation row, never the
+    mean.  ``residual``: the error unit is the residual's own scale.  The
+    filter strategy leaves G_acc and msp as they are.  Constants are rounded
+    to ``dtype`` once (``batched._StepConstants``); every division is by a
+    tensor and every square by a product.
     """
 
     def __init__(self, vf_df, *, nu, d, error_calibration, control=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, strategy="fixedpoint", ode_order=1, ts1=False,
+                 residual=False):
         if nu not in SUPPORTED_NU:
             raise NotImplementedError(
                 f"num_derivatives={nu} is not ported to the df32 engine yet (the "
                 f"kernel is instantiated for {SUPPORTED_NU}): ROADMAP queue 1 item 5"
             )
+        if strategy not in ("fixedpoint", "filter"):
+            raise ValueError(f"the df32 step runs 'fixedpoint' or 'filter', got {strategy!r}")
+        if ts1 and d != 1:
+            raise NotImplementedError(
+                "ts1 in the df32 engine covers d=1: ROADMAP queue 1 item 5")
         super().__init__(nu=nu, d=d, error_calibration=error_calibration,
                          control=control, dtype=dtype)
         self.vf_df = vf_df
+        self.strategy = strategy
+        self.ode_order, self.ts1, self.residual = int(ode_order), bool(ts1), bool(residual)
         self.tiny_frac = self.rnd(1e-5)
         self.stall = self.rnd(4.0 * _EPS_DF32)
+        self.ts1_floor = self.rnd(1.2e-7)
         self.device_functor = getattr(vf_df, "device_functor", None)
         self.functor_params = getattr(vf_df, "params", None)
+
+    def _jacobians(self, args, t):
+        """Per-lane Jacobians of the hi word, d = 1 (``batched_hi.py:169-180``)."""
+        out = []
+        for k in range(self.ode_order):
+            def fk(a, _k=k):
+                full = args[:_k] + ((a, torch.zeros_like(a)),) + args[_k + 1:]
+                return self.vf_df(full, t)[0]
+
+            out.append(torch.func.jvp(fk, (args[k][0],), (torch.ones_like(args[k][0]),))[1])
+        return out
 
     def packed_constants(self):
         """The kernel's constant buffer (layout of ``ConstsHi`` in step_hi.cuh)."""
         return self._pack(max(SUPPORTED_NU) + 1, [
             self.max_lq, self.a_inf_norm, self.sqrt_d, self.kappa, self.neg_n1,
             self.n2, self.safety, self.factor_min, self.factor_max, self.big,
-            self.clip, self.tiny_frac, self.stall,
+            self.clip, self.tiny_frac, self.stall, self.ts1_floor, float(self.residual),
         ])
 
     def state_shapes(self, batch):
@@ -143,13 +168,16 @@ class StepHi(batched._StepConstants):
         # -- extrapolate the mean in pairs (real coordinates)
         m_pred_hi, m_pred_lo = _taylor_extrap_df((mean_hi, mean_lo), dt_mean, nu)
 
-        # -- TS0 residual on the first derivative, in pairs
+        # -- the residual on derivative o, in pairs (TS0 / TS1)
+        o = self.ode_order
         u_pred = m_pred_hi[0]  # (d, B), hi only: error weights
-        fx = self.vf_df(((m_pred_hi[0], m_pred_lo[0]),), t_new)
-        z_hi, z_lo = df.sub((m_pred_hi[1], m_pred_lo[1]), fx)
+        args = tuple((m_pred_hi[k], m_pred_lo[k]) for k in range(o))
+        fx = self.vf_df(args, t_new)
+        z_hi, z_lo = df.sub((m_pred_hi[o], m_pred_lo[o]), fx)
+        jacs = self._jacobians(args, t_new) if self.ts1 else ()
 
         # -- local scale and error (f32: only steers the controller)
-        s_unit = p[1] * self.lq_norms[1]
+        s_unit = self._unit_scale(p, jacs)
         zz = z_hi[0:1] * z_hi[0:1]
         q = atol + rtol * torch.abs(u_pred[0:1])
         tol_acc = torch.reciprocal(q * q)
@@ -158,7 +186,7 @@ class StepHi(batched._StepConstants):
             q = atol + rtol * torch.abs(u_pred[i : i + 1])
             tol_acc = tol_acc + torch.reciprocal(q * q)
         sigma = rounded.sqrt(zz) / (s_unit * self.sqrt_d)
-        err_u = sigma * (p[0] * self.lq_norms[0])
+        err_u = sigma * s_unit if self.residual else sigma * (p[0] * self.lq_norms[0])
         errn = self.kappa * err_u * rounded.sqrt(tol_acc / torch.full_like(tol_acc, d))
 
         sigma_safe = torch.where(
@@ -178,20 +206,25 @@ class StepHi(batched._StepConstants):
         lq_scaled = (new_scale * inv_mag)[None] * self._lq_const(dt)
         magb = mag[None]
 
-        zero = torch.zeros_like(a_l[0])
-        cols = torch.stack(
-            [torch.cat([a_l[c], lq_scaled[c]], dim=0) for c in range(n)]
-            + [torch.cat([l_bar_n[c], zero], dim=0) for c in range(n)]
-        )
+        left = [torch.cat([a_l[c], lq_scaled[c]], dim=0) for c in range(n)]
+        if self.strategy == "fixedpoint":
+            zero = torch.zeros_like(a_l[0])
+            cols = torch.stack(left + [torch.cat([l_bar_n[c], zero], dim=0) for c in range(n)])
+        else:  # no reversal: the left half alone (its rows < n are the same)
+            cols = torch.stack(left)
         cols = _qr_r_cols_partial(cols, 2 * n, n)  # rows < n of cols[c] are R[:, c]
-        r_yy = cols[:n, :n].transpose(0, 1)
-        r_yx = cols[n:, :n].transpose(0, 1)
         l_pred = pb * cols[:n, :n] * magb
-        g_bar = _tri_solve_upper_ll(r_yy, r_yx, n).transpose(0, 1)
-        gain = pb * g_bar / p_arr[None, :, :]
+        if self.strategy == "fixedpoint":
+            r_yy = cols[:n, :n].transpose(0, 1)
+            r_yx = cols[n:, :n].transpose(0, 1)
+            g_bar = _tri_solve_upper_ll(r_yy, r_yx, n).transpose(0, 1)
+            gain = pb * g_bar / p_arr[None, :, :]
 
-        # -- TS0 correction (rank-1 update), mean in pairs
-        l_obs = l_pred[1]  # (n, B)
+        # -- correction (rank-1 update), mean in pairs; TS1 subtracts the
+        # Jacobian rows
+        l_obs = l_pred[o]  # (n, B)
+        for k in range(o if self.ts1 else 0):
+            l_obs = l_obs - jacs[k] * l_pred[k]
         m2 = torch.abs(l_obs[0:1])
         for i in range(1, n):
             m2 = torch.maximum(m2, torch.abs(l_obs[i : i + 1]))
@@ -209,10 +242,13 @@ class StepHi(batched._StepConstants):
         chol_cor = l_pred - gc * l_obs_n[None]
 
         # -- fixedpoint accumulation, increment form (O(local error) terms)
-        diff = -(g_corr * z_hi[None])
-        incr = _matmul_ll(g_acc, _matmul_ll(gain, diff, n), n)
-        msp_new = df.add1((msp_hi, msp_lo), incr)
-        g_acc_new = _matmul_ll(g_acc, gain, n)
+        if self.strategy == "fixedpoint":
+            diff = -(g_corr * z_hi[None])
+            incr = _matmul_ll(g_acc, _matmul_ll(gain, diff, n), n)
+            msp_new = df.add1((msp_hi, msp_lo), incr)
+            g_acc_new = _matmul_ll(g_acc, gain, n)
+        else:
+            msp_new, g_acc_new = (msp_hi, msp_lo), g_acc
 
         # -- PI control
         errn_s = torch.clamp(errn, min=self.tiny)
@@ -252,6 +288,11 @@ class StepHi(batched._StepConstants):
         )
 
 
+_CONFIG = dict(corrections=("ts0", "ts1"), strategies=("fixedpoint", "filter"),
+               ode_orders=batched.ODE_ORDERS, error_units=("qoi", "residual"),
+               implementations=("isotropic",), supported_nu=SUPPORTED_NU)
+
+
 def make_step_hi(vf_df, *, nu, d, strategy="fixedpoint", calibration="dynamic",
                  control=None, ode_order=1, correction="ts0", error_unit="qoi",
                  error_calibration=None, dtype=torch.float32):
@@ -259,23 +300,26 @@ def make_step_hi(vf_df, *, nu, d, strategy="fixedpoint", calibration="dynamic",
     batched._check_config(
         strategy=strategy, calibration=calibration, ode_order=ode_order,
         correction=correction, error_unit=error_unit, implementation="isotropic",
-        num_derivatives=nu, supported_nu=SUPPORTED_NU,
+        num_derivatives=nu, **_CONFIG,
     )
     if error_calibration is None:
         error_calibration = ivpsolvers.default_error_calibration(correction, error_unit)
     return StepHi(vf_df, nu=nu, d=d, error_calibration=error_calibration,
-                  control=control, dtype=dtype)
+                  control=control, dtype=dtype, strategy=strategy, ode_order=ode_order,
+                  ts1=correction == "ts1", residual=error_unit == "residual")
 
 
-def _taylor_init_f64(vf, u0s, params, t0, *, nu, split_dtype=torch.float32):
+def _taylor_init_f64(vf, u0s, params, t0, *, nu, ode_order=1, split_dtype=torch.float32):
     """Taylor-mode initial means in float64, split into a (hi, lo) pair of
     ``split_dtype`` (``odecheckpts_tpu/batched_hi.py:401-430``).
 
-    Runs on the device of ``u0s`` (B, d): the reference ran it on the host
-    CPU only because its TPU has no f64 units; the algorithm is the same.
-    Returns (B, n, d) halves; in f64-pair mode the lo half is zero."""
-    u = u0s.to(torch.float64)
-    tco = taylor.odejet_padded_scan(lambda y: vf(y, t=t0, p=params), (u.T,), num=nu)
+    Runs on the device of ``u0s``, a (B, d) tensor or a tuple of
+    ``ode_order`` of them: the reference ran it on the host CPU only because
+    its TPU has no f64 units; the algorithm is the same.  Returns (B, n, d)
+    halves; in f64-pair mode the lo half is zero."""
+    u = tuple(x.to(torch.float64).T for x in batched._initial_tuple(u0s, ode_order))
+    tco = taylor.odejet_padded_scan(lambda *y: vf(*y, t=t0, p=params), u,
+                                    num=nu + 1 - ode_order)
     m0 = torch.stack(tco, dim=0).movedim(-1, 0).contiguous()  # (B, n, d)
     if split_dtype == torch.float64:
         return m0, torch.zeros_like(m0)
@@ -313,27 +357,34 @@ def _state_from_means(m0_hi, m0_lo, tols, *, save_at, dt0, atol_factor, dtype):
 
 
 def initial_state(vf, u0s, params, *, save_at, dt0, tols, num_derivatives=4,
-                  atol_factor=1e-3, dtype=torch.float32):
+                  atol_factor=1e-3, dtype=torch.float32, ode_order=1):
     """Taylor-initialized 12-array df32 state at ``save_at[0]`` and the dict of
     (1, B) kernel inputs ``atol, rtol, dt_max, dt_floor, tiny_scale``
     (counterpart of ``batched.initial_state``).  ``save_at`` is a numpy
     array of the solver's dtype."""
     m0_hi, m0_lo = _taylor_init_f64(vf, u0s, params, float(save_at[0]), nu=num_derivatives,
-                                    split_dtype=dtype)
+                                    ode_order=ode_order, split_dtype=dtype)
     return _state_from_means(m0_hi, m0_lo, tols, save_at=save_at, dt0=dt0,
                              atol_factor=atol_factor, dtype=dtype)
 
 
 def wrap_vf_plain(vf, params):
-    """Pair vector field that evaluates ``vf`` on the hi channel only
-    (``odecheckpts_tpu/batched_hi.py:433-444``); accurate to about
-    rtol 1e-7.  It has no device functor: only the twin runs it, and the
-    kernel wrappers raise ``NotImplementedError`` on CUDA tensors."""
+    """Pair vector field that evaluates ``vf`` on the hi channel only, with a
+    zero lo word (``odecheckpts_tpu/batched_hi.py:433-444``); accurate to
+    about rtol 1e-7 (the residual inherits f32 evaluation noise).  Where
+    ``vf`` names a device functor with a hi-channel form
+    (``kernels.hi_channel_functor``), the kernels run that form with ``vf``'s
+    device parameters; without one the kernel wrappers raise
+    ``NotImplementedError`` on CUDA tensors."""
 
     def vf_df(args, t):
         fx = vf(*(a[0] for a in args), t=t[0][0], p=params)
         return fx, torch.zeros_like(fx)
 
+    functor = kernels.hi_channel_functor(getattr(vf, "device_functor", None))
+    if functor is not None:
+        vf_df.device_functor = functor
+        vf_df.params = batched.functor_params(vf, params)
     return vf_df
 
 
@@ -372,8 +423,8 @@ def make_hi_solver(
     """Build ``solve(u0s, tols) -> ((us_hi, us_lo), (uf_hi, uf_lo), nsteps)``
     (``odecheckpts_tpu/batched_hi.py:447-722``).
 
-    ``u0s`` is a (B, d) tensor (any float dtype), ``tols`` (B,) relative
-    tolerances; outputs are (B, T, d) pairs on the device of ``u0s`` and
+    ``u0s`` is a (B, d) tensor (any float dtype) or a tuple of
+    ``ode_order`` of them, ``tols`` (B,) relative tolerances; outputs are (B, T, d) pairs on the device of ``u0s`` and
     (B, T) int32 step counts.  ``save_at`` values should be exact in f32.
     ``engine="cuda-loop"`` launches K2 once per checkpoint interval,
     ``engine="cuda"`` K4 once per attempt under a host loop that runs while
@@ -381,14 +432,16 @@ def make_hi_solver(
     ``engine="torch"`` runs the twin on any device.  ``dtype=torch.float64``
     runs the same algorithm on f64 pairs (double-double), the oracle mode;
     the kernels take f32 only.  ``vf_df=None`` evaluates ``vf`` on the hi
-    channel (``wrap_vf_plain``; twin only).  The f64 Taylor init runs per
+    channel (``wrap_vf_plain``; on the kernels where ``vf`` has a device
+    functor).  ``strategy="filter"`` runs no backward pass: the smoothed
+    output is the filtered one.  The f64 Taylor init runs per
     call, memoized for the latest ensemble by content hash.  Combine outputs
     with ``combine64``.
     """
     batched._check_config(
         strategy=strategy, calibration=calibration, ode_order=ode_order,
         correction=correction, error_unit=error_unit, implementation="isotropic",
-        num_derivatives=num_derivatives, supported_nu=SUPPORTED_NU,
+        num_derivatives=num_derivatives, **_CONFIG,
     )
     _check_options(shard_mesh=shard_mesh, engine=engine, dtype=dtype)
     nu = num_derivatives
@@ -438,16 +491,19 @@ def make_hi_solver(
         uf_lo = torch.cat([mean_lo[None, 0], mf_lo[:, 0]])
         nsteps_out = torch.cat([torch.zeros_like(nsteps_s[:1]), nsteps_s])[:, 0]  # (T, B)
 
-        # backward recursion over the checkpoint intervals, increment form:
-        # m_s(k) = msp(k) + G(k) (m_s(k+1) - m_f(k+1))
-        carry = (mf_hi[-1], mf_lo[-1])
-        smoothed = [None] * len(emits)
-        for k in reversed(range(len(emits))):
-            delta = df.sub(carry, (mf_hi[k], mf_lo[k]))[0]  # small, f32
-            carry = df.add1((msp_hi_s[k], msp_lo_s[k]), _matmul_ll(g_s[k], delta, n))
-            smoothed[k] = carry
-        us_hi = torch.cat([torch.stack([m[0][0] for m in smoothed]), mf_hi[-1:, 0]])
-        us_lo = torch.cat([torch.stack([m[1][0] for m in smoothed]), mf_lo[-1:, 0]])
+        if strategy == "filter":  # no backward pass (batched_hi.py:611-630)
+            us_hi, us_lo = uf_hi, uf_lo
+        else:
+            # backward recursion over the checkpoint intervals, increment
+            # form: m_s(k) = msp(k) + G(k) (m_s(k+1) - m_f(k+1))
+            carry = (mf_hi[-1], mf_lo[-1])
+            smoothed = [None] * len(emits)
+            for k in reversed(range(len(emits))):
+                delta = df.sub(carry, (mf_hi[k], mf_lo[k]))[0]  # small, f32
+                carry = df.add1((msp_hi_s[k], msp_lo_s[k]), _matmul_ll(g_s[k], delta, n))
+                smoothed[k] = carry
+            us_hi = torch.cat([torch.stack([m[0][0] for m in smoothed]), mf_hi[-1:, 0]])
+            us_lo = torch.cat([torch.stack([m[1][0] for m in smoothed]), mf_lo[-1:, 0]])
 
         def bt(x):  # (T, d, B) -> (B, T, d)
             return x.movedim(-1, 0)
@@ -461,22 +517,22 @@ def make_hi_solver(
     init_cache = {}  # the latest ensemble's f64 Taylor init, by content hash
 
     def solve(u0s, tols):
-        if isinstance(u0s, tuple):
-            (u0s,) = u0s
-        b, d = u0s.shape
-        device = u0s.device
+        u0s = batched._initial_tuple(u0s, ode_order)
+        b, d = u0s[0].shape
+        device = u0s[0].device
         batched.check_hbm_budget(
             b, d, num_derivatives=nu, num_save_at=len(save_at_np), dtype=torch.float32,
             budget=hbm_budget, device=device,
         )
         h = hashlib.sha1()
-        h.update(f"{tuple(u0s.shape)} {u0s.dtype} {device}".encode())
-        h.update(np.ascontiguousarray(u0s.detach().cpu().numpy()).tobytes())
+        for u in u0s:
+            h.update(f"{tuple(u.shape)} {u.dtype} {device}".encode())
+            h.update(np.ascontiguousarray(u.detach().cpu().numpy()).tobytes())
         key = h.hexdigest()
         if key not in init_cache:
             init_cache.clear()  # hold one ensemble
             init_cache[key] = _taylor_init_f64(vf, u0s, params, float(save_at_np[0]), nu=nu,
-                                               split_dtype=dtype)
+                                               ode_order=ode_order, split_dtype=dtype)
         return device_solve(*init_cache[key], tols)
 
     return solve

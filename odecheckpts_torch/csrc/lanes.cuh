@@ -15,6 +15,7 @@
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -105,6 +106,29 @@ __device__ __forceinline__ void qr_r_cols(T (&cols)[NC][M]) {
   }
 }
 
+// The error unit of the f32 and df32 steps (K1-K4): ||H P Lq|| under TS1
+// (j the per-lane Jacobians, batched.py:258-266, batched_hi.py:209-221; the
+// floor keeps a cancelling vector finite) or p_O ||Lq[O, :]|| under TS0.  C
+// is the step's constants (lq row-major at stride nmax, lq_norm, ts1_floor).
+template <int N, int O, bool TS1, class C>
+__device__ __forceinline__ float unit_scale(const C& c, const float (&p)[N], const float* j,
+                                            int nmax) {
+  if constexpr (TS1) {
+    float s2u = 0.0f;
+#pragma unroll
+    for (int jc = 0; jc < N; ++jc) {
+      float v = p[O] * c.lq[O * nmax + jc];
+#pragma unroll
+      for (int k = 0; k < O; ++k) v = v - j[k] * (p[k] * c.lq[k * nmax + jc]);
+      s2u = jc == 0 ? v * v : s2u + v * v;
+    }
+    const float floor = c.ts1_floor * (p[O] * c.lq_norm[O]);
+    return sqrtf(s2u + floor * floor);
+  } else {
+    return p[O] * c.lq_norm[O];
+  }
+}
+
 // Largest |x[k]| over one row, NaN-propagating.
 template <int C>
 __device__ __forceinline__ float row_absmax(const float (&x)[C]) {
@@ -161,6 +185,28 @@ int lane_report(Kernel kernel, int* out, int smem = 0) {
 // Launch grid of one lane per thread.
 inline dim3 lanes_grid(long long batch) {
   return dim3(static_cast<unsigned>((batch + THREADS - 1) / THREADS));
+}
+
+// The instantiations of K1-K4 on a functor of order 2 (step_ll_o2*.cu,
+// step_hi_o2*.cu; kernels._VARIANTS): nu = 4, the strategy codes 0
+// (fixedpoint) and 2 (filter) of kernels.STRATEGY_CODES, TS1 where the
+// functor has Jacobians (VF::HAS_JACS).  Calls launch(strategy, ts1) with
+// the two as std::integral_constant, or returns cudaErrorInvalidValue for a
+// configuration that is not instantiated.
+template <class VF, class Launch>
+cudaError_t dispatch_o2(int nu, int strategy, int ts1, Launch&& launch) {
+  using Fixedpoint = std::integral_constant<int, 0>;
+  using Filter = std::integral_constant<int, 2>;
+  if (nu != 4 || (strategy != Fixedpoint::value && strategy != Filter::value) ||
+      (ts1 && !VF::HAS_JACS))
+    return cudaErrorInvalidValue;
+  if constexpr (VF::HAS_JACS) {
+    if (ts1)
+      return strategy == Fixedpoint::value ? launch(Fixedpoint{}, std::true_type{})
+                                           : launch(Filter{}, std::true_type{});
+  }
+  return strategy == Fixedpoint::value ? launch(Fixedpoint{}, std::false_type{})
+                                       : launch(Filter{}, std::false_type{});
 }
 
 }  // namespace

@@ -18,9 +18,13 @@
 // This first version accepts register spills (ptxas -v counts per nu are in
 // PERF.md).
 //
-// The arithmetic follows batched_hi.py:make_step_hi (TS0, ode_order 1,
-// fixedpoint, dynamic calibration, error unit "qoi") operation by operation
-// and in the same order:
+// The arithmetic follows batched_hi.py:make_step_hi (dynamic calibration)
+// operation by operation and in the same order, with its branches: the
+// vector field's order O (VF::O; the residual observes m_pred[O] in pairs),
+// TS1 at d = 1 (template parameter TS1: f32 Jacobians from the hi words, as
+// step_ll.cuh's), the fixedpoint or the filter strategy (template parameter
+// FILTER: no reversal, the first N reflections of the left N columns only,
+// G_acc and msp untouched) and the error unit (ConstsHi::residual):
 //   * the df32 operations of odecheckpts_tpu/df32.py:37-138 (two_sum,
 //     fast_two_sum, Dekker's split and two_prod, add, add1, sub, mul, mul1,
 //     div1).  They are error-free only if no multiply-add is contracted:
@@ -44,6 +48,7 @@
 
 #include <cstring>
 
+#include "functors.cuh"
 #include "lanes.cuh"
 
 namespace {
@@ -59,9 +64,10 @@ struct ConstsHi {
   float lq_norm[NMAX_HI];       // ||Lq[k, :]||
   float inv_fact[NMAX_HI];      // 1 / (nu - i)!
   float max_lq, a_inf_norm, sqrt_d, kappa, neg_n1, n2, safety, factor_min,
-      factor_max, big, clip, tiny_frac, stall;
+      factor_max, big, clip, tiny_frac, stall, ts1_floor;
+  float residual;  // 1: error unit "residual", 0: "qoi"
 };
-static_assert(sizeof(ConstsHi) == 97 * sizeof(float), "layout of StepHi.packed_constants");
+static_assert(sizeof(ConstsHi) == 99 * sizeof(float), "layout of StepHi.packed_constants");
 
 struct ArgsHi {
   const float* in[NUM_IN_HI];
@@ -132,6 +138,7 @@ __device__ __forceinline__ F2 div1(F2 x, float b) {
 // arguments.
 struct RigidBodyDf {
   static constexpr int D = 3;
+  static constexpr int O = 1;
   float p1, p2, p3;
   __device__ void operator()(const F2* u, F2* out) const {
     out[0] = mul1(mul(u[1], u[2]), p1);
@@ -139,6 +146,49 @@ struct RigidBodyDf {
     out[2] = mul1(mul(u[0], u[1]), p3);
   }
 };
+
+// An f32 functor of order 2 (functors.cuh) on the hi words of its pairs,
+// with a zero lo word: batched_hi.wrap_vf_plain, accurate to about rtol
+// 1e-7.  Its TS1 Jacobians are the f32 functor's at the hi words.
+template <class VF>
+struct HiChannel {
+  static constexpr int D = VF::D;
+  static constexpr int O = VF::O;
+  static constexpr bool HAS_JACS = VF::HAS_JACS;
+  static_assert(O == 2, "the hi-channel functors are of order 2");
+  VF f;
+  __device__ void operator()(const F2* u, const F2* du, float t, F2* out) const {
+    float uh[D], duh[D], fx[D];
+#pragma unroll
+    for (int q = 0; q < D; ++q) {
+      uh[q] = u[q].hi;
+      duh[q] = du[q].hi;
+    }
+    f(uh, duh, t, fx);
+#pragma unroll
+    for (int q = 0; q < D; ++q) out[q] = F2{fx[q], 0.0f};
+  }
+  __device__ void jacs(const F2* u, const F2* du, float t, float* j) const {
+    float uh[D], duh[D];
+#pragma unroll
+    for (int q = 0; q < D; ++q) {
+      uh[q] = u[q].hi;
+      duh[q] = du[q].hi;
+    }
+    f.jacs(uh, duh, t, j);
+  }
+};
+
+// f of a pair functor: the rigid body's takes no time, the order-2 ones
+// take the hi word of t_new.
+template <class VF, int N, int D>
+__device__ __forceinline__ void eval_vf_hi(const VF& vf, const F2 (&m)[N][D], F2 t, F2* out) {
+  if constexpr (VF::O == 2) {
+    vf(m[0], m[1], t.hi, out);
+  } else {
+    vf(m[0], out);
+  }
+}
 
 template <int N, int D>
 struct LaneHi {
@@ -158,12 +208,14 @@ __device__ __forceinline__ bool active_hi(float t_hi, float t_lo, float t_next) 
 }
 
 // One accept/reject attempt (make_step_hi's `step`), updating s in place.
-template <int NU, class VF>
+template <int NU, class VF, bool FILTER = false, bool TS1 = false>
 __device__ __forceinline__ void attempt_hi(LaneHi<NU + 1, VF::D>& s, const ConstsHi& c,
                                            const VF& vf, const LaneInputsHi& in) {
   constexpr int N = NU + 1;
   constexpr int D = VF::D;
+  constexpr int O = VF::O;
   constexpr int M = 2 * N;
+  static_assert(!TS1 || D == 1, "the df32 step covers TS1 at d = 1");
   const float atol = in.atol, rtol = in.rtol, dt_max = in.dt_max, dt_floor = in.dt_floor,
               tiny_scale = in.tiny_scale;
 
@@ -204,14 +256,16 @@ __device__ __forceinline__ void attempt_hi(LaneHi<NU + 1, VF::D>& s, const Const
       m_pred[i][q] = acc;
     }
 
-  // -- TS0 residual on the first derivative, in pairs
+  // -- the residual on derivative O, in pairs (TS0 / TS1)
   F2 fx[D], z[D];
-  vf(m_pred[0], fx);
+  float jac[O];
+  eval_vf_hi(vf, m_pred, t_new, fx);
 #pragma unroll
-  for (int q = 0; q < D; ++q) z[q] = sub(m_pred[1][q], fx[q]);
+  for (int q = 0; q < D; ++q) z[q] = sub(m_pred[O][q], fx[q]);
+  if constexpr (TS1) vf.jacs(m_pred[0], m_pred[1], t_new.hi, jac);
 
   // -- local scale and error (f32: they only steer the controller)
-  const float s_unit = p[1] * c.lq_norm[1];
+  const float s_unit = unit_scale<N, O, TS1>(c, p, jac, NMAX_HI);
   float zz = z[0].hi * z[0].hi;
   float qq = atol + rtol * fabsf(m_pred[0][0].hi);
   float tol_acc = 1.0f / (qq * qq);
@@ -222,7 +276,7 @@ __device__ __forceinline__ void attempt_hi(LaneHi<NU + 1, VF::D>& s, const Const
     tol_acc = tol_acc + 1.0f / (qq * qq);
   }
   const float sigma = sqrtf(zz) / (s_unit * c.sqrt_d);
-  const float err_u = sigma * (p[0] * c.lq_norm[0]);
+  const float err_u = c.residual != 0.0f ? sigma * s_unit : sigma * (p[0] * c.lq_norm[0]);
   const float errn = c.kappa * err_u * sqrtf(tol_acc / static_cast<float>(D));
 
   const float sigma_safe = isfinite(sigma) ? sigma : c.big;
@@ -246,8 +300,10 @@ __device__ __forceinline__ void attempt_hi(LaneHi<NU + 1, VF::D>& s, const Const
   const float lq_s = new_scale * inv_mag;
 
   // revert-QR columns: column i < N is [ (A l_bar_n)[i] ; lq_s Lq[i] ],
-  // column N + i is [ l_bar_n[i] ; 0 ]; only the first N reflections run
-  float cols[M][M];
+  // column N + i is [ l_bar_n[i] ; 0 ] (the filter: the first N columns
+  // only); only the first N reflections run
+  constexpr int NC = FILTER ? N : M;
+  float cols[NC][M];
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
@@ -258,27 +314,41 @@ __device__ __forceinline__ void attempt_hi(LaneHi<NU + 1, VF::D>& s, const Const
         if (c.a[i * NMAX_HI + j] != 0.0f) acc = acc + c.a[i * NMAX_HI + j] * l_bar[j][k];
       cols[i][k] = acc;
       cols[i][N + k] = lq_s * c.lq[i * NMAX_HI + k];
-      cols[N + i][k] = l_bar[i][k];
-      cols[N + i][N + k] = 0.0f;
+      if constexpr (!FILTER) {
+        cols[N + i][k] = l_bar[i][k];
+        cols[N + i][N + k] = 0.0f;
+      }
     }
-  qr_r_cols<M, M, N>(cols);  // R[r][col] = cols[col][r] for r < N
+  qr_r_cols<M, NC, N>(cols);  // R[r][col] = cols[col][r] for r < N
 
-  float x[N][N];  // X = R_yy^-1 R_yx
-  tri_solve_upper<N, M>(cols, x);
   float l_pred[N][N], gain[N][N];
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      l_pred[i][k] = (p[i] * cols[i][k]) * mag;
-      gain[i][k] = p[i] * x[k][i] / p[k];
-    }
-
-  // -- TS0 correction (rank-1 update on the observation row), mean in pairs
-  float l_obs_n[N];
-  const float m2 = maxp(row_absmax(l_pred[1]), tiny_scale);
+    for (int k = 0; k < N; ++k) l_pred[i][k] = (p[i] * cols[i][k]) * mag;
+  if constexpr (!FILTER) {
+    float x[N][N];  // X = R_yy^-1 R_yx
+    tri_solve_upper<N, M>(cols, x);
 #pragma unroll
-  for (int k = 0; k < N; ++k) l_obs_n[k] = l_pred[1][k] / m2;
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int k = 0; k < N; ++k) gain[i][k] = p[i] * x[k][i] / p[k];
+  }
+
+  // -- correction (rank-1 update on the observation row l_pred[O], minus the
+  // Jacobian rows under TS1), mean in pairs
+  float l_obs[N], l_obs_n[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    l_obs[k] = l_pred[O][k];
+    if constexpr (TS1) {
+#pragma unroll
+      for (int q = 0; q < O; ++q) l_obs[k] = l_obs[k] - jac[q] * l_pred[q][k];
+    }
+  }
+  const float m2 = maxp(row_absmax(l_obs), tiny_scale);
+#pragma unroll
+  for (int k = 0; k < N; ++k) l_obs_n[k] = l_obs[k] / m2;
   float s2 = l_obs_n[0] * l_obs_n[0];
 #pragma unroll
   for (int k = 1; k < N; ++k) s2 = s2 + l_obs_n[k] * l_obs_n[k];
@@ -295,15 +365,17 @@ __device__ __forceinline__ void attempt_hi(LaneHi<NU + 1, VF::D>& s, const Const
 
   // -- fixedpoint accumulation, increment form
   float gd[N][D];  // gain @ diff, diff[j][q] = -(g_corr[j] z[q].hi)
+  if constexpr (!FILTER) {
 #pragma unroll
-  for (int i = 0; i < N; ++i)
+    for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int q = 0; q < D; ++q) {
-      float acc = gain[i][0] * -(g_corr[0] * z[q].hi);
+      for (int q = 0; q < D; ++q) {
+        float acc = gain[i][0] * -(g_corr[0] * z[q].hi);
 #pragma unroll
-      for (int j = 1; j < N; ++j) acc = acc + gain[i][j] * -(g_corr[j] * z[q].hi);
-      gd[i][q] = acc;
-    }
+        for (int j = 1; j < N; ++j) acc = acc + gain[i][j] * -(g_corr[j] * z[q].hi);
+        gd[i][q] = acc;
+      }
+  }
 
   // -- PI control
   const float errn_s = maxp(errn, FLT_MIN);
@@ -344,23 +416,27 @@ __device__ __forceinline__ void attempt_hi(LaneHi<NU + 1, VF::D>& s, const Const
       const F2 cor = sub(m_pred[i][q], mul1(z[q], g_corr[i]));
       s.mean_hi[i][q] = cor.hi;
       s.mean_lo[i][q] = cor.lo;
-      float incr = s.g_acc[i][0] * gd[0][q];
+      if constexpr (!FILTER) {
+        float incr = s.g_acc[i][0] * gd[0][q];
 #pragma unroll
-      for (int j = 1; j < N; ++j) incr = incr + s.g_acc[i][j] * gd[j][q];
-      const F2 msp = add1(F2{s.msp_hi[i][q], s.msp_lo[i][q]}, incr);
-      s.msp_hi[i][q] = msp.hi;
-      s.msp_lo[i][q] = msp.lo;
+        for (int j = 1; j < N; ++j) incr = incr + s.g_acc[i][j] * gd[j][q];
+        const F2 msp = add1(F2{s.msp_hi[i][q], s.msp_lo[i][q]}, incr);
+        s.msp_hi[i][q] = msp.hi;
+        s.msp_lo[i][q] = msp.lo;
+      }
     }
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       s.chol[i][k] = l_pred[i][k] - gc[i] * l_obs_n[k];
-      float acc = s.g_acc[i][0] * gain[0][k];
+      if constexpr (!FILTER) {
+        float acc = s.g_acc[i][0] * gain[0][k];
 #pragma unroll
-      for (int j = 1; j < N; ++j) acc = acc + s.g_acc[i][j] * gain[j][k];
-      g_acc_new[i][k] = acc;
+        for (int j = 1; j < N; ++j) acc = acc + s.g_acc[i][j] * gain[j][k];
+        g_acc_new[i][k] = acc;
+      }
     }
   }
-  copy_to(s.g_acc, g_acc_new);
+  if constexpr (!FILTER) copy_to(s.g_acc, g_acc_new);
   s.scale = new_scale;
   s.nsteps = s.nsteps + 1.0f;
 }

@@ -5,7 +5,13 @@
 // K1 replaces odecheckpts_tpu/batched.py:_pallas_interval(make_step_ll), the
 // Pallas kernel of the f32 work-precision path; K3 replaces
 // batched.py:_pallas_step(make_step_ll), one attempt per launch; both run the
-// fixedpoint strategy.  K7 replaces batched_everystep.py:238,
+// fixedpoint or the filter strategy.  The vector field's order O (VF::O: the
+// residual observes m_pred[O] against f(m_pred[0], ..., m_pred[O-1])), the
+// TS1 correction at d = 1 (template parameter TS1: the observation row
+// E_O - sum_k J_k E_k with the functor's per-lane Jacobians, the error unit
+// ||H P Lq|| floored at ts1_floor of the TS0 unit) and the residual error
+// unit (Consts::residual, err = sigma s_unit) follow make_step_ll's branches
+// (batched.py:171-480).  K7 replaces batched_everystep.py:238,
 // _pallas_step(make_step_ll) with strategy "smoother" or "filter": the
 // strategy is a template parameter of the attempt.  The plain PyTorch twin is
 // odecheckpts_torch/batched.py:StepLL.
@@ -51,6 +57,7 @@
 
 #include <cstring>
 
+#include "functors.cuh"
 #include "lanes.cuh"
 
 namespace {
@@ -67,9 +74,10 @@ struct Consts {
   float lq_norm[NMAX];    // ||Lq[k, :]||
   float inv_fact[NMAX];   // 1 / (nu - i)!
   float max_lq, a_inf_norm, sqrt_d, kappa, neg_n1, n2, safety, factor_min,
-      factor_max, big, clip;
+      factor_max, big, clip, ts1_floor;
+  float residual;  // 1: error unit "residual", 0: "qoi"
 };
-static_assert(sizeof(Consts) == 71 * sizeof(float), "layout of StepLL.packed_constants");
+static_assert(sizeof(Consts) == 73 * sizeof(float), "layout of StepLL.packed_constants");
 
 struct Args {
   const float* in[NUM_IN];
@@ -81,6 +89,7 @@ struct Args {
 // of the same name in problems.py.
 struct RigidBody {
   static constexpr int D = 3;
+  static constexpr int O = 1;
   float p1, p2, p3;
   __device__ void operator()(const float* u, float /*t*/, float* out) const {
     out[0] = p1 * u[1] * u[2];
@@ -105,6 +114,7 @@ struct RigidBody {
 // (problems.rigid_body_anisotropic): p3s = s3 * p3, formed by the host.
 struct RigidBodyAniso {
   static constexpr int D = 3;
+  static constexpr int O = 1;
   float p1, p2, p3s, s3;
   __device__ void operator()(const float* u, float /*t*/, float* out) const {
     const float w = u[2] / s3;
@@ -178,17 +188,29 @@ constexpr int FIXEDPOINT = 0;
 constexpr int SMOOTHER = 1;
 constexpr int FILTER = 2;
 
+// f(m[0], ..., m[O-1]) of a functor of order O = 1 or 2.
+template <class VF, class T, int N, int D>
+__device__ __forceinline__ void eval_vf(const VF& vf, const T (&m)[N][D], float t, T* out) {
+  if constexpr (VF::O == 2) {
+    vf(m[0], m[1], t, out);
+  } else {
+    static_assert(VF::O == 1, "functors of order 1 or 2");
+    vf(m[0], t, out);
+  }
+}
+
 // One accept/reject attempt (make_step_ll's `step`), updating s in place
-// (a LanePrevShared for the fixedpoint strategy, a LaneAttempt for the
-// others).
-template <int NU, class VF, int STRATEGY = FIXEDPOINT, class S>
+// (a LanePrevShared for K1 and K3, a LaneAttempt for K7).
+template <int NU, class VF, int STRATEGY = FIXEDPOINT, bool TS1 = false, class S>
 __device__ __forceinline__ void attempt(S& s, const Consts& c, const VF& vf,
                                         const LaneInputs& in) {
   const float t_next = in.t_next, atol = in.atol, rtol = in.rtol, dt_max = in.dt_max,
               dt_floor = in.dt_floor, tiny_scale = in.tiny_scale;
   constexpr int N = NU + 1;
   constexpr int D = VF::D;
+  constexpr int O = VF::O;
   constexpr int M = 2 * N;
+  static_assert(!TS1 || D == 1, "the isotropic step covers TS1 at d = 1");
 
   const float dt = minp(maxp(s.dt, dt_floor), dt_max);
   float pows[N];
@@ -219,14 +241,15 @@ __device__ __forceinline__ void attempt(S& s, const Consts& c, const VF& vf,
       m_pred[i][k] = p[i] * acc;
     }
 
-  // -- TS0 residual on the first derivative
-  float fx[D], z[D];
-  vf(m_pred[0], t_new, fx);
+  // -- the residual on derivative O (TS0 / TS1)
+  float fx[D], z[D], jac[O];
+  eval_vf(vf, m_pred, t_new, fx);
 #pragma unroll
-  for (int k = 0; k < D; ++k) z[k] = m_pred[1][k] - fx[k];
+  for (int k = 0; k < D; ++k) z[k] = m_pred[O][k] - fx[k];
+  if constexpr (TS1) vf.jacs(m_pred[0], m_pred[1], t_new, jac);
 
-  // -- local scale and error (solution units)
-  const float s_unit = p[1] * c.lq_norm[1];
+  // -- local scale and error (solution units, or the residual's)
+  const float s_unit = unit_scale<N, O, TS1>(c, p, jac, NMAX);
   float zz = z[0] * z[0];
   float q = atol + rtol * fabsf(m_pred[0][0]);
   float tol_acc = 1.0f / (q * q);
@@ -237,7 +260,7 @@ __device__ __forceinline__ void attempt(S& s, const Consts& c, const VF& vf,
     tol_acc = tol_acc + 1.0f / (q * q);
   }
   const float sigma = sqrtf(zz) / (s_unit * c.sqrt_d);
-  const float err_u = sigma * (p[0] * c.lq_norm[0]);
+  const float err_u = c.residual != 0.0f ? sigma * s_unit : sigma * (p[0] * c.lq_norm[0]);
   const float errn = c.kappa * err_u * sqrtf(tol_acc / static_cast<float>(D));
 
   const float sigma_safe = isfinite(sigma) ? sigma : c.big;
@@ -320,11 +343,20 @@ __device__ __forceinline__ void attempt(S& s, const Consts& c, const VF& vf,
       }
   }
 
-  // -- TS0 correction (rank-1 update on the observation row)
-  float l_obs_n[N];
-  float m2 = maxp(row_absmax(l_pred[1]), tiny_scale);
+  // -- correction (rank-1 update on the observation row l_pred[O], minus
+  // the Jacobian rows under TS1)
+  float l_obs[N], l_obs_n[N];
 #pragma unroll
-  for (int k = 0; k < N; ++k) l_obs_n[k] = l_pred[1][k] / m2;
+  for (int k = 0; k < N; ++k) {
+    l_obs[k] = l_pred[O][k];
+    if constexpr (TS1) {
+#pragma unroll
+      for (int q = 0; q < O; ++q) l_obs[k] = l_obs[k] - jac[q] * l_pred[q][k];
+    }
+  }
+  float m2 = maxp(row_absmax(l_obs), tiny_scale);
+#pragma unroll
+  for (int k = 0; k < N; ++k) l_obs_n[k] = l_obs[k] / m2;
   float s2 = l_obs_n[0] * l_obs_n[0];
 #pragma unroll
   for (int k = 1; k < N; ++k) s2 = s2 + l_obs_n[k] * l_obs_n[k];
@@ -572,19 +604,20 @@ constexpr int prev_smem_bytes() {
 
 // The attempts of one launch: while k < max_attempts and t < t_next
 // (INTERVAL), or one.
-template <int NU, class VF, bool INTERVAL, class S>
+template <int NU, class VF, bool INTERVAL, int STRATEGY, bool TS1, class S>
 __device__ __forceinline__ void attempts(S& s, const Consts& c, const VF& vf,
                                          const LaneInputs& in, int max_attempts) {
   if constexpr (INTERVAL) {
-    for (int k = 0; k < max_attempts && s.t < in.t_next; ++k) attempt<NU, VF>(s, c, vf, in);
+    for (int k = 0; k < max_attempts && s.t < in.t_next; ++k)
+      attempt<NU, VF, STRATEGY, TS1>(s, c, vf, in);
   } else {
-    attempt<NU, VF>(s, c, vf, in);
+    attempt<NU, VF, STRATEGY, TS1>(s, c, vf, in);
   }
 }
 
 // K1's and K3's lane through an interval (INTERVAL) or one attempt, the
-// previous arrays in shared memory.
-template <int NU, class VF, bool INTERVAL>
+// previous arrays in shared memory; STRATEGY fixedpoint or filter.
+template <int NU, class VF, bool INTERVAL, int STRATEGY = FIXEDPOINT, bool TS1 = false>
 __device__ __forceinline__ void run_lane(const Args& args, const Consts& c, const VF& vf,
                                          int64_t B, int max_attempts) {
   const int64_t b = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
@@ -593,7 +626,7 @@ __device__ __forceinline__ void run_lane(const Args& args, const Consts& c, cons
   LanePrevShared<NU + 1, VF::D> s;
   s.prev = ll_prev + threadIdx.x;
   const LaneInputs in = load_current(s, args, b, B);
-  attempts<NU, VF, INTERVAL>(s, c, vf, in, max_attempts);
+  attempts<NU, VF, INTERVAL, STRATEGY, TS1>(s, c, vf, in, max_attempts);
   store_current(s, args, b, B);
 }
 

@@ -14,8 +14,10 @@ one-IVP vector field; ``p`` may be a tensor, a tuple or a list of
     solve_nystrom         adaptive Nystrom for u'' = f(u, t)
     asolve_scipy          ``scipy.integrate.solve_ivp`` on the host
 
-Outputs are time-leading, then the batch axes.  ``ode_order=2`` raises
-``NotImplementedError`` (ROADMAP queue 1 item 5).
+Outputs are time-leading, then the batch axes.  ``solve`` takes
+``ode_order`` initial arrays for a vector field of that order; ``solve_rk``
+with ``ode_order=2`` solves the first-order reduction and returns its first
+half (the positions), as the reference does.
 """
 
 from __future__ import annotations
@@ -39,12 +41,6 @@ def _check_tuple(u0):
         raise ValueError("Tuple expected.")
 
 
-def _second_order(ode_order):
-    if ode_order != 1:
-        raise NotImplementedError(
-            "ode_order != 1 is not ported yet: ROADMAP queue 1 item 5")
-
-
 def _taylor_init(solver, vf_wrapped, u0, t0, num, output_scale):
     """The exact initial state from the Taylor coefficients of ``u0``; the
     one-IVP field is mapped over the batch axes (``ivpsolvers._call_vf``)."""
@@ -64,8 +60,7 @@ def solve(method: str, vf, u0_like, /, save_at, *, dt0, atol, rtol, ode_order: i
     """Checkpointed adaptive solve, O(#save_at) memory (``odecheckpts_tpu/
     facade.py:38-119``): the fixedpoint strategy on ``save_at``, then the
     backward marginalization; returns the smoothed qoi (T, ..., d) and
-    ``{"solution", "u0_solve"}``."""
-    _second_order(ode_order)
+    ``{"solution", "u0_solve"}``.  ``u0`` holds ``ode_order`` arrays."""
     family, num_derivatives = _parse_method(method)
     prior = ivpsolvers.prior_ibm(num_derivatives=num_derivatives,
                                  ode_shape=tuple(np.shape(u0_like)),
@@ -158,15 +153,19 @@ def solve_rk(method: str, vf, _u0_like, /, save_at, *, dt0, atol, rtol, ode_orde
     """Adaptive Runge-Kutta baseline with the reference's diffrax signature
     (``odecheckpts_tpu/facade.py:163-183``): ``solve_(u0_tuple, p)`` returns
     the states at ``save_at`` (T, ..., d) and ``{"solution", "u0_solve",
-    "num_steps"}``."""
-    _second_order(ode_order)
+    "num_steps"}``.  With ``ode_order=2``, ``vf`` is the first-order
+    reduction (state ``(u, u')``) and the first half of each state is
+    returned (``odecheckpts_tpu/facade.py:167-183``)."""
+    if ode_order not in (1, 2):
+        raise ValueError(f"solve_rk takes ode_order 1 or 2, got {ode_order!r}")
 
     def solve_(u0: tuple, p):
         _check_tuple(u0)
         (init,) = u0
         ys, num_steps = rk.solve_rk_save_at(method, vf, init, save_at=save_at, dt0=dt0,
                                             atol=atol, rtol=rtol, params=p)
-        return ys, {"solution": ys, "u0_solve": ys, "num_steps": num_steps}
+        u = ys if ode_order == 1 else ys[..., : ys.shape[-1] // 2]
+        return u, {"solution": ys, "u0_solve": ys, "num_steps": num_steps}
 
     return solve_
 

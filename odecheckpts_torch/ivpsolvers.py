@@ -5,8 +5,9 @@ The IBM prior on the isotropic, the dense and the blockdiag backend, the TS0
 and TS1 corrections, the filter, smoother and fixedpoint strategies, the
 none, dynamic and MLE calibrations, and the single-solve building blocks
 ``linearize`` / ``error_and_scale`` / ``correct`` that every solve driver of
-``ivpsolve`` and ``parallel_time`` runs.  Every config object is a frozen
-dataclass.  Not ported: ``ode_order`` other than 1 (ROADMAP queue 1 item 5).
+``ivpsolve`` and ``parallel_time`` runs, for a vector field of any ODE order
+``o`` (``vf(u, ..., u^(o-1), t=)``).  Every config object is a frozen
+dataclass.
 """
 
 from __future__ import annotations
@@ -53,10 +54,8 @@ class Correction:
 
 
 def _correction(method, ode_order, error_unit, error_calibration):
-    if ode_order != 1:
-        raise NotImplementedError(
-            "ode_order != 1 is not ported yet: ROADMAP queue 1 item 5"
-        )
+    if int(ode_order) != ode_order or ode_order < 1:
+        raise ValueError(f"ode_order must be a positive integer, got {ode_order!r}")
     if error_unit not in ("qoi", "residual"):
         raise ValueError(f"error_unit must be 'qoi' or 'residual', got {error_unit!r}")
     return Correction(method, ode_order, error_unit, error_calibration)

@@ -81,7 +81,8 @@ LAUNCHES = {
     "pit_combine": 0, "batched_qr_r": 0, "qr_packing_cols": 0, "qr_packing_masked": 0,
 }
 
-# (kernel, device functor of the step's vector field) -> (C symbol, ODE dim)
+# (kernel, device functor of the step's vector field) -> (C symbol, ODE dim);
+# the functors of order 2 are in _VARIANTS as well
 _FUNCTORS = {
     ("step_ll_interval", "rigid_body"): ("odeckpt_step_ll_interval_rigid_body", 3),
     ("step_ll_interval", "rigid_body_anisotropic"):
@@ -100,6 +101,29 @@ _FUNCTORS = {
     ("step_bd_attempt", "rigid_body_anisotropic"):
         ("odeckpt_step_bd_attempt_rigid_body_anisotropic", 3),
     ("step_everystep_attempt", "rigid_body"): ("odeckpt_step_everystep_attempt_rigid_body", 3),
+    ("step_ll_interval", "three_body_restricted"):
+        ("odeckpt_step_ll_interval_three_body_restricted", 2),
+    ("step_ll_attempt", "three_body_restricted"):
+        ("odeckpt_step_ll_attempt_three_body_restricted", 2),
+    ("step_ll_interval", "van_der_pol"): ("odeckpt_step_ll_interval_van_der_pol", 1),
+    ("step_ll_attempt", "van_der_pol"): ("odeckpt_step_ll_attempt_van_der_pol", 1),
+    ("step_hi_interval", "three_body_restricted_hi"):
+        ("odeckpt_step_hi_interval_three_body_restricted_hi", 2),
+    ("step_hi_attempt", "three_body_restricted_hi"):
+        ("odeckpt_step_hi_attempt_three_body_restricted_hi", 2),
+    ("step_hi_interval", "van_der_pol_hi"): ("odeckpt_step_hi_interval_van_der_pol_hi", 1),
+    ("step_hi_attempt", "van_der_pol_hi"): ("odeckpt_step_hi_attempt_van_der_pol_hi", 1),
+}
+# The functors of order 2 on K1-K4 (csrc/functors.cuh; step_ll_o2*.cu,
+# step_hi_o2*.cu): functor -> (ODE order, float parameters, the nu it is
+# built for, the strategies, the corrections).  Their entries take the
+# strategy code and the TS1 flag after nu.  The other functors are of order
+# 1, built for every nu of their kernel, fixedpoint and TS0 on K1-K4.
+_VARIANTS = {
+    "three_body_restricted": (2, 2, (4,), ("fixedpoint", "filter"), ("ts0",)),
+    "van_der_pol": (2, 1, (4,), ("fixedpoint", "filter"), ("ts0", "ts1")),
+    "three_body_restricted_hi": (2, 2, (4,), ("fixedpoint", "filter"), ("ts0",)),
+    "van_der_pol_hi": (2, 1, (4,), ("fixedpoint", "filter"), ("ts0", "ts1")),
 }
 # what K8-K11 are instantiated for: K8's state dimension m = nu + 1 and mean
 # columns c, the (m, n) of K9 and of K10 / K11
@@ -284,7 +308,8 @@ def _build_key():
 def _ptxas_key(symbol):
     """(kernel, template key) of a mangled step-kernel symbol: nu for K1-K4
     (``"<nu>/<functor>"`` for K1 and K3 on a functor other than the rigid
-    body),
+    body; ``"<nu>/<functor>/<strategy>/<ts0 or ts1>"`` on a functor of order
+    2, ``HiChannel<...>`` for K2 and K4),
     ``"<nu>/<ts1 or ts0>/<functor>"`` for K5, ``"<nu>/<functor>"`` for K6,
     ``"<nu>/<strategy>"`` for K7; ``"<f32 or f64>/<m>/<c>"`` for K8 and
     ``"<m>/<n>"`` for K9-K11, under their wrappers' names; None for other
@@ -315,7 +340,20 @@ def _ptxas_key(symbol):
     if kernel.startswith("step_ll"):  # the rigid body under nu, another functor beside it
         fm = re.match(r"NS_(\d+)", rest)
         functor = rest[fm.end() : fm.end() + int(fm.group(1))] if fm else "RigidBody"
+        vm = re.match(r"ELi(\d)ELb([01])E", rest[fm.end() + len(functor):]) if fm else None
+        if vm is not None:  # a functor of order 2: strategy code and TS1 flag
+            names = {code: name for name, code in STRATEGY_CODES.items()}
+            return kernel, _variant_key(nu, functor, names[int(vm.group(1))], vm.group(2))
         return kernel, nu if functor == "RigidBody" else f"{nu}/{functor}"
+    if kernel.startswith("step_hi"):
+        fm = re.match(r"NS_9HiChannelINS_(\d+)", rest)
+        if fm is not None:
+            functor = rest[fm.end() : fm.end() + int(fm.group(1))]
+            vm = re.match(r"EEELb([01])ELb([01])E", rest[fm.end() + len(functor):])
+            if vm is None:
+                return None
+            strategy = "filter" if vm.group(1) == "1" else "fixedpoint"
+            return kernel, _variant_key(nu, f"HiChannel<{functor}>", strategy, vm.group(2))
     if kernel.startswith("step_everystep"):
         fm = re.match(r"Li(\d)E", rest)
         names = {code: name for name, code in STRATEGY_CODES.items()}
@@ -323,6 +361,12 @@ def _ptxas_key(symbol):
             return None
         return kernel, f"{nu}/{names[int(fm.group(1))]}"
     return kernel, nu
+
+
+def _variant_key(nu, functor, strategy, ts1):
+    """``"<nu>/<functor>/<strategy>/<ts0 or ts1>"``: the ptxas key of a K1-K4
+    instantiation on a functor of order 2 (``ts1`` the mangled flag)."""
+    return f"{nu}/{functor}/{strategy}/{'ts1' if ts1 == '1' else 'ts0'}"
 
 
 def parse_ptxas(log):
@@ -357,22 +401,45 @@ def parse_ptxas(log):
     return out
 
 
+def hi_channel_functor(functor):
+    """The device functor that K2 and K4 run for ``functor`` on the hi
+    channel of its pairs (``"<functor>_hi"``, ``csrc/step_hi.cuh``'s
+    ``HiChannel``), or None where none is built."""
+    name = f"{functor}_hi"
+    return name if name in _VARIANTS else None
+
+
+def order_two_instantiations():
+    """``(functor, strategy, correction)`` of every K1 / K3 instantiation on
+    a functor of order 2; K2 / K4 run each on the functor's hi channel."""
+    return [(functor, strategy, correction)
+            for functor, (_, _, _, strategies, corrections) in _VARIANTS.items()
+            if hi_channel_functor(functor) for strategy in strategies
+            for correction in corrections]
+
+
 def _num_params(kernel, functor):
     """Float parameters of an entry: K6's entries and those of the
-    anisotropic rigid body take a fourth, the scale."""
+    anisotropic rigid body take a fourth, the scale; the functors of order 2
+    their own count."""
+    if functor in _VARIANTS:
+        return _VARIANTS[functor][1]
     return 4 if kernel.startswith("step_bd") or functor == "rigid_body_anisotropic" else 3
 
 
-def _has_flag(kernel):
-    """Whether the entry takes an int after nu: K5's ts1 flag, K7's strategy."""
-    return kernel.startswith(("step_dense", "step_everystep"))
+def _num_flags(kernel, functor):
+    """The ints an entry takes after nu: K5's ts1 flag, K7's strategy, the
+    strategy code and the TS1 flag of a functor of order 2."""
+    if functor in _VARIANTS:
+        return 2
+    return 1 if kernel.startswith(("step_dense", "step_everystep")) else 0
 
 
 def _argtypes(kernel, functor):
-    """C signature of a kernel's entry: nu, [flag], the host arrays of
+    """C signature of a kernel's entry: nu, [flags], the host arrays of
     input and output pointers, the constants, the batch, [max_attempts], the
     functor's parameters, the device index, the stream."""
-    args = [ctypes.c_int] * (2 if _has_flag(kernel) else 1)
+    args = [ctypes.c_int] * (1 + _num_flags(kernel, functor))
     args += [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
     if kernel.endswith("interval"):
         args.append(ctypes.c_int)
@@ -618,6 +685,7 @@ def _launch(kernel, step, state, t_next, inputs, max_attempts=None):
     symbol, dim = _FUNCTORS[(kernel, functor)]
     if step.d != dim:
         raise ValueError(f"device functor {functor!r} has d={dim}, the step has d={step.d}")
+    flags = _variant_flags(kernel, functor, step)
     batch = state[0].shape[-1]
     extra = (t_next, inputs["atol"], inputs["rtol"], inputs["dt_max"], inputs["dt_floor"],
              inputs["tiny_scale"])
@@ -640,11 +708,6 @@ def _launch(kernel, step, state, t_next, inputs, max_attempts=None):
     params = params + (0.0,) * (num_params - len(params))
     stream = torch.cuda.current_stream(device).cuda_stream
     index = device.index if device.index is not None else torch.cuda.current_device()
-    flags = ()
-    if kernel.startswith("step_dense"):
-        flags = (int(step.ts1),)
-    elif kernel.startswith("step_everystep"):
-        flags = (STRATEGY_CODES[step.strategy],)
     head = (step.nu, *flags, ctypes.addressof(ins_ptr), ctypes.addressof(outs_ptr),
             consts.ctypes.data, batch)
     if max_attempts is not None:
@@ -656,6 +719,36 @@ def _launch(kernel, step, state, t_next, inputs, max_attempts=None):
         raise RuntimeError(f"{kernel} launch failed: {lib.error_string(rc)} ({rc})")
     LAUNCHES[kernel] += 1
     return outs
+
+
+def _variant_flags(kernel, functor, step):
+    """The flag ints of ``kernel``'s entry for the step's configuration;
+    raises ``ValueError`` where the functor's order is not the step's and
+    ``NotImplementedError`` where no instantiation runs the configuration."""
+    order = _VARIANTS[functor][0] if functor in _VARIANTS else 1
+    if getattr(step, "ode_order", 1) != order:
+        raise ValueError(f"device functor {functor!r} has ode_order={order}, the step has "
+                         f"ode_order={step.ode_order}")
+    if kernel.startswith("step_dense"):
+        return (int(step.ts1),)
+    if kernel.startswith("step_everystep"):
+        return (STRATEGY_CODES[step.strategy],)
+    if kernel.startswith("step_bd"):
+        return ()
+    from . import batched, batched_hi
+
+    strategy = getattr(step, "strategy", "fixedpoint")
+    correction = "ts1" if step.ts1 else "ts0"
+    nus, strategies, corrections = (
+        _VARIANTS[functor][2:] if functor in _VARIANTS
+        else ((batched_hi if kernel.startswith("step_hi") else batched).SUPPORTED_NU,
+              ("fixedpoint",), ("ts0",)))
+    if step.nu not in nus or strategy not in strategies or correction not in corrections:
+        raise NotImplementedError(
+            f"{kernel} on {functor!r} is built for nu in {nus}, strategies {strategies}, "
+            f"corrections {corrections}; got nu={step.nu}, {strategy!r}, {correction!r}: "
+            "ROADMAP queue 1 item 5")
+    return (STRATEGY_CODES[strategy], int(step.ts1)) if functor in _VARIANTS else ()
 
 
 def step_ll_interval(step, state, t_next, *, atol, rtol, dt_max, dt_floor,

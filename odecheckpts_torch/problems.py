@@ -158,6 +158,102 @@ def brusselator(N, t0=0.0, tmax=10.0, laplacian="slices"):
     return vf, (y0,), (t0, tmax), ()
 
 
+def three_body_restricted():
+    """Planar restricted three-body problem (Arenstorf orbit) in second-order
+    form (``odecheckpts_tpu/problems.py:80-105``): ``vf(u, du)`` returns the
+    acceleration; the initial values are ``(position, velocity)``.
+
+    r^3 is written r2 sqrt(r2), as the reference writes it; the square root
+    is ``rounded.sqrt`` (correctly rounded on the CPU, IEEE ``sqrtf`` in the
+    kernels' functor ``"three_body_restricted"``, which takes mu and
+    1 - mu as its kernel arguments, rounded from these doubles as the vector
+    field's scalar operations round them)."""
+    from . import rounded
+
+    mu = 0.012277471
+    mp = 1.0 - mu
+    t0, t1 = 0.0, 17.0652165601579625588917206249
+
+    def vf(u, du, *, t=None, p=()):
+        x1, x2 = u[0], u[1]
+        dx1, dx2 = du[0], du[1]
+        a, b = x1 + mu, x1 - mp
+        r1 = a * a + x2 * x2
+        r2 = b * b + x2 * x2
+        d1 = r1 * rounded.sqrt(r1)
+        d2 = r2 * rounded.sqrt(r2)
+        ddx1 = x1 + 2.0 * dx2 - mp * a / d1 - mu * b / d2
+        ddx2 = x2 - 2.0 * dx1 - mp * x2 / d1 - mu * x2 / d2
+        return torch.stack([ddx1, ddx2])
+
+    vf.device_functor = "three_body_restricted"
+    vf.device_params = (mu, mp)
+    u0 = torch.tensor([0.994, 0.0], dtype=torch.float64)
+    du0 = torch.tensor([0.0, -2.00158510637908252240537862224], dtype=torch.float64)
+    return vf, (u0, du0), (t0, t1)
+
+
+def pleiades_2nd():
+    """Seven-star Pleiades problem in second-order form, 14 positions
+    (``odecheckpts_tpu/problems.py:108-135``), with the ``nan_to_num`` of
+    the i = j self-interaction.  Row-wise: (14,) states and (14, B)
+    ensembles alike.  No device functor: it runs on the generic stack."""
+    u0 = torch.tensor([3.0, 3.0, -1.0, -3.00, 2.0, -2.00, 2.0,
+                       3.0, -3.0, 2.0, 0.00, 0.0, -4.00, 4.0], dtype=torch.float64)
+    du0 = torch.tensor([0.0, 0.0, 0.0, 0.00, 0.0, 1.75, -1.5,
+                        0.0, 0.0, 0.0, -1.25, 1.0, 0.00, 0.0], dtype=torch.float64)
+
+    def vf(u, du, *, t=None, p=()):
+        x, y = u[0:7], u[7:14]
+        xi, xj = x.unsqueeze(1), x.unsqueeze(0)
+        yi, yj = y.unsqueeze(1), y.unsqueeze(0)
+        rij = ((xi - xj) ** 2 + (yi - yj) ** 2) ** 1.5
+        # the i = j self-interaction as 0 / 1 (the reference's nan_to_num of
+        # 0 / 0): nested forward-mode derivatives of r^1.5 at r = 0 are
+        # 0 * inf, which nan_to_num does not reach
+        eye = torch.eye(7, dtype=torch.bool, device=u.device).reshape(
+            (7, 7) + (1,) * (u.dim() - 1))
+        rij = torch.where(eye, torch.ones_like(rij), rij)
+        mj = torch.arange(1.0, 8.0, dtype=u.dtype, device=u.device)
+        mj = mj.reshape((1, 7) + (1,) * (u.dim() - 1))
+        ddx = torch.sum(torch.nan_to_num(mj * (xj - xi) / rij), dim=1)
+        ddy = torch.sum(torch.nan_to_num(mj * (yj - yi) / rij), dim=1)
+        return torch.cat((ddx, ddy))
+
+    return vf, (u0, du0), (0.0, 3.0)
+
+
+def pleiades_1st():
+    """First-order (28-dim) reduction of the Pleiades problem
+    (``odecheckpts_tpu/problems.py:138-147``)."""
+    vf2, (u0, du0), tspan = pleiades_2nd()
+
+    def vf(u, *, t, p=()):
+        x, dx = torch.chunk(u, 2)
+        return torch.cat([dx, vf2(x, dx, t=t, p=p)])
+
+    return vf, (torch.cat([u0, du0]),), tspan, ()
+
+
+def van_der_pol(mu=10.0**3):
+    """Stiff Van der Pol oscillator in second-order form
+    (``odecheckpts_tpu/problems.py:197-205``): ``vf(y, ydot)``, d = 1.
+
+    The kernels' functor ``"van_der_pol"`` takes mu as its kernel argument
+    (``vf.device_params``); its TS1 partials are the terms of forward-mode
+    differentiation of ``vf`` (``batched.StepLL`` takes them by
+    ``torch.func.jvp``), written out in ``csrc/step_ll.cuh``."""
+
+    def vf(y, ydot, *, t=None, p=()):
+        return mu * (ydot * (1.0 - y * y) - y)
+
+    vf.device_functor = "van_der_pol"
+    vf.device_params = (mu,)
+    u0 = torch.tensor([2.0], dtype=torch.float64)
+    du0 = torch.tensor([0.0], dtype=torch.float64)
+    return vf, (u0, du0), (0.0, 6.3)
+
+
 def rigid_body_df(params=(-2.0, 1.25, -0.5)):
     """Rigid body in compensated (hi, lo) pair arithmetic, lanes-last
     (counterpart of ``odecheckpts_tpu/problems.py:46-77``).

@@ -37,10 +37,10 @@ def _nth_derivative(g, k):
     return dg
 
 
-def odejet_padded_scan(vf, inits, /, num: int):
+def odejet_unroll(vf, inits, /, num: int):
     """Taylor coefficients ``[u, ..., u^(o-1), u^(o), ..., u^(o+num-1)]``
-    in derivative scaling (the same output as the reference's padded-jet
-    recursion)."""
+    in derivative scaling, for ``o = len(inits)`` initial arrays
+    (``odecheckpts_tpu/taylor.py:39-55``)."""
     if num < 0:
         raise ValueError("num must be >= 0")
     inits = tuple(inits)
@@ -59,3 +59,10 @@ def odejet_padded_scan(vf, inits, /, num: int):
 
         coeffs.append(_nth_derivative(g, k)(t0))
     return coeffs
+
+
+def odejet_padded_scan(vf, inits, /, num: int):
+    """The same output as :func:`odejet_unroll` (the reference pads its jet
+    series to a fixed length so that every traced call has one structure;
+    the port runs eagerly and needs no padding)."""
+    return odejet_unroll(vf, inits, num=num)

@@ -266,7 +266,7 @@ def _generic_save_at(vf, u0s, params_vf, save_at, tols, *, nu=4, impl="isotropic
 @pytest.mark.parametrize("nu", [4, 3])
 def test_fused_twin_matches_generic_solver(nu):
     """Torch forms of ``test_xla_engine_matches_generic_vmapped_solver``
-    (fixedpoint; the fused filter is ROADMAP queue 1 item 5) and of
+    (fixedpoint; the filter form is ``test_fused_filter_twin_matches_generic_solver``) and of
     ``test_nondefault_order_matches_generic``: the isotropic twin
     (``engine="torch"``) against the generic solve, 8 lanes at rtol 1e-4 /
     1e-6, f64: values to rtol 1e-7 (nu = 4) / 1e-5 (nu = 3), final step
@@ -284,6 +284,28 @@ def test_fused_twin_matches_generic_solver(nu):
     rtol_u, rtol_n = (1e-7, 0.05) if nu == 4 else (1e-5, 0.10)
     np.testing.assert_allclose(u_s.numpy(), u_ref, rtol=rtol_u, atol=1e-10)
     np.testing.assert_allclose(nsteps[:, -1].numpy(), steps_ref, rtol=rtol_n)
+
+
+def test_fused_filter_twin_matches_generic_solver():
+    """Torch form of ``test_xla_engine_matches_generic_vmapped_solver`` with
+    ``strategy="filter"`` (``tests/test_batched.py:22``): the isotropic twin
+    with the filter strategy against the generic fixedpoint solve, 8 lanes at
+    rtol 1e-4 / 1e-6, f64: final step counts to rtol 0.05 (the reference
+    compares no values for the filter), the smoothed output the filtered
+    one, and the filtered values within rtol 1e-4 of the generic solve's."""
+    vf_p, _, _, params = tproblems.rigid_body()
+    save_at = np.linspace(0.0, 10.0, 5)
+    u0s = torch.tensor(_u0s(8))
+    tols = torch.tensor(np.tile([1e-4, 1e-6], 4))
+    u_s, u_f, nsteps = tbatched.solve_save_at_batched(
+        vf_p, u0s, params, save_at=save_at, dt0=0.1, tols=tols, strategy="filter",
+        engine="torch")
+    assert torch.equal(u_s, u_f) and bool(torch.all(torch.isfinite(u_s)))
+    vf = _rigid(tproblems)
+    u_ref, steps_ref = _generic_save_at(vf, u0s, lambda u, t: vf_p(u, t=t, p=params),
+                                        save_at, tols, nu=4)
+    np.testing.assert_allclose(nsteps[:, -1].numpy(), steps_ref, rtol=0.05)
+    np.testing.assert_allclose(u_f.numpy(), u_ref, rtol=1e-4, atol=1e-6)
 
 
 def test_fused_dense_ts1_matches_generic_solver():

@@ -323,10 +323,13 @@ def test_hbm_guard_estimate_is_monotone_and_guard_raises():
 
 
 @pytest.mark.parametrize("option", [
-    dict(strategy="filter"), dict(calibration="none"), dict(ode_order=2),
+    # the filter strategy, ode_order 2, TS1 at d = 1 and the residual unit
+    # run on this engine (test_torch_second_order.py)
+    dict(strategy="smoother"), dict(calibration="none"), dict(ode_order=3),
     # TS1 with d > 1 and the dense backend run on the dense engine
     # (test_torch_dense.py); its own unported options raise there
-    dict(correction="ts1", calibration="none"), dict(error_unit="residual"),
+    dict(correction="ts1", calibration="none"),
+    dict(error_unit="residual", implementation="dense"),
     dict(implementation="dense", strategy="filter"),
     # the blockdiag backend runs on the blockdiag engine (test_torch_blockdiag.py);
     # its own unported options raise there

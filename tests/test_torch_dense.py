@@ -519,14 +519,21 @@ def test_unported_dense_options_name_their_roadmap_item(option, item):
 
 
 def test_ts1_needs_the_dense_backend_and_ts1_at_d_1_stays_unported():
+    """The generic TS1 needs the dense backend.  The fused TS1 at d = 1 is
+    ported to the isotropic engine (``test_torch_second_order.py``): the
+    solve runs there, and what that engine still leaves out (calibration
+    "none") names its ROADMAP item."""
     iso = tsolvers.prior_ibm(num_derivatives=NU, ode_shape=(1,))
     with pytest.raises(ValueError, match="dense"):
         tsolvers.strategy_fixedpoint(iso, tsolvers.correction_ts1())
     u0s = torch.full((4, 1), 0.1)
+    kw = dict(save_at=np.linspace(0, 1, 3), dt0=0.1, tols=torch.full((4,), 1e-3),
+              correction="ts1")
+    u_s, _, nsteps = tb.solve_save_at_batched(lambda y, *, t, p: y * (1.0 - y), u0s, (), **kw)
+    assert bool(torch.all(torch.isfinite(u_s))) and int(nsteps[:, -1].min()) > 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.solve_save_at_batched(lambda y, *, t, p: y * (1.0 - y), u0s, (),
-                                 save_at=np.linspace(0, 1, 3), dt0=0.1,
-                                 tols=torch.full((4,), 1e-3), correction="ts1")
+        tb.solve_save_at_batched(lambda y, *, t, p: y * (1.0 - y), u0s, (), calibration="none",
+                                 **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -165,12 +165,16 @@ def test_solve_nystrom_matches_reference():
 
 
 def test_second_order_and_misuse_raise():
+    """``ode_order=2`` is ported (``test_torch_second_order.py``): a
+    second-order solve handed one initial array has too few Taylor
+    coefficients, and ``solve_rk`` takes no order above 2."""
     _, tvf, _, tu0, tspan, args = _logistic()
     save_at = np.linspace(*tspan, num=3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tfacade.solve("ts0-3", tvf, tu0, save_at, dt0=0.1, atol=1e-3, rtol=1e-3, ode_order=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tfacade.solve_rk("tsit5", tvf, tu0, save_at, dt0=0.1, atol=1e-3, rtol=1e-3, ode_order=2)
+    with pytest.raises(ValueError):
+        tfacade.solve("ts0-3", tvf, tu0, save_at, dt0=0.1, atol=1e-3, rtol=1e-3, ode_order=2)(
+            (torch.tensor(np.asarray(tu0)),), args)
+    with pytest.raises(ValueError, match="ode_order 1 or 2"):
+        tfacade.solve_rk("tsit5", tvf, tu0, save_at, dt0=0.1, atol=1e-3, rtol=1e-3, ode_order=3)
     with pytest.raises(ValueError, match="Tuple expected"):
         tfacade.solve("ts0-3", tvf, tu0, save_at, dt0=0.1, atol=1e-3, rtol=1e-3)(tu0, args)
     with pytest.raises(ValueError, match="calibration"):

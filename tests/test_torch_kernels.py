@@ -71,12 +71,15 @@ def test_packed_constants_match_the_kernel_layout():
     vf, _, _, params = problems.rigid_body()
     step = batched.make_step_ll(vf, params, nu=3, d=3, error_calibration=20.0)
     c = step.packed_constants()
-    assert c.dtype == np.float32 and c.shape == (71,)  # sizeof(Consts) / 4
+    assert c.dtype == np.float32 and c.shape == (73,)  # sizeof(Consts) / 4
     a, lq = c[:25].reshape(5, 5), c[25:50].reshape(5, 5)
     np.testing.assert_array_equal(a[:4, :4], np.float32(step.a_rows))
     np.testing.assert_array_equal(lq[:4, :4], np.float32(step.lq_rows))
     assert np.all(a[4] == 0) and np.all(lq[:, 4] == 0)
     assert c[63] == np.float32(20.0)  # kappa
+    assert c[71] == np.float32(1.2e-7) and c[72] == 0.0  # ts1_floor, residual
+    residual = batched.make_step_ll(vf, params, nu=3, d=3, error_unit="residual")
+    assert residual.packed_constants()[72] == 1.0 and residual.kappa == 1.0
 
 
 def test_parse_ptxas_reads_registers_and_spills_per_nu():
@@ -153,7 +156,8 @@ def test_plain_hi_interval_lands_every_lane_on_the_checkpoint():
 def test_packed_constants_of_the_df32_step_match_the_kernel_layout():
     step = batched_hi.make_step_hi(problems.rigid_body_df(), nu=4, d=3, error_calibration=2.0)
     c = step.packed_constants()
-    assert c.dtype == np.float32 and c.shape == (97,)  # sizeof(ConstsHi) / 4
+    assert c.dtype == np.float32 and c.shape == (99,)  # sizeof(ConstsHi) / 4
+    assert c[97] == np.float32(1.2e-7) and c[98] == 0.0  # ts1_floor, residual
     a, lq = c[:36].reshape(6, 6), c[36:72].reshape(6, 6)
     np.testing.assert_array_equal(a[:5, :5], np.float32(step.a_rows))
     np.testing.assert_array_equal(lq[:5, :5], np.float32(step.lq_rows))
@@ -1083,3 +1087,185 @@ def test_qr_packing_main_runs_the_reference_size_on_the_card(cuda_device):
     out = qr_packing.main(batch=8192, iters=20, nu=4, device=cuda_device)
     assert (out["m"], out["n"]) == (10, 10) and len(out["rows"]) == 2
     assert all(row["ms"] > 0 for row in out["rows"]) and out["packed_over_cols"] > 0
+
+
+# -- the instantiations of order 2 (csrc/step_ll_o2*.cu, step_hi_o2*.cu) ------
+
+O2_VARIANTS = ("three_body-fixedpoint-ts0", "three_body-filter-ts0", "vdp-fixedpoint-ts0",
+               "vdp-filter-ts0", "vdp-fixedpoint-ts1", "vdp-filter-ts1",
+               "vdp-filter-ts1-residual")
+
+
+def _start_o2(variant, *, hi, batch=1001, warm_steps=10, device="cpu"):
+    """A mid-interval state of the f32 (or, ``hi``, df32) step on a vector
+    field of order 2: the three-body problem near the Arenstorf orbit or Van
+    der Pol at mu = 10, ``batch`` lanes at tolerances spanning three decades
+    (two for ``hi``), advanced by the twin toward a short first checkpoint
+    (the plain version's loop on the card takes a few ms an attempt);
+    returns (step, state, t_next, inputs)."""
+    problem, strategy, correction, *unit = variant.split("-")
+    rng = np.random.default_rng(9)
+    if problem == "three_body":  # near the orbit: lanes further off fall into the singularity
+        vf, (u0, du0), _ = problems.three_body_restricted()
+        u = u0.numpy()[None] * (1.0 + 1e-6 * rng.standard_normal((batch, 2)))
+        du = du0.numpy()[None] * (1.0 + 1e-6 * rng.standard_normal((batch, 2)))
+        t1 = 0.5
+    else:
+        vf = problems.van_der_pol(10.0)[0]
+        u = 2.0 * (1.0 + 1e-2 * rng.standard_normal((batch, 1)))
+        du = 0.1 * rng.standard_normal((batch, 1))
+        t1 = 0.2 if unit else 0.5  # the residual unit takes ~40x the steps
+    u0s = (torch.tensor(u, dtype=torch.float32, device=device),
+           torch.tensor(du, dtype=torch.float32, device=device))
+    # the residual unit in df32 with the hi-channel functor has the f32
+    # evaluation's floor (~1e-7): tighter lanes crawl at the stall floor
+    span = ((1e-3, 1e-5) if unit else (1e-5, 1e-7)) if hi else (1e-1, 1e-4)
+    tols = torch.tensor(np.geomspace(*span, batch), dtype=torch.float32, device=device)
+    save_at = np.asarray([0.0, t1], np.float32)
+    kw = dict(ode_order=2, strategy=strategy, correction=correction,
+              error_unit="residual" if unit else "qoi")
+    d = u0s[0].shape[1]
+    if hi:
+        state, inputs = batched_hi.initial_state(vf, u0s, (), save_at=save_at, dt0=0.01,
+                                                 tols=tols, ode_order=2)
+        step = batched_hi.make_step_hi(batched_hi.wrap_vf_plain(vf, ()), nu=4, d=d, **kw)
+    else:
+        state, _, inputs = batched.initial_state(vf, u0s, (), save_at=save_at, dt0=0.01,
+                                                 tols=tols, strategy=strategy, ode_order=2)
+        step = batched.make_step_ll(vf, (), nu=4, d=d, **kw)
+    t_next = torch.full((1, batch), t1, device=device)
+    for _ in range(warm_steps):
+        state = kernels.attempt_plain(step, state, t_next, **inputs)
+    return step, state, t_next, inputs
+
+
+def test_order_two_functors_are_refused_where_the_step_differs():
+    """The wrappers' checks before a launch: a functor of order 2 on a step
+    of order 1 (and the reverse) raises ``ValueError``; a configuration no
+    instantiation runs (nu = 3, or TS1 on the three-body problem, or the
+    rigid body with the filter strategy) raises ``NotImplementedError``."""
+    step, *_ = _start_o2("vdp-filter-ts1", hi=False, batch=4, warm_steps=0)
+    assert kernels._variant_flags("step_ll_interval", "van_der_pol", step) == (2, 1)
+    with pytest.raises(ValueError, match="ode_order=2"):
+        kernels._variant_flags("step_ll_interval", "rigid_body", step)
+    hstep, *_ = _start_o2("three_body-fixedpoint-ts0", hi=True, batch=4, warm_steps=0)
+    assert kernels._variant_flags("step_hi_attempt", "three_body_restricted_hi", hstep) == (0, 0)
+    rigid, *_ = _start(2, batch=4, warm_steps=0)
+    with pytest.raises(ValueError, match="ode_order=1"):
+        kernels._variant_flags("step_ll_attempt", "three_body_restricted", rigid)
+    vf = problems.van_der_pol(10.0)[0]
+    for kernel, functor, other in (
+            ("step_ll_interval", "van_der_pol",
+             batched.make_step_ll(vf, (), nu=3, d=1, ode_order=2)),
+            ("step_ll_attempt", "three_body_restricted",
+             batched.make_step_ll(problems.three_body_restricted()[0], (), nu=4, d=1,
+                                  ode_order=2, correction="ts1")),
+            ("step_ll_interval", "rigid_body",
+             batched.make_step_ll(problems.rigid_body()[0], (-2.0, 1.25, -0.5), nu=4, d=3,
+                                  strategy="filter"))):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            kernels._variant_flags(kernel, functor, other)
+
+
+def test_order_two_table_lists_every_instantiation_and_its_hi_channel():
+    """``kernels.order_two_instantiations`` is the table the card-only
+    tests run (``O2_VARIANTS`` without the error unit, a constant of the
+    step); each functor of order 2 has its hi-channel form, which
+    ``batched_hi.wrap_vf_plain`` names, and no other functor has one."""
+    short = {"three_body_restricted": "three_body", "van_der_pol": "vdp"}
+    table = {f"{short[f]}-{s}-{c}" for f, s, c in kernels.order_two_instantiations()}
+    assert table == {v for v in O2_VARIANTS if not v.endswith("-residual")}
+    for functor in short:
+        assert kernels.hi_channel_functor(functor) == f"{functor}_hi"
+    assert kernels.hi_channel_functor("rigid_body") is None
+    assert kernels.hi_channel_functor(None) is None
+    wrapped = batched_hi.wrap_vf_plain(problems.van_der_pol(10.0)[0], ())
+    assert (wrapped.device_functor, tuple(wrapped.params)) == ("van_der_pol_hi", (10.0,))
+    assert not hasattr(batched_hi.wrap_vf_plain(problems.rigid_body()[0], ()),
+                       "device_functor")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["step_ll_interval-1", "step_ll_interval-40",
+                                  "step_ll_interval-100000", "step_ll_attempt",
+                                  "step_hi_interval-1", "step_hi_interval-40",
+                                  "step_hi_interval-100000", "step_hi_attempt"])
+@pytest.mark.parametrize("variant", O2_VARIANTS)
+def test_order_two_kernels_ragged_and_repeatable_on_the_card(cuda_device, variant, form):
+    """K1-K4 on the functors of order 2 (the three-body problem, Van der Pol
+    under TS0 and TS1, fixedpoint and filter, either error unit), 1,001
+    lanes whose tolerances span three decades: the interval forms at caps 1,
+    40 and 100,000 and the attempt forms, each launched twice, equal to the
+    twin bit for bit and to each other."""
+    name, _, cap = form.partition("-")
+    step, state, t_next, inputs = _start_o2(variant, hi=name.startswith("step_hi"),
+                                            device=cuda_device)
+    kw = dict(max_attempts=int(cap)) if cap else {}
+    want = getattr(kernels, name + "_plain")(step, state, t_next, **inputs, **kw)
+    before = kernels.LAUNCHES[name]
+    first = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+    second = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+    assert kernels.LAUNCHES[name] == before + 2
+    torch.cuda.synchronize()
+    _assert_same_bits(first, second, want)
+    nsteps_at = 11 if name.startswith("step_hi") else 15
+    assert float(torch.sum(want[nsteps_at] - state[nsteps_at])) > 0  # lanes accepted
+
+
+@pytest.mark.cuda
+def test_order_two_kernels_refuse_a_functor_of_another_dimension(cuda_device):
+    """A step whose d is not its functor's is refused before the launch."""
+    step, state, t_next, inputs = _start_o2("vdp-filter-ts0", hi=False, batch=8, warm_steps=0,
+                                            device=cuda_device)
+    step.device_functor = "three_body_restricted"  # d = 2 against the step's 1
+    with pytest.raises(ValueError, match="d=2"):
+        kernels.step_ll_attempt(step, state, t_next, **inputs)
+
+
+@pytest.mark.cuda
+def test_pit_combine_k8_on_the_dense_second_order_adapter_equals_its_twin(cuda_device):
+    """K8 at m = n d = 5: Van der Pol (mu = 10, TS1(4), ``ode_order=2``,
+    filter) on the dense adapter of the parallel-in-time solve, 65 grid
+    points over (0, 1), window 16, 4 sweeps: ``combine_engine="cuda"``
+    equals ``"ll"`` (its twin) in every output, and launches K8."""
+    from odecheckpts_torch import ivpsolve, ivpsolvers, taylor
+
+    vf = problems.van_der_pol(10.0)[0]
+    prior = ivpsolvers.prior_ibm(num_derivatives=4, ode_shape=(1,), implementation="dense")
+    solver = ivpsolvers.solver_dynamic(
+        ivpsolvers.strategy_filter(prior, ivpsolvers.correction_ts1(ode_order=2)))
+    u0 = (torch.tensor([2.0], dtype=torch.float64, device=cuda_device),
+          torch.tensor([0.0], dtype=torch.float64, device=cuda_device))
+    init = solver.initial_condition(
+        taylor.odejet_padded_scan(lambda *y: vf(*y, t=0.0), u0, num=3), 1.0)
+    kw = dict(grid=np.linspace(0.0, 1.0, 65), solver=solver, parallel=True, form="sqrt",
+              window=16, iterations=4)
+    before = kernels.LAUNCHES["pit_combine"]
+    got = ivpsolve.solve_fixed_grid(lambda *y, t: vf(*y, t=t), init, combine_engine="cuda", **kw)
+    assert kernels.LAUNCHES["pit_combine"] > before
+    want = ivpsolve.solve_fixed_grid(lambda *y, t: vf(*y, t=t), init, combine_engine="ll", **kw)
+    torch.cuda.synchronize()
+    for g, w in ((got.u, want.u), (got.posterior.init.mean, want.posterior.init.mean),
+                 (got.posterior.init.cholesky, want.posterior.init.cholesky)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_parse_ptxas_keys_the_order_two_instantiations():
+    """The ptxas keys of K1-K4 on the functors of order 2: nu, functor,
+    strategy and correction (the symbols as nvcc mangles the templates)."""
+    def lines(symbol):
+        return [f"ptxas info    : Compiling entry function '{symbol}' for 'sm_90a'",
+                "ptxas info    : Used 255 registers, used 0 barriers, 96 bytes cumulative stack size"]
+
+    log = "\n".join(
+        lines("_ZN12_GLOBAL__N_116step_ll_intervalILi4ENS_19ThreeBodyRestrictedELi2ELb0EEEvNS_"
+              "4ArgsENS_6ConstsET0_li")
+        + lines("_ZN12_GLOBAL__N_115step_ll_attemptILi4ENS_9VanDerPolELi0ELb1EEEvNS_4ArgsENS_"
+                "6ConstsET0_l")
+        + lines("_ZN12_GLOBAL__N_116step_hi_intervalILi4ENS_9HiChannelINS_9VanDerPolEEELb1ELb1EE"
+                "EvNS_6ArgsHiENS_8ConstsHiET0_li"))
+    assert kernels.parse_ptxas(log) == {
+        "step_ll_interval": {"4/ThreeBodyRestricted/filter/ts0": {"registers": 255}},
+        "step_ll_attempt": {"4/VanDerPol/fixedpoint/ts1": {"registers": 255}},
+        "step_hi_interval": {"4/HiChannel<VanDerPol>/filter/ts1": {"registers": 255}},
+    }

@@ -227,8 +227,10 @@ def test_what_is_left_out_raises_and_the_cuda_engine_has_no_fallback():
     mle = tsolvers.solver_mle(tsolver.strategy)
     with pytest.raises(NotImplementedError, match="post-hoc"):
         tivpsolve.solve_fixed_grid(tvf, tinit, grid=GRID, solver=mle, parallel=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tsolvers.correction_ts0(ode_order=2)
+    # ode_order=2 is ported (test_torch_second_order.py); an order below 1 is not one
+    assert tsolvers.correction_ts0(ode_order=2).ode_order == 2
+    with pytest.raises(ValueError, match="ode_order"):
+        tsolvers.correction_ts0(ode_order=0)
     # the adaptive parallel-in-time solve discovers one IVP's grid
     batched = (tinit[0]._replace(mean=tinit[0].mean.expand(2, *tinit[0].mean.shape),
                                  cholesky=tinit[0].cholesky.expand(2, *tinit[0].cholesky.shape)),
@@ -237,3 +239,46 @@ def test_what_is_left_out_raises_and_the_cuda_engine_has_no_fallback():
         tivpsolve.solve_adaptive_parallel_in_time(
             tvf, batched, t0=0.0, t1=1.0, dt0=0.1, max_steps=4,
             adaptive_solver=tivpsolve.adaptive(tsolver, atol=1e-6, rtol=1e-6))
+
+
+@functools.lru_cache(maxsize=None)
+def _vdp_dense(lib_name, mu=1.0):
+    """Van der Pol in second-order form on the dense TS1 adapter (the stiff
+    row's configuration, ``experiments/6_tpu_batched_sweep/pit_stiff.py:74-82``):
+    vf, the reference's Taylor init (numpy) and the solver of ``lib``."""
+    lib = {"jax": jsolvers, "torch": tsolvers}[lib_name]
+    vf = (jproblems if lib_name == "jax" else tproblems).van_der_pol(mu)[0]
+    prior = lib.prior_ibm(num_derivatives=4, ode_shape=(1,), implementation="dense")
+    solver = lib.solver_dynamic(lib.strategy_filter(prior, lib.correction_ts1(ode_order=2)))
+    jvf = jproblems.van_der_pol(mu)[0]
+    jsolver = _vdp_dense("jax", mu)[2] if lib_name == "torch" else solver
+    tcoeffs = jtaylor.odejet_padded_scan(lambda *y: jvf(*y, t=0.0),
+                                         (jnp.asarray([2.0]), jnp.asarray([0.0])), num=3)
+    jinit = jsolver.initial_condition(tcoeffs, 1.0)
+    return vf, ((np.asarray(jinit[0].mean), np.asarray(jinit[0].cholesky)),
+                np.asarray(jinit[1])), solver
+
+
+@pytest.mark.parametrize("engine", ["ll"])
+def test_dense_ts1_second_order_vdp_matches_reference(engine):
+    """Van der Pol (mu = 1, TS1(4), ``ode_order=2``, filter) on the dense
+    adapter, whose elements have m = n d = 5 (K8's largest state): the
+    parallel sqrt solve on a grid of 33 points over (0, 2), window 8, 16
+    sweeps, against the reference's (its associative scan): ``u`` and the
+    means rtol 1e-9, as this file's rigid-body solves.  16 sweeps: at 4
+    both packages sit 3.3e-6 from their own sequential solve and 9.5e-9
+    from each other (the unconverged sweeps carry the rounding); at 16 both
+    are within 2e-15 of it and 7e-16 of each other."""
+    jvf, jinit_np, jsolver = _vdp_dense("jax")
+    tvf, tinit_np, tsolver = _vdp_dense("torch")
+    jinit = jsolver.initial_condition(
+        [jnp.asarray(jinit_np[0][0]).reshape(5, 1)[i] for i in range(5)], 1.0)
+    kw = dict(parallel=True, window=8, iterations=16, form="sqrt")
+    jsol = jivpsolve.solve_fixed_grid(lambda *y, t: jvf(*y, t=t), jinit,
+                                      grid=jnp.asarray(GRID), solver=jsolver, **kw)
+    tsol = tivpsolve.solve_fixed_grid(lambda *y, t: tvf(*y, t=t),
+                                      interop.init_to_torch(tinit_np), grid=GRID,
+                                      solver=tsolver, combine_engine=engine, **kw)
+    _close(tsol.u.numpy(), jsol.u)
+    _close(tsol.posterior.init.mean.numpy(), jsol.posterior.init.mean)
+    assert tsol.u.shape == (T, 1) and np.all(np.isfinite(tsol.u.numpy()))
