@@ -274,7 +274,29 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
     4,096 lanes (over (0, 0.5), or one attempt; timed) and against its
     twin's solve on 256 lanes over (0, 0.5), and the residual unit (TS1,
     filter) likewise over (0, 0.2), each bit for bit.
-33. the kernel table line and the result line.  K1-K4's rows carry their
+33. multidevice (the multi-device layer, ``odecheckpts_torch.parallel``):
+    (a) ``parallel.init_distributed()``, a world of one over NCCL on the
+    card: ``shard_fused_solve`` of phase 4's parity rtol 1e-3 row on K1 and
+    ``make_hi_solver(shard_mesh=)`` of phase 6's parity 1e-7 row on K2 equal
+    those rows bit for bit (values and per-lane steps).  (b) MD_RANKS ranks
+    spawned on the one card (``python3 chip_smoke.py --multidevice-rank``),
+    gloo over CUDA tensors (NCCL refuses two ranks on one card; gloo takes
+    CPU tensors, so each collective's CUDA operand is staged through the
+    host): K1 and K2 on 16,384 lanes a rank, gathered, equal to (a)'s bit
+    for bit, and an uneven batch of 32,767 lanes equal to (a)'s first
+    lanes; the fixed-grid row cut to 2 windows (2,049 points, window 1,024,
+    K8) with ``time_shard``, in f64 within 1e-10 (values) and 1e-8 (stds)
+    of the unsharded solve and in f32 within PIT_REL_GATE of the
+    sequential row (its gap to the unsharded f32 solve printed); one
+    ``build_dp_train_step`` step of phase 30's configuration (16 spirals,
+    48 checkpoints, Adam; the MLP's and the solve's products summed in
+    order, ``rounded.in_order()``: cuBLAS picks its algorithm by the batch's
+    size, which moved the loss by 9e-12 between 8 and 16 lanes) whose
+    replicas are equal bit for bit and whose loss and gradient equal the
+    one-process step's (on (a)'s world) to MD_DP_RTOL.  Printed: each part's seconds beside the unsharded row's,
+    each kernel's launches per rank (counts set to 0 just before the part),
+    the bytes gathered and staged, and the backend of each part.
+34. the kernel table line and the result line.  K1-K4's rows carry their
     instantiations of order 2 (``instantiations``: ptxas registers and
     spills, launches in phases 31 and 32, the full-width launch's deviation
     from its plain version, its device and plain times and bound (the
@@ -283,7 +305,7 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
 
 Phases 26-30 run beside the rows whose lanes they reuse: 26 after 9,
 adaptive_dense after 13, adaptive_bd after 18, 28 and 29 after 22; 30 after
-29.  31 and 32 run before 29.
+29.  31 and 32 run before 29; 33 after 30.
 
 Every kernel's ``ms`` is its device time (``_device_time``: DEVICE_LAUNCHES
 launches back to back behind a sleep of the stream, so the wrapper's host
@@ -292,8 +314,8 @@ time overlaps the card's busy wait), with the wrapper's host time per call
 which holds the wrapper's host time) and torch.profiler's device time in a
 ``device_time`` line each.
 
-Each path of phases 4, 6, 8, 9, 11, 13, 15, 18, 20, 22, 28, 31 and 32 runs with the
-launch counts set to 0 just before it and read just after; a kernel of the
+Each path of phases 4, 6, 8, 9, 11, 13, 15, 18, 20, 22, 28, 31, 32 and 33 runs with
+the launch counts set to 0 just before it and read just after; a kernel of the
 path that did not launch fails the run.  Kernel-against-plain comparisons run outside those
 windows.  Each kernel's ``bound_ms`` is the larger of its state's bytes
 (read once and written once per launch) over 3.35 TB/s and the f32
@@ -2357,7 +2379,9 @@ def _pit_outputs(sol):
 
 
 def phase_main_pit(device):
-    """The fixed-grid rows: sequential, and parallel in time on K8."""
+    """The fixed-grid rows: sequential, and parallel in time on K8.  Returns
+    the references of the multidevice phase: the f32 sequential row's first
+    PIT_F64_WINDOWS windows and the f64 window-1024 "cuda" solve of them."""
     import scipy.integrate
     import torch
 
@@ -2477,6 +2501,7 @@ def phase_main_pit(device):
         failed.append(("float64", rel64, diverged64))
     if failed:
         raise AssertionError(f"fixed-grid rows failed their gates: {failed}")
+    return {"u_seq_f32": u_seq[:num].float(), "f64": (sol64.u, sol64.u_std), "t_par64": t_par64}
 
 
 def _count_attempts(fn, limit=ADAPTIVE_MAX_ATTEMPTS):
@@ -3554,6 +3579,305 @@ def phase_vdp_ensemble(device, o2):
         raise AssertionError(f"experiment 1's rows failed: {failed}")
 
 
+# the multidevice phase: a world of one over NCCL, then MD_RANKS ranks that
+# share the card over gloo (NCCL takes one rank a card)
+MD_RANKS = 2
+MD_RTOL = 1e-3  # phase 4's parity row (K1)
+MD_RTOL_HI = 1e-7  # phase 6's parity row (K2)
+MD_UNEVEN = BATCH - 1
+MD_PIT_WINDOW = 1024
+MD_PIT_RTOL, MD_PIT_STD_RTOL, MD_PIT_ATOL = 1e-10, 1e-8, 1e-12  # tests/test_parallel_in_time.py:636-664
+MD_DP_RTOL = 1e-12
+MD_TIMEOUT = 600
+
+
+def _md_fused(mesh):
+    """Phase 4's parity row at MD_RTOL on K1, sharded over ``mesh``."""
+    from odecheckpts_torch import parallel, problems
+
+    vf, _, _, params = problems.rigid_body(time_span=TSPAN)
+    nu, kappa = SCHEDULES["parity"][MD_RTOL]
+    return parallel.shard_fused_solve(vf, params, save_at=_save_at(), dt0=DT0, mesh=mesh,
+                                      num_derivatives=nu, error_calibration=kappa,
+                                      engine="cuda-loop", max_attempts=MAX_ATTEMPTS)
+
+
+def _md_hi(mesh):
+    """Phase 6's parity row at MD_RTOL_HI on K2, sharded over ``mesh``."""
+    from odecheckpts_torch import batched_hi, problems
+
+    vf, _, _, params = problems.rigid_body(time_span=TSPAN)
+    nu, kappa = SCHEDULES_HI["parity"][MD_RTOL_HI]
+    return batched_hi.make_hi_solver(
+        vf, params, save_at=_save_at(), dt0=DT0, vf_df=problems.rigid_body_df(params),
+        num_derivatives=nu, error_calibration=kappa, engine="cuda-loop",
+        max_attempts=MAX_ATTEMPTS, shard_mesh=mesh)
+
+
+def _md_part(names, fn):
+    """One part on the path: launch counts set to 0 just before it and read
+    just after, its seconds and what its collectives moved."""
+    from odecheckpts_torch import harness, parallel
+
+    parallel.reset_counts()
+    harness.device_sync(None)
+    t0 = time.perf_counter()
+    out, counts = _path(names, lambda: harness.device_sync(fn()))
+    return out, {"seconds": time.perf_counter() - t0,
+                 "launches": {KERNELS[n][0]: counts[n] for n in names},
+                 **{k: parallel.COUNTS[k] for k in ("gathers", "bytes_gathered", "all_reduces",
+                                                     "bytes_host_staged")}}
+
+
+def _md_train_data(device):
+    """Phase 30's data on the card: (u0 (16, 2), ys (16, 48, 2), ts)."""
+    import torch
+
+    from odecheckpts_torch import facade
+
+    rng = np.random.default_rng(TRAIN_SEED)
+    ts = np.linspace(0.0, 10.0, TRAIN_POINTS)
+    u0s = rng.uniform(-0.6, 1.0, (TRAIN_LANES, 2))
+    data = facade.solve_rk("tsit5", _spiral, None, ts, dt0=0.1, atol=1e-8, rtol=1e-8)
+    ys, _aux = data((torch.tensor(u0s, device=device),), ())
+    return ys[0], torch.movedim(ys, 0, 1).contiguous(), ts
+
+
+def _softplus_mlp_in_order(u, *, t=None, p=None):
+    """``_softplus_mlp`` with its products as ``rounded.matmul``: under
+    ``rounded.in_order()`` a lane's value does not depend on how many lanes
+    are evaluated with it (cuBLAS picks its algorithm by the batch's size)."""
+    import torch
+
+    from odecheckpts_torch import rounded
+
+    x = u[None]
+    for w, b in p[:-1]:
+        x = torch.log(1.0 + torch.exp(rounded.matmul(x, w) + b))
+    w, b = p[-1]
+    return (rounded.matmul(x, w) + b)[0]
+
+
+def _md_dp(mesh, device):
+    """One dp train step of phase 30's configuration on ``mesh`` (its model's
+    and the solve's products summed in order, so that a lane's loss does not
+    depend on the shard's size): the summed loss, the summed gradient and
+    the updated weights, on the host."""
+    import functools
+
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from odecheckpts_torch import control_flow, parallel, rounded
+
+    u0_batch, y_batch, ts = _md_train_data(device)
+    dp = DeviceMesh(mesh.device_type, mesh.mesh, mesh_dim_names=("dp",))
+    step = parallel.build_dp_train_step(
+        "ts0-4", _softplus_mlp_in_order, np.zeros(2), ts, dt0=1.0, atol=TRAIN_TOL,
+        rtol=TRAIN_TOL, optimizer=functools.partial(torch.optim.Adam, lr=TRAIN_LR), mesh=dp,
+        axis="dp", obs_std=TRAIN_NOISE)
+
+    def run():
+        with control_flow.overwrite_with_bounded(max_steps=TRAIN_MAX_STEPS, remat=True):
+            with rounded.in_order():
+                return step(_train_params(device, requires_grad=False), None, u0_batch,
+                            y_batch)
+
+    (theta, opt, loss), info = _md_part([], run)
+    grads = [p.grad.cpu() for p in opt.param_groups[0]["params"]]
+    return {"loss": loss.cpu(), "grads": grads, "theta": [x.cpu() for x in _leaves(theta)],
+            **info}
+
+
+def _md_pit(mesh, device, dtype, time_shard):
+    """The fixed-grid row cut to its first PIT_F64_WINDOWS windows on K8, with
+    the windows sharded over ``mesh`` when ``time_shard``."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from odecheckpts_torch import ivpsolve
+
+    vf, init, solver, grid = _pit_problem(dtype, device, PIT_F64_WINDOWS * MD_PIT_WINDOW + 1)
+    shard = (DeviceMesh(mesh.device_type, mesh.mesh, mesh_dim_names=("t",)), "t")
+    (sol, diag), info = _md_part(["pit_combine"], lambda: ivpsolve.solve_fixed_grid(
+        vf, init, grid=grid, solver=solver, window=MD_PIT_WINDOW, combine_engine="cuda",
+        return_diagnostics=True, time_shard=shard if time_shard else None, **PIT_KW))
+    return {"u": sol.u.cpu(), "u_std": sol.u_std.cpu(),
+            "window_diverged": int(torch.sum(diag["window_diverged"])), **info}
+
+
+def _md_rank(rank, store, out, device="cuda:0"):
+    """One of the MD_RANKS ranks of part (b): gloo over CUDA tensors on card 0
+    (collectives staged through the host); every part's result to ``out``."""
+    import torch
+
+    from odecheckpts_torch import batched_hi, parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    mesh = parallel.init_distributed(device=device, backend="gloo",
+                                     init_method=f"file://{store}", world_size=MD_RANKS,
+                                     rank=rank)
+    device = torch.device(device)
+    res = {"rank": rank, "backend": torch.distributed.get_backend(mesh.get_group("batch"))}
+    u0s = _ensemble(BATCH, torch, device)
+    tols = torch.full((BATCH,), MD_RTOL, dtype=torch.float32, device=device)
+    fused = _md_fused(mesh)
+    fused(u0s, tols)  # warm-up: the kernels' library loads
+    (u_s, _uf, n), info = _md_part(["step_ll_interval"], lambda: fused(u0s, tols))
+    res["k1"] = {"u_s": u_s.cpu(), "nsteps": n.cpu(), **info}
+    (u_s, _uf, n), info = _md_part(["step_ll_interval"],
+                                   lambda: fused(u0s[:MD_UNEVEN], tols[:MD_UNEVEN]))
+    res["k1_uneven"] = {"u_s": u_s.cpu(), "nsteps": n.cpu(), **info}
+    hi = _md_hi(mesh)
+    tols_hi = torch.full((BATCH,), MD_RTOL_HI, dtype=torch.float32, device=device)
+    hi(u0s, tols_hi)  # warm-up: the f64 Taylor init of the rank's block, memoized
+    (us, _uf, n), info = _md_part(["step_hi_interval"], lambda: hi(u0s, tols_hi))
+    res["k2"] = {"u_s": batched_hi.combine64(us).cpu(), "nsteps": n.cpu(), **info}
+    for name, dtype in (("pit_f64", torch.float64), ("pit_f32", torch.float32)):
+        res[name] = _md_pit(mesh, device, dtype, time_shard=True)
+    res["dp"] = _md_dp(mesh, device)
+    torch.save(res, out)
+    torch.distributed.destroy_process_group()
+
+
+def _md_spawn(tmp):
+    """Start the MD_RANKS ranks of part (b); returns their processes."""
+    import os
+
+    from odecheckpts_torch import parallel
+
+    store = os.path.join(tmp, "store")
+    return parallel.start_ranks(
+        lambda r: [sys.executable, os.path.abspath(__file__), "--multidevice-rank", str(r),
+                   store, os.path.join(tmp, f"rank{r}.pt")], MD_RANKS)
+
+
+def _rel_dev(got, want):
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def phase_multidevice(device, u0s, loop_ll, loop_hi, pit_refs):
+    """Phase 33: the multi-device layer.  (a) A world of one over NCCL on the
+    card: the sharded K1 row equals phase 4's and the sharded K2 row phase
+    6's bit for bit.  (b) MD_RANKS ranks on the one card over gloo, spawned:
+    K1 and K2 on BATCH / MD_RANKS lanes each, gathered, equal (a)'s bit for
+    bit, and an uneven batch of MD_UNEVEN lanes its first lanes; the
+    fixed-grid row cut to two windows with every window sharded along its
+    steps (K8 on each rank's half and once more for the carry), in f64 within
+    1e-10 (values) and 1e-8 (stds) of the unsharded solve and in f32 within
+    PIT_REL_GATE of the sequential row; one dp train step of phase 30's
+    configuration whose replicas are equal bit for bit and whose loss and
+    gradient equal the one-process step's (on (a)'s world) to MD_DP_RTOL."""
+    import tempfile
+
+    import torch
+
+    from odecheckpts_torch import batched_hi, parallel
+
+    t_phase = time.perf_counter()
+    mesh = parallel.init_distributed()
+    backend = torch.distributed.get_backend(mesh.get_group("batch"))
+    tols = torch.full((BATCH,), MD_RTOL, dtype=torch.float32, device=device)
+    fused = _md_fused(mesh)
+    fused(u0s, tols)  # warm-up: NCCL's communicator starts at the first collective
+    (u_s, _uf, n), k1 = _md_part(["step_ll_interval"], lambda: fused(u0s, tols))
+    k1.update(unsharded_seconds=loop_ll["seconds"],
+              equal=torch.equal(u_s, loop_ll["u_s"]) and torch.equal(n, loop_ll["nsteps"]))
+    a_k1 = (u_s, n)
+    tols_hi = torch.full((BATCH,), MD_RTOL_HI, dtype=torch.float32, device=device)
+    hi = _md_hi(mesh)
+    hi(u0s, tols_hi)  # warm-up: the f64 Taylor init, memoized (as phase 6's rows)
+    (us, _uf, n), k2 = _md_part(["step_hi_interval"], lambda: hi(u0s, tols_hi))
+    a_k2 = (batched_hi.combine64(us), n)
+    k2.update(unsharded_seconds=loop_hi["seconds"],
+              equal=torch.equal(a_k2[0], loop_hi["u_s"]) and torch.equal(n, loop_hi["nsteps"]))
+    # the one-process references of part (b), on this world
+    t0 = time.perf_counter()
+    pit32 = _md_pit(mesh, device, torch.float32, time_shard=False)
+    dp_one = _md_dp(mesh, device)
+    a = {"phase": "multidevice", "part": "a", "world": 1, "backend": backend,
+         "k1": k1, "k2": k2, "pit_f32_unsharded": {k: v for k, v in pit32.items()
+                                                   if k not in ("u", "u_std")},
+         "dp_one_process": {"loss": float(dp_one["loss"]), "seconds": dp_one["seconds"]},
+         "seconds": time.perf_counter() - t_phase, "references_seconds": time.perf_counter() - t0}
+    emit(a)
+    failed = [name for name, ok in (("a_backend", backend == "nccl"), ("a_k1", k1["equal"]),
+                                    ("a_k2", k2["equal"])) if not ok]
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.wait_ranks(_md_spawn(tmp), MD_TIMEOUT)  # raises with a failed rank's output
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(MD_RANKS)]
+    spawn_s = time.perf_counter() - t0
+
+    def equal(a, b):
+        if isinstance(a, list):
+            return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b)
+
+    def same(part, key):
+        """Every rank holds rank 0's ``part[key]``, bit for bit."""
+        return all(equal(r[part][key], ranks[0][part][key]) for r in ranks[1:])
+
+    def matches(part, u_s, nsteps):
+        """Every rank's gathered output is ``(u_s, nsteps)``, bit for bit."""
+        return all(equal(r[part]["u_s"], u_s.cpu()) and equal(r[part]["nsteps"], nsteps.cpu())
+                   for r in ranks)
+
+    r0 = ranks[0]
+    pit64, pit32_b, dp = r0["pit_f64"], r0["pit_f32"], r0["dp"]
+    dp_loss_dev = abs(float(dp["loss"]) / float(dp_one["loss"]) - 1.0)
+    checks = {
+        "backend_gloo": all(r["backend"] == "gloo" for r in ranks),
+        "k1_equal_a": matches("k1", *a_k1),
+        "k1_uneven_equal_a": matches("k1_uneven", a_k1[0][:MD_UNEVEN], a_k1[1][:MD_UNEVEN]),
+        "k2_equal_a": matches("k2", *a_k2),
+        "pit_f64": same("pit_f64", "u") and same("pit_f64", "u_std")
+        and torch.allclose(pit64["u"], pit_refs["f64"][0].cpu(), rtol=MD_PIT_RTOL,
+                           atol=MD_PIT_ATOL)
+        and torch.allclose(pit64["u_std"], pit_refs["f64"][1].cpu(), rtol=MD_PIT_STD_RTOL,
+                           atol=MD_PIT_ATOL),
+        "pit_f32": same("pit_f32", "u") and bool(torch.all(torch.isfinite(pit32_b["u"])))
+        and _rel_dev(pit32_b["u"], pit_refs["u_seq_f32"].cpu()) <= PIT_REL_GATE,
+        "dp_replicas_equal": all(same("dp", k) for k in ("loss", "grads", "theta")),
+        "dp_equal_one_process": dp_loss_dev <= MD_DP_RTOL
+        and _grad_rel_err(dp["grads"], dp_one["grads"]) <= MD_DP_RTOL,
+        "launched": all(v > 0 for r in ranks
+                        for part in ("k1", "k1_uneven", "k2", "pit_f64", "pit_f32")
+                        for v in r[part]["launches"].values()),
+    }
+    parts = {}
+    for part in ("k1", "k1_uneven", "k2", "pit_f64", "pit_f32", "dp"):
+        parts[part] = [{k: v for k, v in r[part].items()
+                        if k not in ("u_s", "nsteps", "u", "u_std", "loss", "grads", "theta")}
+                       for r in ranks]
+    parts["k1"][0]["unsharded_seconds"] = loop_ll["seconds"]
+    parts["k2"][0]["unsharded_seconds"] = loop_hi["seconds"]
+    parts["pit_f64"][0].update(
+        unsharded_seconds=pit_refs["t_par64"],
+        max_rel_dev_u=_rel_dev(pit64["u"], pit_refs["f64"][0].cpu()),
+        max_rel_dev_u_std=_rel_dev(pit64["u_std"], pit_refs["f64"][1].cpu()))
+    parts["pit_f32"][0].update(
+        unsharded_seconds=pit32["seconds"],
+        rel_vs_seq=_rel_dev(pit32_b["u"], pit_refs["u_seq_f32"].cpu()),
+        rel_vs_unsharded=_rel_dev(pit32_b["u"], pit32["u"]),
+        unsharded_window_diverged=pit32["window_diverged"])
+    parts["dp"][0].update(unsharded_seconds=dp_one["seconds"], loss_rel_dev=dp_loss_dev,
+                          grad_rel_dev=_grad_rel_err(dp["grads"], dp_one["grads"]))
+    emit({"phase": "multidevice", "part": "b", "world": MD_RANKS, "backend": "gloo",
+          "collectives": "host-staged: gloo takes CPU tensors, each CUDA operand is copied to "
+                         "the host and back",
+          "spawn_seconds": spawn_s, "parts": parts, "checks": checks})
+    torch.distributed.destroy_process_group()
+    failed += [name for name, ok in checks.items() if not ok]
+    emit({"phase": "multidevice", "seconds": time.perf_counter() - t_phase,
+          "part_a_seconds": a["seconds"], "part_b_seconds": spawn_s, "failed": failed})
+    if failed:
+        raise AssertionError(f"multidevice failed: {failed}")
+
+
 def main():
     device, _smi = phase_device()
     import torch
@@ -3600,7 +3924,7 @@ def main():
     captured = {**_capture_second_window(device, torch.float32),
                 **_capture_second_window(device, torch.float64, "f64/")}
     worst.update(phase_combine_pit(device, captured))
-    _, counts_pit = _path(["pit_combine"], lambda: phase_main_pit(device))
+    pit_refs, counts_pit = _path(["pit_combine"], lambda: phase_main_pit(device))
     counts_apit, _ = phase_adaptive_pit(device, "isotropic")
     counts_apit_bd, blocked = phase_adaptive_pit(device, "blockdiag")
     timing["pit_combine"] = phase_launch_pit(device, captured, blocked)
@@ -3611,6 +3935,7 @@ def main():
     phase_vdp_ensemble(device, o2)
     phase_logistic(device)
     phase_train(device)
+    phase_multidevice(device, u0s, loop_ll, outs_hi[("parity", MD_RTOL_HI)], pit_refs)
     (worst_qr, timing["batched_qr_r"]), counts_qr = _path(["batched_qr_r"],
                                                           lambda: phase_batched_qr(device))
     (worst_packing, timing_packing), counts_packing = _path(
@@ -3662,4 +3987,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--multidevice-rank"]:  # a rank of phase 33's part (b)
+        _md_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

@@ -875,7 +875,8 @@ def advance_checkpoint(interval, step, state, t_next, inputs, *, strat, max_atte
     b = state[0].shape[-1]
     state = interval(step, state, t_next.expand(1, b).contiguous(), max_attempts=max_attempts,
                      **inputs)
-    out, gen = _interpolate_at(strat, to_generic(state), t_next)
+    with rounded.in_order():  # a lane's bits do not depend on the batch's size
+        out, gen = _interpolate_at(strat, to_generic(state), t_next)
     return out, to_state(gen, state[0].dtype), gen.num_steps
 
 
@@ -931,7 +932,8 @@ def solve_intervals(interval, step, state, rv0, inputs, *, strat, save_at, max_a
                torch.cat([ident.noise.cholesky, conds.noise.cholesky])),
     )
     seq = stats.markov_select_terminal(MarkovSeq(init_stack, conds_full, ssm=ssm))
-    margs = stats.markov_marginals(seq)
+    with rounded.in_order():
+        margs = stats.markov_marginals(seq)
     mean = torch.cat([margs.mean, init_stack.mean[-1:]])  # (T, B, ...)
     u_smooth = ssm.qoi(mean).transpose(0, 1)
     return u_smooth, u_filt, nsteps

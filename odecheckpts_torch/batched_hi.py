@@ -388,11 +388,7 @@ def wrap_vf_plain(vf, params):
     return vf_df
 
 
-def _check_options(*, shard_mesh, engine, dtype):
-    if shard_mesh is not None:
-        raise NotImplementedError(
-            "shard_mesh is not ported yet: ROADMAP queue 1 item 8 (multi-device)"
-        )
+def _check_options(*, engine, dtype):
     batched._check_engine(engine)
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
@@ -418,6 +414,7 @@ def make_hi_solver(
     error_calibration=None,
     dtype=torch.float32,
     shard_mesh=None,
+    shard_axis="batch",
     max_attempts=100_000,
 ):
     """Build ``solve(u0s, tols) -> ((us_hi, us_lo), (uf_hi, uf_lo), nsteps)``
@@ -437,13 +434,19 @@ def make_hi_solver(
     output is the filtered one.  The f64 Taylor init runs per
     call, memoized for the latest ensemble by content hash.  Combine outputs
     with ``combine64``.
+
+    ``shard_mesh`` (a 1-D ``DeviceMesh``, ``shard_axis`` its axis) lays the
+    solve over the mesh as ``parallel.shard_engine_solve`` does
+    (``odecheckpts_tpu/batched_hi.py:641-657``): every rank takes the global
+    batch, solves its block (the Taylor init memoized on that block) and
+    returns the gathered global outputs.
     """
     batched._check_config(
         strategy=strategy, calibration=calibration, ode_order=ode_order,
         correction=correction, error_unit=error_unit, implementation="isotropic",
         num_derivatives=num_derivatives, **_CONFIG,
     )
-    _check_options(shard_mesh=shard_mesh, engine=engine, dtype=dtype)
+    _check_options(engine=engine, dtype=dtype)
     nu = num_derivatives
     n = nu + 1
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
@@ -535,6 +538,10 @@ def make_hi_solver(
                                                ode_order=ode_order, split_dtype=dtype)
         return device_solve(*init_cache[key], tols)
 
+    if shard_mesh is not None:
+        from . import parallel
+
+        return parallel.shard_engine_solve(solve, shard_mesh, shard_axis)
     return solve
 
 

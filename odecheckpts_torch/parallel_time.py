@@ -512,7 +512,24 @@ def solve_fixed_grid_parallel(
     (relative), up to ``iterations`` in all.  ``combine_engine``: None, "ll"
     or "cuda" (sqrt form only; "cuda" raises where the kernel cannot run).
     ``return_diagnostics=True`` also returns the per-window final-sweep delta
-    and whether the sequential fallback fired."""
+    and whether the sequential fallback fired.
+
+    ``time_shard=(mesh, axis)`` shards every window along its step axis over
+    the ranks of a 1-D ``DeviceMesh`` axis (``odecheckpts_tpu/
+    parallel_time.py:560-569``): the multi-device axis one IVP can scale on.
+    Every rank takes the whole problem; ``window`` must be a multiple of the
+    axis size.  Each rank builds the elements of its ``window / size`` steps
+    (the first needs its left neighbour's last linearization point: a halo
+    of one step), takes its local inclusive prefix, folds the ranks' last
+    prefix elements to its left into a carry and combines that carry into
+    every local element (with the combine engine's own combine: one more
+    launch of the kernel for "cuda"), forms its marginals, and the window's
+    marginals are gathered.  The sigma floor, the sweep delta and the
+    fallback gate are reduced over the ranks (largest), so every rank takes
+    the same branch; the sequential fallback and the backward pass run
+    replicated.  The reference constrains the layout for GSPMD; here the
+    scan is explicit, and results agree with the unsharded solve to the
+    rounding of the other combine order."""
     if form not in ("cov", "sqrt"):
         raise ValueError(f"form must be 'cov' or 'sqrt', got {form!r}")
     if combine_engine not in COMBINE_ENGINES:
@@ -524,22 +541,24 @@ def solve_fixed_grid_parallel(
     if combine_engine is not None and form != "sqrt":
         raise ValueError("combine_engine fuses the SQRT element combine; pass form='sqrt'")
     if time_shard is not None:
-        raise NotImplementedError(
-            "time_shard (the step axis sharded over devices) is not ported yet: ROADMAP "
-            "queue 1 item 8"
-        )
+        from . import parallel
+
+        if not (isinstance(time_shard, tuple) and len(time_shard) == 2):
+            raise ValueError(f"time_shard takes (mesh, axis), got {time_shard!r}")
+        parallel.check_mesh(*time_shard, what="time_shard")
     _parse_warmstart(warmstart)  # validate early
     return _solve_fixed_grid_parallel(
         vf, init, grid=grid, solver=solver, iterations=iterations, window=window, form=form,
         warmstart=warmstart, damping=damping, precondition=precondition,
-        deviation=deviation, fallback_rtol=fallback_rtol, combine_engine=combine_engine,
-        iteration_tol=iteration_tol, return_diagnostics=return_diagnostics,
+        deviation=deviation, fallback_rtol=fallback_rtol, time_shard=time_shard,
+        combine_engine=combine_engine, iteration_tol=iteration_tol,
+        return_diagnostics=return_diagnostics,
     )
 
 
 def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, form,
                                warmstart, damping, precondition, deviation, fallback_rtol,
-                               combine_engine, iteration_tol, return_diagnostics):
+                               time_shard, combine_engine, iteration_tol, return_diagnostics):
     from .ivpsolve import _tree_prepend, _validate_increasing
 
     ssm = solver.ssm
@@ -562,6 +581,21 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
     if t1 == 0:
         raise ValueError("grid must hold at least two points")
     w = max(1, min(window, t1))
+    if time_shard is not None:
+        from . import parallel
+
+        shard = parallel.AxisGroup(*time_shard)
+        if w % shard.size:
+            raise ValueError(f"time_shard: the window of {w} steps is not a multiple of the "
+                             f"{shard.size} ranks of mesh axis {time_shard[1]!r}")
+        w_local = w // shard.size
+        lo = shard.rank * w_local
+
+        def local(x):
+            """This rank's steps of a window (step axis leading)."""
+            return x[lo:lo + w_local]
+    else:
+        shard, local = None, (lambda x: x)
     pad = (-t1) % w
     num_w = (t1 + pad) // w
     valid_host = np.concatenate([np.ones(t1, bool), np.zeros(pad, bool)]).reshape(num_w, w)
@@ -618,6 +652,27 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
     use_fused_build = form == "sqrt" and combine_engine is not None and not adapter.blocked
     prefix_engine = "cuda" if combine_engine == "cuda" else "torch"
 
+    def scan_ll(els_ll):
+        """Inclusive prefix of lanes-last elements (step axis last)."""
+        pre = pit_fused.prefix_scan_sqrt_ll(els_ll, engine=prefix_engine)
+        if shard is None:
+            return pre
+        return shard.carry_prefix(pre, pit_fused._combine_fn(prefix_engine), -1)
+
+    def scan_steps(els):
+        """Inclusive prefix of step-leading elements."""
+        pre = _associative_scan(combine, els)
+        return pre if shard is None else shard.carry_prefix(pre, combine, 0)
+
+    def window_max(x):
+        """The largest of a 0-d tensor over the window's ranks."""
+        return x if shard is None else shard.max(x)
+
+    def left_of(last, first):
+        """The step before this rank's first: ``first`` (the window start)
+        on the first rank, else the left neighbour's ``last``."""
+        return first if shard is None else shard.left(last, first)
+
     def lin_one(lin, t, dt):
         """Linearization of every step of a window (the vector-field work of
         one sweep): residuals, Jacobians (none for TS0) and sigmas."""
@@ -667,9 +722,7 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
     def prefix_ll(els):
         """The window prefix of step-leading blockdiag elements (w, d, m, k)
         by ``pit_fused.prefix_scan_sqrt_ll`` on (m, k, d, w)."""
-        pre = pit_fused.prefix_scan_sqrt_ll(
-            tuple(torch.movedim(torch.movedim(x, 0, -1), 0, -2) for x in els),
-            engine=prefix_engine)
+        pre = scan_ll(tuple(torch.movedim(torch.movedim(x, 0, -1), 0, -2) for x in els))
         return tuple(torch.movedim(torch.movedim(x, -2, 0), -1, 0) for x in pre)
 
     def build_fused(r_cols, r_prev, dts_k, ok_k, z_k, jacs_k, scale_k, pv_k, pinv_k, pv_prev,
@@ -703,7 +756,7 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
             ident_ll[1] = pinv_l[:, None] * (rprev_l - lin_l)
         okl = ok_k[None, None, :]
         els_ll = tuple(torch.where(okl, e, i) for e, i in zip(els_ll, ident_ll))
-        pre_ll = pit_fused.prefix_scan_sqrt_ll(els_ll, engine=prefix_engine)
+        pre_ll = scan_ll(els_ll)
         mch_l, cvh_l = pit_fused.marginal_sqrt_ll(pre_ll, m0_for_marg, p0_h)
         return torch.movedim(mch_l, -1, 0), torch.movedim(cvh_l, -1, 0)
 
@@ -726,12 +779,15 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
                 else pinv_k[0][..., :, None] * p0)
         # dx_0 = x_0 - r_0 = 0 (r_0 is the window-start mean)
         m0_for_marg = torch.zeros_like(m0c_h) if deviation else m0c_h
+        # this rank's steps (all of them unsharded)
+        ts_l, dts_l, ok_l = local(ts_k), local(dts_k), local(ok_k)
+        pv_l, pinv_l, pv_prev_l = local(pv_k), local(pinv_k), local(pv_prev)
 
         def sweep(lin):
             r_cols = to_cols(lin)  # deviation references r_k
-            r_prev = torch.cat([m0c[None], r_cols[:-1]])
-            z_k, jacs_k, sig_k = lin_one(lin, ts_k, dts_k)
-            ok_s = steps_like(ok_k, sig_k)
+            r_prev = torch.cat([left_of(r_cols[-1], m0c)[None], r_cols[:-1]])
+            z_k, jacs_k, sig_k = lin_one(lin, ts_l, dts_l)
+            ok_s = steps_like(ok_l, sig_k)
             if dynamic and dtype == torch.float32:
                 # per-window sigma floor at sqrt(eps) times the window's largest
                 # sigma, float32 only: once the linearization is accurate to
@@ -740,15 +796,15 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
                 # mutually singular.  f64 combines tolerate the full spread,
                 # and a converged window's legitimate spread can exceed
                 # 1 / sqrt(eps64), so f64 stays unfloored.
-                sigma_floor = eps ** 0.5 * torch.max(
-                    torch.where(ok_s, sig_k, torch.zeros_like(sig_k)))
+                sigma_floor = eps ** 0.5 * window_max(torch.max(
+                    torch.where(ok_s, sig_k, torch.zeros_like(sig_k))))
             else:
                 sigma_floor = torch.zeros((), dtype=dtype, device=device)
             if dynamic:
                 scale_k = torch.maximum(sig_k, torch.maximum(sigma_floor, tiny))
             else:
-                scale_k = scale_none.expand(ok_k.shape + scale_none.shape)
-            args = (r_cols, r_prev, dts_k, ok_k, z_k, jacs_k, scale_k, pv_k, pinv_k, pv_prev)
+                scale_k = scale_none.expand(ok_l.shape + scale_none.shape)
+            args = (r_cols, r_prev, dts_l, ok_l, z_k, jacs_k, scale_k, pv_l, pinv_l, pv_prev_l)
             if use_fused_build:
                 means_ch, covs_h = build_fused(*args, m0_for_marg, p0_h)
             else:
@@ -756,19 +812,19 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
                 if combine_engine is not None:
                     prefix = prefix_ll(els)
                 else:
-                    prefix = _associative_scan(combine, els)
+                    prefix = scan_steps(els)
                 means_ch, covs_h = marginal(prefix, m0_for_marg, p0_h)
-            scales = torch.where(steps_like(ok_k, scale_k), scale_k, scale_none)
+            scales = torch.where(steps_like(ok_l, scale_k), scale_k, scale_none)
             # back to physical coordinates, per step
-            pv_s = pv_k[..., :, None]
+            pv_s = pv_l[..., :, None]
             means_c = pv_s * means_ch
             if deviation:
                 means_c = means_c + r_cols
             covs = pv_s * covs_h * _mT(pv_s) if form == "cov" else pv_s * covs_h
             means = from_cols(means_c)
             # next linearization: l_k = Phi_k m_{k-1}, m_0 = window start
-            m_prev = torch.cat([from_cols(m0c)[None], means[:-1]])
-            lin_next = ssm.extrapolate_mean(m_prev, dts_k)[0]
+            m_prev = torch.cat([left_of(means[-1], from_cols(m0c))[None], means[:-1]])
+            lin_next = ssm.extrapolate_mean(m_prev, dts_l)[0]
             if damping:
                 lin_next = damping * lin + (1.0 - damping) * lin_next
             return lin_next, (means, covs, scales)
@@ -804,11 +860,12 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
         def finite(means, covs):
             return torch.all(torch.isfinite(means)) & torch.all(torch.isfinite(covs))
 
-        lin = lin0
-        if lin is None:
+        if lin0 is None:
             # constant initial trajectory at the window-start mean: short
             # windows keep the iteration inside its contraction region
-            lin = from_cols(m0c).expand((w,) + rv0.mean.shape)
+            lin = from_cols(m0c).expand((len(ts_l),) + rv0.mean.shape)
+        else:
+            lin = local(lin0)
         if iteration_tol is not None:
             # adaptive sweep count: iterate until the proposed re-linearization
             # moves less than iteration_tol (relative), up to iterations - 1
@@ -816,7 +873,7 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
             k = 0
             while k < iterations - 1:
                 lin_next, _ = sweep(lin)
-                delta_c = iter_delta(lin_next, lin, ok_k)
+                delta_c = window_max(iter_delta(lin_next, lin, ok_l))
                 lin, k = lin_next, k + 1
                 if not bool(delta_c > iteration_tol):
                     break
@@ -824,10 +881,12 @@ def _solve_fixed_grid_parallel(vf, init, *, grid, solver, iterations, window, fo
             for _ in range(max(iterations - 1, 1)):
                 lin, _ = sweep(lin)
         lin_ret, (means, covs, scales) = sweep(lin)
+        if shard is not None:  # the window's marginals on every rank
+            means, covs, scales = shard.gather(means), shard.gather(covs), shard.gather(scales)
         # at convergence the final sweep's proposed re-linearization equals its
         # input to iteration tolerance: delta is the divergence gate's signal
         # and the per-window convergence diagnostic
-        delta = iter_delta(lin_ret, lin, ok_k)
+        delta = window_max(iter_delta(lin_ret, lin, ok_l))
         diverged = torch.zeros((), dtype=torch.bool, device=device)
         carry = (to_cols(means[-1]), covs[-1])  # identity padding: the last valid state
         if fallback_rtol is not None:

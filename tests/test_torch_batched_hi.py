@@ -322,8 +322,7 @@ def test_routed_solver_meets_the_per_lane_gate_across_nine_decades():
     # are ported (test_torch_second_order.py); TS1 at d = 3 raises when the
     # solve meets the ensemble's d
     dict(strategy="smoother"), dict(calibration="none"), dict(ode_order=3),
-    dict(correction="ts1"), dict(calibration="mle"), dict(shard_mesh=object()),
-    dict(num_derivatives=3),
+    dict(correction="ts1"), dict(calibration="mle"), dict(num_derivatives=3),
 ])
 def test_unported_hi_options_name_their_roadmap_item(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -334,15 +333,17 @@ def test_unported_hi_options_name_their_roadmap_item(option):
 
 @pytest.mark.parametrize("guard", ["num_derivatives", "shard_mesh"])
 def test_hi_guards_name_their_current_roadmap_items(guard):
-    """Other nu: queue 1 item 5 (options the fused engines left out);
-    shard_mesh: item 8 (multi-device)."""
+    """Other nu: queue 1 item 5 (options the fused engines left out).
+    shard_mesh is ported (item 8, ``tests/test_torch_parallel.py``): what is
+    not a 1-D ``DeviceMesh`` with the named axis is refused when the solver
+    is built."""
     if guard == "num_derivatives":
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5$"):
             th.StepHi(tp.rigid_body_df(), nu=3, d=3, error_calibration=1.0)
     else:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 8 \(multi-device\)"):
+        with pytest.raises(ValueError, match="1-D torch.distributed DeviceMesh with the axis 'x'"):
             th.make_hi_solver(tp.rigid_body()[0], PARAMS, save_at=np.linspace(0, 5, 3), dt0=0.1,
-                              vf_df=tp.rigid_body_df(), shard_mesh=object())
+                              vf_df=tp.rigid_body_df(), shard_mesh=object(), shard_axis="x")
 
 
 def test_hi_solver_guards_memory_and_the_kernels_refuse_other_devices():

@@ -209,7 +209,8 @@ def test_value_errors_of_the_parallel_solve():
 def test_what_is_left_out_raises_and_the_cuda_engine_has_no_fallback():
     _, (tvf, tinit, tsolver) = _setup("filter")
     kw = dict(grid=GRID, solver=tsolver, parallel=True, form="sqrt")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # time_shard is ported (tests/test_torch_time_shard.py); it takes a mesh
+    with pytest.raises(ValueError, match="time_shard takes a 1-D torch.distributed DeviceMesh"):
         tivpsolve.solve_fixed_grid(tvf, tinit, time_shard=(object(), "t"), **kw)
     with pytest.raises(RuntimeError, match="CUDA tensors"):  # CPU tensors: no card, no answer
         tivpsolve.solve_fixed_grid(tvf, tinit, combine_engine="cuda", **kw)

@@ -16,6 +16,7 @@ twin and the generic adaptive solve (``ivpsolve.solve_adaptive_save_at`` on
 the dense and blockdiag backends).  No JAX here.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -74,6 +75,42 @@ def test_pow_rounds_the_f64_value_once():
     x = _f32(5, 100_000, -6.0, 6.0)
     got = rounded.pow(torch.from_numpy(x), -0.075).numpy()
     np.testing.assert_array_equal(got, (x.astype(np.float64) ** -0.075).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pow_is_the_same_at_every_place_in_a_tensor(dtype):
+    """Each element's ``pow`` does not depend on the tensor's size or the
+    element's place in it (PyTorch's own CPU pow takes SLEEF's on whole
+    vectors and libm's on the rest): a sharded solve's lanes equal the
+    unsharded solve's.  On every element it is libm's (Python's)."""
+    x = torch.exp(torch.from_numpy(np.random.default_rng(7).standard_normal(4_099) * 5.0))
+    x = x.to(dtype)
+    whole = rounded.pow(x, -0.25)
+    for lo, hi in ((0, 1), (0, 7), (0, 16), (3, 40), (1_000, 4_099)):
+        assert torch.equal(rounded.pow(x[lo:hi], -0.25), whole[lo:hi]), (lo, hi)
+    want = [math.pow(v, -0.25) for v in x.double().tolist()]
+    assert torch.equal(whole, torch.tensor(want, dtype=torch.float64).to(dtype))
+
+
+def test_in_order_scope_nests_restores_and_holds_on_every_thread():
+    """``in_order()`` sends products on devices other than the CPU to the
+    in-order sums (a meta tensor stands for the card here) while a scope is
+    open, on every thread: the autograd engine recomputes a checkpointed
+    region of a CUDA backward pass on a thread of its own."""
+    import threading
+
+    card = torch.empty(2, 2, device="meta")
+    assert rounded._library(card) and not rounded._library(torch.empty(2))
+    seen = []
+    with rounded.in_order():
+        with rounded.in_order():
+            assert not rounded._library(card)
+        assert not rounded._library(card)
+        other = threading.Thread(target=lambda: seen.append(rounded._library(card)))
+        other.start()
+        other.join(timeout=10)
+        assert tuple(rounded.matmul(card, card).shape) == (2, 2)
+    assert seen == [False] and rounded._library(card)
 
 
 def test_solve_triangular_lower_substitutes_forward_in_row_order():
