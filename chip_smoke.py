@@ -22,7 +22,9 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
    must equal ``kernels.bd_geometry``'s, with no spills and at most
    BD_MAX_STACK bytes of stack; for every K2 and K4 entry (nu = 4, 5) the
    same report against ``kernels.hi_geometry`` (a thread per lane: their
-   spills are reported, not gated); for every K1 and K3 entry (nu = 2, 3, 4)
+   spills are reported, not gated); for K2 wide and K4 wide (nu = 4, 5, at
+   d = 64 and 128) against ``kernels.hi_wide_geometry`` (a block per lane,
+   a thread per component; spills reported, not gated); for every K1 and K3 entry (nu = 2, 3, 4)
    the same report against ``kernels.ll_geometry`` and for every K7 entry
    (both strategies) against ``kernels.everystep_geometry``, K7 with no
    spills; for every K8 entry (float32 and float64, every built m and c)
@@ -37,7 +39,8 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
    at rtol 1e-1..1e-4, parity and tuned (nu, kappa) schedules; exactly 4
    launches per solve; the median of 3 timed solves after one warm-up.
 5. f32 twin on the card: the rtol 1e-3 parity row through ``engine="torch"``
-   and one interval of K1 against its plain version (plain, kernel, kernel,
+   (one solve, no warm-up: phase 4 ran the same lanes; cut for the
+   script's time) and one interval of K1 against its plain version (plain, kernel, kernel,
    plain): every array equal, and the two kernel runs equal to each other.
 6. df32 main path (K2): ``batched_hi.make_hi_solver(engine="cuda-loop")`` at
    rtol 1e-5..1e-9, the 7 distinct parity and tuned rows; exactly 4 launches
@@ -137,15 +140,17 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
 22. main_pit (K8): the crossover workload of
     ``experiments/6_tpu_batched_sweep/pit_crossover.py`` at full width: rigid
     body, tspan (0, 10), nu = 3, TS0, filter, dynamic calibration, float32,
-    uniform grid T = 16385, one IVP.  Rows: the sequential
-    ``ivpsolve.solve_fixed_grid`` (once, after a warm-up on 257 grid points);
+    uniform grid T = 16385, one IVP, cut in depth to the grid's first
+    PIT_SEQ_T = 8,193 points (8 windows of 1,024; cut for the script's
+    time).  Rows: the sequential ``ivpsolve.solve_fixed_grid`` on those
+    points (once, after a warm-up on 257 grid points);
     ``parallel=True, form="sqrt", iterations=2, warmstart="rk:16"`` with
-    ``combine_engine="cuda"`` at window 1024 over the whole grid, on the
-    grid's first 2,049 points with "ll" and None at window 1024, and on its
-    first 4,097 points with "cuda" at window 512 (most f32 windows fall back
-    to the sequential filter, 4-6 s each in eager PyTorch, so the rows beside
-    the kernel's are cut in depth; warm start and filter are causal, so the
-    sequential row's first points are their reference).  Each row is one solve after a warm-up on
+    ``combine_engine="cuda"`` at window 1024 on the same points, on the
+    grid's first 2,049 points with "ll" and None at window 1024, and with
+    "cuda" at window 512 (most f32 windows fall back to the sequential
+    filter, 4-6 s each in eager PyTorch, so the rows beside the kernel's
+    are cut further; warm start and filter are causal, so the sequential
+    row's first points are their reference).  Each row is one solve after a warm-up on
     its first two windows with the gate off.  Gates:
     every output finite; the sequential row within 1e-2 (max abs) of
     LSODA(1e-12) at the grid points (a CPU f32 run of the port measured
@@ -296,7 +301,31 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
     one-process step's (on (a)'s world) to MD_DP_RTOL.  Printed: each part's seconds beside the unsharded row's,
     each kernel's launches per rank (counts set to 0 just before the part),
     the bytes gathered and staged, and the backend of each part.
-34. the kernel table line and the result line.  K1-K4's rows carry their
+34. brusselator_wide (experiment 4's batched configuration,
+    ``experiments/4_brusselator/batched_tpu.py:77-92``, through its torch
+    runner ``batched_torch.py``, loaded by path): stiff Brusselator method of
+    lines ``problems.brusselator(N)``, d = 2N, TS0(4), fixedpoint, the vector
+    field on the hi channel, on the wide forms of K2 and K4 (a block per
+    lane).  (a) From the runner's ensemble after its Taylor init, 257 lanes
+    (an odd batch) at tol 1e-7, N = 32 and 64: K2 wide at caps 1 and 40
+    against ``step_hi_wide_interval_plain`` and K4 wide chained over 40
+    attempts against ``step_hi_wide_attempt_plain``, every array equal at
+    every attempt; the whole first interval on K2 wide twice, equal run to
+    run (the race check) and on the checkpoint.  Then, for the kernel line,
+    K2 wide at cap 40 and one K4 wide attempt on the (32, 1e-7) row's 256
+    lanes against their plain versions in turns, timed.  (b) The three
+    committed configurations (N, tol) = (32, 1e-7), (32, 1e-8), (64, 1e-7),
+    256 lanes, ``engine="cuda-loop"``, through ``run_row`` (a warm-up and one
+    timed solve): the runner's gate (RMSE against LSODA(1e-10) on 4 lanes <
+    1e3 tol), every lane finite, none at the attempt cap, exactly 4
+    launches of K2 wide in the timed solve, and at tol 1e-7 RMSE < 3 tol
+    (at 1e-8 the hi channel's floor, about rtol 1e-7, applies: RMSE / tol is
+    reported).  Printed: seconds, solves/s, mean and max steps, K2 wide's
+    CUDA-event time of each launch in one more solve and their share of the
+    solve, and the committed TPU row's mean steps (not a gate).  (c)
+    ``engine="cuda"`` (K4 wide) at (32, 1e-7) on 64 lanes equals
+    ``"cuda-loop"`` on the same lanes bit for bit.
+35. the kernel table line and the result line.  K1-K4's rows carry their
     instantiations of order 2 (``instantiations``: ptxas registers and
     spills, launches in phases 31 and 32, the full-width launch's deviation
     from its plain version, its device and plain times and bound (the
@@ -305,7 +334,7 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
 
 Phases 26-30 run beside the rows whose lanes they reuse: 26 after 9,
 adaptive_dense after 13, adaptive_bd after 18, 28 and 29 after 22; 30 after
-29.  31 and 32 run before 29; 33 after 30.
+29.  31, 32 and 34 run before 29; 33 after 30.
 
 Every kernel's ``ms`` is its device time (``_device_time``: DEVICE_LAUNCHES
 launches back to back behind a sleep of the stream, so the wrapper's host
@@ -314,7 +343,7 @@ time overlaps the card's busy wait), with the wrapper's host time per call
 which holds the wrapper's host time) and torch.profiler's device time in a
 ``device_time`` line each.
 
-Each path of phases 4, 6, 8, 9, 11, 13, 15, 18, 20, 22, 28, 31, 32 and 33 runs with
+Each path of phases 4, 6, 8, 9, 11, 13, 15, 18, 20, 22, 28, 31-34 runs with
 the launch counts set to 0 just before it and read just after; a kernel of the
 path that did not launch fails the run.  Kernel-against-plain comparisons run outside those
 windows.  Each kernel's ``bound_ms`` is the larger of its state's bytes
@@ -322,7 +351,7 @@ windows.  Each kernel's ``bound_ms`` is the larger of its state's bytes
 operations of the accepted attempts of the timed launch over 67 TFLOP/s
 (the QRs, triangular solves and products of an attempt, counted from the
 shapes in ``_attempt_flops``; rejected attempts are not counted, so the bound
-is a lower one).  K8-K11: each input read once and each output written once,
+is a lower one; K2 wide and K4 wide: their launch of phase 34 at d = 64).  K8-K11: each input read once and each output written once,
 against the operations of the algorithm (``_combine_flops``; ``_qr_flops``
 per QR, the same count for K10 and K11); K9-K11 are on no solve path, their
 ``launches`` are those of their phases.  ``library_ms``: K9's and K10 / K11's
@@ -352,6 +381,7 @@ SCHEDULES_HI = {
 }
 BATCH = 32_768
 SAMPLE = 256
+TRUTH_WORKERS = 8  # processes of the LSODA truth (the card's host has 8 cores)
 ATTEMPT_LANES = 4_096
 ATTEMPT_RTOL = 1e-3
 ATTEMPT_RTOL_HI = 1e-7
@@ -391,6 +421,10 @@ KERNELS = {  # wrapper -> (id, source, the TPU kernel it replaces)
                         "odecheckpts_tpu/batched.py:897"),
     "step_hi_attempt": ("K4", "odecheckpts_torch/csrc/step_hi_attempt.cu",
                         "odecheckpts_tpu/batched_hi.py:547"),
+    "step_hi_wide_interval": ("K2 wide", "odecheckpts_torch/csrc/step_hi_wide.cu",
+                              "odecheckpts_tpu/batched_hi.py:539"),
+    "step_hi_wide_attempt": ("K4 wide", "odecheckpts_torch/csrc/step_hi_wide_attempt.cu",
+                             "odecheckpts_tpu/batched_hi.py:547"),
     "step_dense_interval": ("K5", "odecheckpts_torch/csrc/step_dense.cu",
                             "odecheckpts_tpu/batched_dense.py:703"),
     "step_dense_attempt": ("K5", "odecheckpts_torch/csrc/step_dense_attempt.cu",
@@ -441,12 +475,15 @@ PIT_KW = dict(parallel=True, form="sqrt", iterations=2, warmstart="rk:16")
 # (window, combine_engine, windows solved): the kernel's row at full width; its plain
 # twin's and engine None's on the grid's first 2,049 points, window 512 on its
 # first 4,097
-PIT_ROWS = ((1024, "cuda", None), (1024, "ll", 2), (512, "cuda", 8), (1024, None, 2))
+PIT_ROWS = ((1024, "cuda", 8), (1024, "ll", 2), (512, "cuda", 4), (1024, None, 2))
 PIT_REL_GATE = 1e-2
 PIT_LSODA_BOUND = 1e-2  # max abs; a CPU f32 run of the port measured 2.31e-3
 PIT_F64_WINDOWS = 2
 PIT_F64_GATE = 1e-6
 PIT_SEQ_WARM_T = 257
+# the rows' depth: the grid's first 8 windows of 1,024 (the filter is causal),
+# cut from the whole grid for the script's time
+PIT_SEQ_T = 8_193
 ADAPTIVE_RTOL = 1e-3  # the generic isotropic row: the parity schedule's (nu, kappa) at 1e-3
 ADAPTIVE_STEPS_RTOL = 0.05  # mean accepted steps against the fused engine's: tests/test_batched.py:40-42
 PIT_ADAPTIVE_RTOL = 1e-7  # float64 rigid body on (0, 10), nu = 3: about 1,400-1,600 accepted steps
@@ -562,6 +599,7 @@ def phase_build():
     everystep = tuple(f"{nu}/{s}" for s in ("smoother", "filter") for nu in (2, 3, 4))
     want = {"step_ll_interval": (2, 3, 4), "step_ll_attempt": (2, 3, 4),
             "step_hi_interval": (4, 5), "step_hi_attempt": (4, 5),
+            "step_hi_wide_interval": (4, 5), "step_hi_wide_attempt": (4, 5),
             "step_dense_interval": dense, "step_dense_attempt": dense,
             "step_bd_interval": bd, "step_bd_attempt": bd,
             "step_everystep_attempt": everystep,
@@ -576,15 +614,18 @@ def phase_build():
         raise RuntimeError(f"ptxas reported no kernel for {missing}:\n{lib.log}")
     sass = _sass_instructions(lib.path)
     return {**phase_build_dense(ptxas), **phase_build_bd(ptxas, sass),
-            **phase_build_hi(ptxas, sass), **phase_build_ll(ptxas, sass),
-            **phase_build_pit(ptxas, sass)}
+            **phase_build_hi(ptxas, sass), **phase_build_hi_wide(ptxas, sass),
+            **phase_build_ll(ptxas, sass), **phase_build_pit(ptxas, sass)}
 
 
 def _sass_instructions(path):
     """Machine instructions of each step kernel of the library at ``path``
     (``cuobjdump -sass``), keyed as ``parse_ptxas`` keys them; empty where
-    the toolkit has no cuobjdump."""
+    the toolkit has no cuobjdump.  The library's cubins (one a source) are
+    extracted and disassembled by one process each, all started together:
+    the whole library in one process took about 45 s."""
     import re
+    import tempfile
     from pathlib import Path
 
     from odecheckpts_torch import kernels
@@ -592,8 +633,17 @@ def _sass_instructions(path):
     tool = Path(kernels._nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return {}
-    sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
-                          check=True).stdout
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([str(tool), "-xelf", "all", str(Path(path).resolve())], cwd=tmp,
+                       capture_output=True, check=False)
+        cubins = sorted(Path(tmp).glob("*.cubin")) or [Path(path)]
+        procs = [subprocess.Popen([str(tool), "-sass", str(c)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for c in cubins]
+        outs = [proc.communicate() for proc in procs]
+    failed = [err for proc, (_, err) in zip(procs, outs) if proc.returncode]
+    if failed:
+        raise RuntimeError(f"cuobjdump -sass failed: {failed[0][-2000:]}")
+    sass = "".join(out for out, _ in outs)
     counts, key = {}, None
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
@@ -687,6 +737,34 @@ def phase_build_hi(ptxas, sass):
         main[name] = kernels.step_hi_geometry(name, 4)
     if bad:
         raise AssertionError(f"K2's or K4's geometry is off: {bad}")
+    return main
+
+
+def phase_build_hi_wide(ptxas, sass):
+    """K2 wide's and K4 wide's ptxas counts (registers, spills, stack) and
+    machine instructions beside the launch geometry their C launch functions
+    report, for nu = 4, 5 at d = 64 and 128; fails if that geometry is not
+    ``kernels.hi_wide_geometry``'s or if no block fits on an SM (their
+    spills are reported, not gated).  Returns the geometry of each form at
+    nu = 4, d = 64 (phase 34's launches)."""
+    from odecheckpts_torch import kernels
+
+    main, bad = {}, []
+    for name in ("step_hi_wide_interval", "step_hi_wide_attempt"):
+        for nu in (4, 5):
+            for d in (64, 128):
+                geometry = kernels.step_hi_wide_geometry(name, nu, d)
+                info = {**ptxas[name][nu], **geometry,
+                        "sass_instructions": sass.get(name, {}).get(nu)}
+                emit({"phase": "build_hi_wide", "kernel": KERNELS[name][0], "form": name,
+                      "nu": nu, "d": d, **info})
+                want = kernels.hi_wide_geometry(nu, d)
+                if (any(geometry[k] != v for k, v in want.items())
+                        or geometry["blocks_per_sm"] < 1):
+                    bad.append((name, nu, d, info, want))
+        main[name] = kernels.step_hi_wide_geometry(name, 4, 64)
+    if bad:
+        raise AssertionError(f"K2 wide's or K4 wide's geometry is off: {bad}")
     return main
 
 
@@ -887,23 +965,40 @@ def _same_bits(a, b, torch):
             and bool(torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))))
 
 
-def _truth(u0_rows, save_at):
-    """Per-lane scipy LSODA(1e-12) reference at the checkpoints."""
+def _rigid_body_np(_t, y, scale=(1.0, 1.0, 1.0)):
+    """The rigid body (p = (-2, 1.25, -0.5)) in z = scale y, in numpy."""
+    scale = np.asarray(scale)
+    y = y / scale
+    return scale * np.array([-2.0 * y[1] * y[2], 1.25 * y[0] * y[2], -0.5 * y[0] * y[1]])
+
+
+def _lsoda_row(job):
+    """One lane of ``_lsoda_rows``: (row, save_at, scale, rtol, atol) -> the
+    LSODA solution at the checkpoints."""
     import scipy.integrate
 
-    p1, p2, p3 = -2.0, 1.25, -0.5
+    row, save_at, scale, rtol, atol = job
+    return scipy.integrate.solve_ivp(
+        _rigid_body_np, (float(save_at[0]), float(save_at[-1])), row, t_eval=save_at,
+        args=(scale,), rtol=rtol, atol=atol, method="LSODA").y.T
 
-    def vf_np(_t, y):
-        return [p1 * y[1] * y[2], p2 * y[0] * y[2], p3 * y[0] * y[1]]
 
-    out = []
-    for row in u0_rows:
-        sol = scipy.integrate.solve_ivp(
-            vf_np, y0=row, t_span=(float(save_at[0]), float(save_at[-1])),
-            t_eval=save_at, rtol=1e-12, atol=1e-12, method="LSODA",
-        )
-        out.append(sol.y.T)
-    return np.stack(out)
+def _lsoda_rows(rows, save_at, scale, rtol, atol):
+    """Per-lane scipy LSODA of the (rescaled) rigid body at the checkpoints,
+    the lanes spread over TRUTH_WORKERS spawned processes (each solve holds
+    one core of the host); every lane's solve is the serial one's."""
+    import concurrent.futures
+    import multiprocessing
+
+    jobs = [(row, save_at, scale, rtol, atol) for row in rows]
+    with concurrent.futures.ProcessPoolExecutor(
+            TRUTH_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return np.stack(list(pool.map(_lsoda_row, jobs, chunksize=8)))
+
+
+def _truth(u0_rows, save_at):
+    """Per-lane scipy LSODA(1e-12) reference at the checkpoints."""
+    return _lsoda_rows(u0_rows, save_at, (1.0, 1.0, 1.0), 1e-12, 1e-12)
 
 
 def _lane_errors(u_s, truth):
@@ -1106,8 +1201,7 @@ def phase_twin(device, truth, u0s, kernel_out):
             error_calibration=kappa, engine="torch", max_attempts=MAX_ATTEMPTS,
         )
 
-    solve()  # warm-up
-    seconds, (u_s, _u_f, nsteps) = _timed(solve)
+    seconds, (u_s, _u_f, nsteps) = _timed(solve)  # phase 4 ran the same lanes: no warm-up
     ok, rmse, worst, capped = _gates(u_s, nsteps, truth, rtol)
     mismatch = int(torch.sum(torch.any(nsteps != kernel_out["nsteps"], dim=1)))
     emit({"phase": "twin", "rtol": rtol, "nu": nu, "kappa": kappa, "batch": BATCH,
@@ -1870,23 +1964,7 @@ def phase_attempt_bd(device):
 def _truth_anisotropic(rows, save_at):
     """Per-lane scipy LSODA reference of the rescaled rigid body at the
     checkpoints (experiments/6_tpu_batched_sweep/blockdiag_tpu.py:56-74)."""
-    import scipy.integrate
-
-    p1, p2, p3 = -2.0, 1.25, -0.5
-    scale = np.array(BD_SCALE)
-
-    def vf_np(_t, z):
-        y = z / scale
-        return scale * np.array([p1 * y[1] * y[2], p2 * y[0] * y[2], p3 * y[0] * y[1]])
-
-    out = []
-    for row in rows:
-        sol = scipy.integrate.solve_ivp(
-            vf_np, (float(save_at[0]), float(save_at[-1])), row, t_eval=save_at,
-            rtol=1e-12, atol=1e-10, method="LSODA",
-        )
-        out.append(sol.y.T)
-    return np.stack(out)
+    return _lsoda_rows(rows, save_at, BD_SCALE, 1e-12, 1e-10)
 
 
 def _bd_solver(vf, u0s, params, tols, engine, implementation="blockdiag"):
@@ -2396,14 +2474,15 @@ def phase_main_pit(device):
         method="LSODA").y.T
 
     ivpsolve.solve_fixed_grid(vf, init, grid=grid[:PIT_SEQ_WARM_T], solver=solver)  # warm-up
-    t_seq, seq = _timed(lambda: ivpsolve.solve_fixed_grid(vf, init, grid=grid, solver=solver))
+    t_seq, seq = _timed(lambda: ivpsolve.solve_fixed_grid(vf, init, grid=grid[:PIT_SEQ_T],
+                                                          solver=solver))
     u_seq = seq.u.double()
-    err_truth = float(np.max(np.abs(u_seq.cpu().numpy() - truth)))
-    seq_ok = (bool(torch.all(torch.isfinite(seq.u))) and tuple(seq.u.shape) == (PIT_T, 3)
+    err_truth = float(np.max(np.abs(u_seq.cpu().numpy() - truth[:PIT_SEQ_T])))
+    seq_ok = (bool(torch.all(torch.isfinite(seq.u))) and tuple(seq.u.shape) == (PIT_SEQ_T, 3)
               and err_truth < PIT_LSODA_BOUND)
-    emit({"phase": "main_pit", "row": "sequential", "dtype": "float32", "T": PIT_T,
+    emit({"phase": "main_pit", "row": "sequential", "dtype": "float32", "T": PIT_SEQ_T,
           "seconds": t_seq, "max_abs_err_vs_lsoda": err_truth, "bound": PIT_LSODA_BOUND,
-          "steps_per_sec": (PIT_T - 1) / t_seq})
+          "steps_per_sec": (PIT_SEQ_T - 1) / t_seq})
     failed = [] if seq_ok else [("sequential", err_truth)]
 
     def parallel(window, engine, grid_=grid, init_=init, fallback_rtol=1.0):
@@ -2413,8 +2492,8 @@ def phase_main_pit(device):
 
     outs = {}
     for window, engine, cut in PIT_ROWS:
-        num = PIT_T if cut is None else cut * window + 1  # the sequential filter is causal
-        u_ref, share = u_seq[:num], (num - 1) / (PIT_T - 1)
+        num = cut * window + 1  # the sequential filter is causal
+        u_ref, share = u_seq[:num], (num - 1) / (PIT_SEQ_T - 1)
         # warm-up: the first two windows, the gate off (the fallback's steps are
         # the sequential row's, warm already)
         parallel(window, engine, grid[: 2 * window + 1], fallback_rtol=None)
@@ -2454,7 +2533,7 @@ def phase_main_pit(device):
                for e in ("cuda", "ll")]
     same = {
         "rows": {n: bool(torch.equal(a[:b.shape[0]], b)) for n, a, b in zip(
-            names, _pit_outputs(outs[(1024, "cuda", None)]), _pit_outputs(ll_row))},
+            names, _pit_outputs(outs[PIT_ROWS[0]]), _pit_outputs(ll_row))},
         "gate_off": {n: bool(torch.all((a == b) | (torch.isnan(a) & torch.isnan(b))))
                      for n, a, b in zip(names, *ungated)},
     }
@@ -2478,7 +2557,7 @@ def phase_main_pit(device):
         vf, solver.ssm, init[0].mean, two, 1, PIT_NU, stride=16, method="rk4"))
     emit({"phase": "main_pit", "split": "cuda, window 1024", "warmstart_seconds": t_warm,
           "sweeps_seconds_per_window": (t_two - t_two_warm) / 2,
-          "sequential_seconds_per_window": t_seq * 1024 / (PIT_T - 1)})
+          "sequential_seconds_per_window": t_seq * 1024 / (PIT_SEQ_T - 1)})
 
     # the double instantiation on the path: the first PIT_F64_WINDOWS windows
     num = PIT_F64_WINDOWS * 1024 + 1
@@ -3579,6 +3658,188 @@ def phase_vdp_ensemble(device, o2):
         raise AssertionError(f"experiment 1's rows failed: {failed}")
 
 
+# experiment 4's batched Brusselator ensembles on the wide forms of K2 and K4
+# (experiments/4_brusselator/batched_tpu.py:77-92, its torch runner
+# batched_torch.py): (N, tol) of the committed TPU rows, 256 lanes
+WIDE_ROWS = ((32, 1e-7), (32, 1e-8), (64, 1e-7))
+WIDE_NS = (32, 64)  # phase 34(a)
+WIDE_BATCH = 256
+WIDE_ODD = 257  # phase 34(a): an odd batch
+WIDE_SAMPLE = 4  # LSODA lanes of each row
+WIDE_TIGHT = 3.0  # RMSE < 3 tol at tol 1e-7: the bench's gate
+WIDE_CAPS = (1, 40)
+WIDE_ATTEMPTS = 40  # K4 wide's chain against its plain version
+WIDE_ENGINE_LANES = 64  # phase 34(c)
+WIDE_TPU_ROWS = "experiments/4_brusselator/data_batched_tpu.json"
+
+
+def _wide_runner():
+    """``experiments/4_brusselator/batched_torch.py``, loaded by path."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "experiments" / "4_brusselator" / "batched_torch.py"
+    spec = importlib.util.spec_from_file_location("batched_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _wide_start(runner, N, batch, tol, device):
+    """The runner's ensemble of ``batch`` lanes at ``tol`` after its Taylor
+    init: (step, state, t_next, inputs) of the first interval."""
+    import torch
+
+    from odecheckpts_torch import batched_hi
+
+    vf, save_at, y0s = runner.workload(N, batch)
+    tols = torch.full((batch,), tol, dtype=torch.float32, device=device)
+    state, inputs = batched_hi.initial_state(
+        vf, torch.tensor(y0s, device=device), (), save_at=save_at.astype(np.float32),
+        dt0=runner.DT0, tols=tols)
+    step = batched_hi.make_step_hi(batched_hi.wrap_vf_plain(vf, ()), nu=4, d=2 * N)
+    t_next = torch.full((1, batch), float(save_at[1]), device=device)
+    return step, state, t_next, inputs
+
+
+def _unequal(got, want, torch, worst=None, name=None):
+    """The names of the 12-array states' arrays that differ; with ``worst``,
+    ``worst[name]`` takes the largest absolute deviation."""
+    if worst is not None:
+        worst[name] = max([worst.get(name, 0.0)] + [
+            float(torch.nan_to_num(torch.abs(g - w), nan=0.0).max()) for g, w in zip(got, want)])
+    return [n for n, g, w in zip(STATE_NAMES_HI, got, want) if not _same_bits(g, w, torch)]
+
+
+def phase_brusselator_wide(device):
+    """Phase 34: experiment 4's batched Brusselator ensembles on K2 wide and
+    K4 wide (module docstring).  Returns (the kernel line's timings of both
+    forms, their largest deviations from the plain versions (0.0), their
+    launches on the paths of (b) and (c))."""
+    import torch
+
+    from odecheckpts_torch import kernels
+
+    runner = _wide_runner()
+    t_phase, failed, worst = time.perf_counter(), [], {}
+    # (a) each form against its plain version, N = 32 and 64, an odd batch
+    for N in WIDE_NS:
+        step, state, t_next, inputs = _wide_start(runner, N, WIDE_ODD, WIDE_ROWS[0][1], device)
+        for cap in WIDE_CAPS:
+            want = kernels.step_hi_wide_interval_plain(step, state, t_next, max_attempts=cap,
+                                                       **inputs)
+            got = kernels.step_hi_wide_interval(step, state, t_next, max_attempts=cap, **inputs)
+            torch.cuda.synchronize()
+            unequal = _unequal(got, want, torch, worst, "step_hi_wide_interval")
+            accepted = (want[11] - state[11])[0]
+            emit({"phase": "brusselator_wide", "part": "a", "kernel": "K2 wide", "N": N,
+                  "batch": WIDE_ODD, "max_attempts": cap, "arrays_unequal": unequal,
+                  "accepted_min_max": [float(accepted.min()), float(accepted.max())]})
+            if unequal:
+                failed.append(("K2 wide", N, cap, unequal))
+        k_state = p_state = state
+        unequal = set()
+        for _ in range(WIDE_ATTEMPTS):
+            k_state = kernels.step_hi_wide_attempt(step, k_state, t_next, **inputs)
+            p_state = kernels.step_hi_wide_attempt_plain(step, p_state, t_next, **inputs)
+            unequal.update(_unequal(k_state, p_state, torch, worst, "step_hi_wide_attempt"))
+        emit({"phase": "brusselator_wide", "part": "a", "kernel": "K4 wide", "N": N,
+              "batch": WIDE_ODD, "attempts": WIDE_ATTEMPTS, "arrays_unequal": sorted(unequal)})
+        if unequal:
+            failed.append(("K4 wide", N, sorted(unequal)))
+        # the whole first interval twice: a race would show as a difference
+        full = [kernels.step_hi_wide_interval(step, state, t_next, max_attempts=MAX_ATTEMPTS,
+                                              **inputs) for _ in range(2)]
+        torch.cuda.synchronize()
+        repeat = not _unequal(*full, torch)
+        at_checkpoint = bool(torch.all(full[0][0] == t_next)) and bool(torch.all(full[0][1] == 0))
+        emit({"phase": "brusselator_wide", "part": "a", "kernel": "K2 wide", "N": N,
+              "batch": WIDE_ODD, "interval": "first, whole", "kernel_runs_equal": repeat,
+              "at_checkpoint": at_checkpoint,
+              "accepted_mean": float(torch.mean(full[0][11] - state[11]))})
+        if not (repeat and at_checkpoint):
+            failed.append(("K2 wide run to run", N, repeat, at_checkpoint))
+
+    # the kernel line's launches: K2 wide at cap 40 and one K4 wide attempt on
+    # the (32, 1e-7) row's 256 lanes from its Taylor init, in turns with the
+    # plain versions
+    n0, tol0 = WIDE_ROWS[0]
+    step, state, t_next, inputs = _wide_start(runner, n0, WIDE_BATCH, tol0, device)
+    timing = {}
+    for name, cap in (("step_hi_wide_interval", dict(max_attempts=WIDE_CAPS[-1])),
+                      ("step_hi_wide_attempt", {})):
+        kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+
+        def run(fn, kernel=kernel, cap=cap):
+            return lambda: fn(step, state, t_next, **inputs, **cap)
+
+        times = _time_pair((("plain", run(plain)), ("kernel", run(kernel)),
+                            ("kernel2", run(kernel)), ("plain2", run(plain))))
+        equal = not _unequal(times["kernel"][1], times["plain"][1], torch, worst, name)
+        repeat = _runs_equal(times, times["kernel"][1], torch)
+        timing[name] = _timing(name, times, state, 11, nu=4, d=2 * n0, run=run(kernel))
+        emit({"phase": "brusselator_wide", "part": "launch", "kernel": KERNELS[name][0],
+              "N": n0, "batch": WIDE_BATCH, **cap, "arrays_equal": equal,
+              "kernel_runs_equal": repeat,
+              **{k: timing[name][k] for k in ("ms", "host_ms", "event_ms", "plain_ms",
+                                              "accepted")}})
+        if not (equal and repeat):
+            failed.append((name, "launch", equal, repeat))
+
+    # (b) the experiment's three committed configurations on K2 wide
+    from pathlib import Path
+
+    tpu = {(r["N"], r["tol"]): r for r in json.loads(
+        (Path(__file__).resolve().parent / WIDE_TPU_ROWS).read_text())["rows"]}
+    counts = {}
+    for N, tol in WIDE_ROWS:
+        row, _ = _path(["step_hi_wide_interval"], lambda N=N, tol=tol: runner.run_row(
+            N, WIDE_BATCH, tol, "cuda-loop", device, sample=WIDE_SAMPLE))
+        counts[(N, tol)] = row["launches"].get("step_hi_wide_interval", 0)
+        _, _, y0s = runner.workload(N, WIDE_BATCH)
+        u0s = torch.tensor(y0s, device=device)
+        tols = torch.full((WIDE_BATCH,), tol, dtype=torch.float32, device=device)
+        # the solver binds its kernel wrappers when it is made: make it in the window
+        per_launch = _kernel_share(lambda: runner.make_solver(N, "cuda-loop")(u0s, tols),
+                                   "step_hi_wide_interval")
+        tight = tol > 5e-8  # at 1e-8 the hi-channel vector field's floor (about rtol 1e-7)
+        ok = (row["gate_ok"] and row["finite"] and row["capped_lanes"] == 0
+              and row["launches"] == {"step_hi_wide_interval": NUM_SAVE - 1}
+              and (not tight or row["rmse_vs_lsoda"] < WIDE_TIGHT * tol))
+        emit({"phase": "brusselator_wide", "part": "b", **row,
+              "rmse_over_tol": row["rmse_vs_lsoda"] / tol,
+              "gate": f"rmse < {runner.GATE:g} tol" + (f" and < {WIDE_TIGHT:g} tol" if tight
+                                                       else ""),
+              "k2_wide_ms_per_launch": per_launch,
+              "k2_wide_share": sum(per_launch) / 1e3 / row["seconds"],
+              "tpu_row_mean_steps": tpu.get((N, tol), {}).get("mean_steps"), "ok": ok})
+        if not ok:
+            failed.append(("row", N, tol))
+
+    # (c) the attempt engine (K4 wide) against the interval engine on 64 lanes
+    _, _, y0s = runner.workload(n0, WIDE_BATCH)
+    u0s = torch.tensor(y0s[:WIDE_ENGINE_LANES], device=device)
+    tols = torch.full((WIDE_ENGINE_LANES,), tol0, dtype=torch.float32, device=device)
+    loop = runner.make_solver(n0, "cuda-loop")(u0s, tols)
+    attempt_solver = runner.make_solver(n0, "cuda")
+    (secs, out), c = _path(["step_hi_wide_attempt"],
+                           lambda: _timed(lambda: attempt_solver(u0s, tols)))
+    counts["attempt"] = c["step_hi_wide_attempt"]
+    equal = all(_same_bits(a, b, torch) for a, b in zip(_o2_flat(out), _o2_flat(loop)))
+    emit({"phase": "brusselator_wide", "part": "c", "kernel": "K4 wide", "N": n0, "tol": tol0,
+          "batch": WIDE_ENGINE_LANES, "seconds": secs, "launches": counts["attempt"],
+          "outputs_equal_loop_engine": equal})
+    if not equal:
+        failed.append(("K4 wide engine", equal))
+    emit({"phase": "brusselator_wide", "seconds": time.perf_counter() - t_phase,
+          "failed": failed})
+    if failed:
+        raise AssertionError(f"brusselator_wide failed: {failed}")
+    launches = {"step_hi_wide_interval": counts[WIDE_ROWS[0]],
+                "step_hi_wide_attempt": counts["attempt"]}
+    return timing, worst, launches
+
+
 # the multidevice phase: a world of one over NCCL, then MD_RANKS ranks that
 # share the card over gloo (NCCL takes one rank a card)
 MD_RANKS = 2
@@ -3933,6 +4194,9 @@ def main():
           phase_build_o2(kernels.parse_ptxas(kernels.library().log)).items()}
     phase_three_body(device, o2)
     phase_vdp_ensemble(device, o2)
+    wide_timing, wide_worst, wide_launches = phase_brusselator_wide(device)
+    timing.update(wide_timing)
+    worst.update(wide_worst)
     phase_logistic(device)
     phase_train(device)
     phase_multidevice(device, u0s, loop_ll, outs_hi[("parity", MD_RTOL_HI)], pit_refs)
@@ -3948,6 +4212,7 @@ def main():
                 "step_hi_interval": counts_hi["step_hi_interval"],
                 "step_ll_attempt": counts_attempt["step_ll_attempt"]["step_ll_attempt"],
                 "step_hi_attempt": counts_attempt["step_hi_attempt"]["step_hi_attempt"],
+                **wide_launches,
                 "step_dense_interval": counts_dense["step_dense_interval"],
                 "step_dense_attempt": counts_attempt_dense["step_dense_attempt"],
                 "step_bd_interval": counts_bd["step_bd_interval"],
@@ -3971,7 +4236,8 @@ def main():
         if name in geometry:
             rows[-1].update({k: v for k, v in geometry[name].items()
                              if k in ("threads_per_lane", "lanes_per_block", "threads_per_pair",
-                                      "pairs_per_block", "smem_bytes", "blocks_per_sm")})
+                                      "pairs_per_block", "smem_bytes", "blocks_per_sm",
+                                      "threads_per_block")})
         if "f64" in timing[name]:
             rows[-1]["f64"] = timing[name]["f64"]
         if name in O2_KERNELS:  # the instantiations of order 2 (phases 31 and 32)

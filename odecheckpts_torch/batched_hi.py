@@ -12,16 +12,21 @@ the derivation).
 ``StepHi`` is the lanes-last attempt in plain vectorized torch ops (the
 twin); ``kernels.step_hi_interval`` (K2) runs a whole checkpoint interval of
 it as the hand-written CUDA kernel ``csrc/step_hi.cu`` and
-``kernels.step_hi_attempt`` (K4) one attempt.  ``make_hi_solver`` drives
-them; ``make_routed_solver`` sends loose lanes to the f32 engine of
-``batched`` and tight lanes here.
+``kernels.step_hi_attempt`` (K4) one attempt, one thread per IVP lane.  A
+vector field whose device functor is a row functor (``kernels.hi_wide``:
+the Brusselator's hi channel, d = 2N) runs on their wide forms
+``kernels.step_hi_wide_interval`` / ``step_hi_wide_attempt`` instead, one
+block per IVP lane and one thread per component (``csrc/step_hi_wide.cu``).
+``make_hi_solver`` drives them; ``make_routed_solver`` sends loose lanes to
+the f32 engine of ``batched`` and tight lanes here.
 
 Ported configuration: isotropic backend, ``ode_order`` 1 or 2, TS0 at any
 d and TS1 at d = 1 (f32 Jacobians from the hi channel), the fixedpoint and
 the filter strategy, dynamic calibration, ``error_unit`` "qoi" or
 "residual", any error calibration (kappa), ``num_derivatives`` in {4, 5},
 f32 pairs (``dtype=torch.float32``) and the f64-pair ("double-double")
-oracle mode (``dtype=torch.float64``, plain versions only).  Everything else
+oracle mode (``dtype=torch.float64``, plain versions only); on the wide
+forms TS0 and the fixedpoint strategy at ``ode_order`` 1.  Everything else
 raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -426,6 +431,9 @@ def make_hi_solver(
     ``engine="cuda-loop"`` launches K2 once per checkpoint interval,
     ``engine="cuda"`` K4 once per attempt under a host loop that runs while
     any lane is short of the checkpoint; both run the twin on CPU tensors.
+    Where the pair vector field's device functor is a row functor
+    (``kernels.hi_wide``; ``vf_df=None`` on ``problems.brusselator``) the
+    wide forms of K2 and K4 run, a block per lane.
     ``engine="torch"`` runs the twin on any device.  ``dtype=torch.float64``
     runs the same algorithm on f64 pairs (double-double), the oracle mode;
     the kernels take f32 only.  ``vf_df=None`` evaluates ``vf`` on the hi
@@ -452,8 +460,11 @@ def make_hi_solver(
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     save_at_np = np.asarray(save_at, np_dtype)
     vf_df_ = vf_df if vf_df is not None else wrap_vf_plain(vf, params)
-    interval = batched.interval_fn(engine, kernels.step_hi_interval,
-                                   kernels.step_hi_attempt, kernels.active_hi)
+    # a row functor runs on the wide forms of K2 / K4 (a block per lane)
+    wide = kernels.hi_wide(getattr(vf_df_, "device_functor", None))
+    interval = batched.interval_fn(
+        engine, kernels.step_hi_wide_interval if wide else kernels.step_hi_interval,
+        kernels.step_hi_wide_attempt if wide else kernels.step_hi_attempt, kernels.active_hi)
     steps = {}  # d -> twin, holding its constants for the kernels
 
     def get_step(d):

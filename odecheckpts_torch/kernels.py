@@ -7,6 +7,8 @@ K1  ``step_ll_interval``        ``csrc/step_ll.cu``                 ``batched._p
 K3  ``step_ll_attempt``         ``csrc/step_ll_attempt.cu``         ``batched._pallas_step(make_step_ll)``
 K2  ``step_hi_interval``        ``csrc/step_hi.cu``                 ``batched_hi._pallas_interval(make_step_hi)``
 K4  ``step_hi_attempt``         ``csrc/step_hi_attempt.cu``         ``batched_hi._pallas_step(make_step_hi)``
+K2  ``step_hi_wide_interval``   ``csrc/step_hi_wide.cu``            ``batched_hi._pallas_interval(make_step_hi)``, wide d
+K4  ``step_hi_wide_attempt``    ``csrc/step_hi_wide_attempt.cu``    ``batched_hi._pallas_step(make_step_hi)``, wide d
 K5  ``step_dense_interval``     ``csrc/step_dense.cu``              ``batched_dense._pallas_interval(make_step_dense_ll)``
 K5  ``step_dense_attempt``      ``csrc/step_dense_attempt.cu``      ``batched_dense._pallas_step(make_step_dense_ll)``
 K6  ``step_bd_interval``        ``csrc/step_bd.cu``                 ``batched_blockdiag._pallas_interval(make_step_bd_ll)``
@@ -23,9 +25,12 @@ K11 ``qr_packing_masked``       ``csrc/qr_packing.cu``              ``qr_packing
 K1, K2 and the interval forms of K5 and K6 run a whole checkpoint interval
 (the accept/reject loop of every lane) in one launch; K3, K4 and the attempt
 forms of K5 and K6 run one attempt of the same step body per launch, under
-the host loop ``attempt_loop``.  K7 is one attempt of K3's step body with the
-smoother or the filter strategy, launched a fixed number of times by the
-save-every-step driver.  The twins are ``batched.StepLL`` (f32; K1, K3 and,
+the host loop ``attempt_loop``.  K2 and K4 have a second, wide form for
+states of many components (the Brusselator method of lines, d = 64, 128):
+one block per IVP lane and one thread per component instead of one thread
+per lane (``csrc/step_hi_wide.cuh``).  K7 is one attempt of K3's step body
+with the smoother or the filter strategy, launched a fixed number of times
+by the save-every-step driver.  The twins are ``batched.StepLL`` (f32; K1, K3 and,
 with its strategy, K7), ``batched_hi.StepHi`` (df32 pairs),
 ``batched_dense.StepDense`` (f32, dense covariance, TS1 or TS0) and
 ``batched_blockdiag.StepBD`` (f32, one factor and one scale per dimension).
@@ -75,12 +80,16 @@ LIB_NAME = "libodeckpt_kernels.so"
 LAUNCHES = {
     "step_ll_interval": 0, "step_ll_attempt": 0,
     "step_hi_interval": 0, "step_hi_attempt": 0,
+    "step_hi_wide_interval": 0, "step_hi_wide_attempt": 0,
     "step_dense_interval": 0, "step_dense_attempt": 0,
     "step_bd_interval": 0, "step_bd_attempt": 0,
     "step_everystep_attempt": 0,
     "pit_combine": 0, "batched_qr_r": 0, "qr_packing_cols": 0, "qr_packing_masked": 0,
 }
 
+# The ODE dimension of a wide entry (K2 and K4 wide): any even d up to
+# HI_WIDE_MAX_D, one thread per component (csrc/step_hi_wide.cuh)
+HI_WIDE_D, HI_WIDE_MAX_D = "2N", 1024
 # (kernel, device functor of the step's vector field) -> (C symbol, ODE dim);
 # the functors of order 2 are in _VARIANTS as well
 _FUNCTORS = {
@@ -113,7 +122,14 @@ _FUNCTORS = {
         ("odeckpt_step_hi_attempt_three_body_restricted_hi", 2),
     ("step_hi_interval", "van_der_pol_hi"): ("odeckpt_step_hi_interval_van_der_pol_hi", 1),
     ("step_hi_attempt", "van_der_pol_hi"): ("odeckpt_step_hi_attempt_van_der_pol_hi", 1),
+    ("step_hi_wide_interval", "brusselator_hi"):
+        ("odeckpt_step_hi_wide_interval_brusselator_hi", HI_WIDE_D),
+    ("step_hi_wide_attempt", "brusselator_hi"):
+        ("odeckpt_step_hi_wide_attempt_brusselator_hi", HI_WIDE_D),
 }
+# the row functors of K2 and K4 wide (csrc/functors.cuh) -> float parameters;
+# each is of order 1, built for nu = 4 and 5, fixedpoint and TS0
+_WIDE_FUNCTORS = {"brusselator_hi": 1}
 # The functors of order 2 on K1-K4 (csrc/functors.cuh; step_ll_o2*.cu,
 # step_hi_o2*.cu): functor -> (ODE order, float parameters, the nu it is
 # built for, the strategies, the corrections).  Their entries take the
@@ -143,6 +159,8 @@ _ENTRIES = {
     "odeckpt_step_bd_attempt_geometry": [_INT, _INT, _PTR],
     "odeckpt_step_hi_interval_geometry": [_INT, _PTR],
     "odeckpt_step_hi_attempt_geometry": [_INT, _PTR],
+    "odeckpt_step_hi_wide_interval_geometry": [_INT, _INT, _PTR],
+    "odeckpt_step_hi_wide_attempt_geometry": [_INT, _INT, _PTR],
     "odeckpt_step_ll_interval_geometry": [_INT, _PTR],
     "odeckpt_step_ll_attempt_geometry": [_INT, _PTR],
     "odeckpt_step_everystep_attempt_geometry": [_INT, _INT, _PTR],
@@ -228,6 +246,28 @@ def hi_geometry(nu):
     if nu not in (4, 5):
         raise ValueError(f"K2 and K4 are built for nu = 4 and 5, not {nu}")
     return _thread_per_lane()
+
+
+# K2 and K4 wide (step_hi_wide.cuh): one block per lane, a thread per
+# component in whole warps, the lane's LaneWide (HI_WIDE_LANE_FLOATS floats)
+# and three rows of d floats in dynamic shared memory
+HI_WIDE_LANE_FLOATS, _WARP = 158, 32
+
+
+def hi_wide_geometry(nu, d):
+    """The launch geometry of K2 and K4 wide (both forms, nu = 4 or 5) for
+    ODE dimension ``d`` (at most ``HI_WIDE_MAX_D``), as their C launch
+    functions compute it: threads per lane (d), lanes per block (1),
+    threads per block (d in whole warps) and shared-memory bytes per block
+    (the lane's scalars, decisions and (n, n) arrays, and three rows of d
+    floats)."""
+    hi_geometry(nu)
+    if not 1 <= int(d) <= HI_WIDE_MAX_D:
+        raise ValueError(f"K2 and K4 wide take 1 <= d <= {HI_WIDE_MAX_D} (a thread a "
+                         f"component, one block a lane), got d={d}")
+    return {"threads_per_lane": d, "lanes_per_block": 1,
+            "threads_per_block": (d + _WARP - 1) // _WARP * _WARP,
+            "smem_bytes": 4 * (HI_WIDE_LANE_FLOATS + 3 * d)}
 
 
 def ll_geometry(nu, d=3):
@@ -321,7 +361,8 @@ def _ptxas_key(symbol):
     if m is not None:
         name = "batched_qr_r" if m.group(1) == "batched_qr" else m.group(1)
         return name, f"{m.group(2)}/{m.group(3)}"
-    m = re.search(r"(step_(?:ll|hi|dense|bd|everystep)_(?:interval|attempt))ILi(\d+)E", symbol)
+    m = re.search(r"(step_(?:ll|hi_wide|hi|dense|bd|everystep)_(?:interval|attempt))ILi(\d+)E",
+                  symbol)
     if m is None:
         return None
     kernel, nu = m.group(1), int(m.group(2))
@@ -345,6 +386,8 @@ def _ptxas_key(symbol):
             names = {code: name for name, code in STRATEGY_CODES.items()}
             return kernel, _variant_key(nu, functor, names[int(vm.group(1))], vm.group(2))
         return kernel, nu if functor == "RigidBody" else f"{nu}/{functor}"
+    if kernel.startswith("step_hi_wide"):
+        return kernel, nu
     if kernel.startswith("step_hi"):
         fm = re.match(r"NS_9HiChannelINS_(\d+)", rest)
         if fm is not None:
@@ -403,10 +446,17 @@ def parse_ptxas(log):
 
 def hi_channel_functor(functor):
     """The device functor that K2 and K4 run for ``functor`` on the hi
-    channel of its pairs (``"<functor>_hi"``, ``csrc/step_hi.cuh``'s
-    ``HiChannel``), or None where none is built."""
+    channel of its pairs (``"<functor>_hi"``: ``csrc/step_hi.cuh``'s
+    ``HiChannel``, or a row functor of the wide forms), or None where none
+    is built."""
     name = f"{functor}_hi"
-    return name if name in _VARIANTS else None
+    return name if name in _VARIANTS or name in _WIDE_FUNCTORS else None
+
+
+def hi_wide(functor):
+    """Whether ``functor`` runs on the wide forms of K2 and K4 (a block per
+    lane), which ``batched_hi.make_hi_solver`` then launches."""
+    return functor in _WIDE_FUNCTORS
 
 
 def order_two_instantiations():
@@ -424,6 +474,8 @@ def _num_params(kernel, functor):
     their own count."""
     if functor in _VARIANTS:
         return _VARIANTS[functor][1]
+    if functor in _WIDE_FUNCTORS:
+        return _WIDE_FUNCTORS[functor]
     return 4 if kernel.startswith("step_bd") or functor == "rigid_body_anisotropic" else 3
 
 
@@ -437,10 +489,13 @@ def _num_flags(kernel, functor):
 
 def _argtypes(kernel, functor):
     """C signature of a kernel's entry: nu, [flags], the host arrays of
-    input and output pointers, the constants, the batch, [max_attempts], the
-    functor's parameters, the device index, the stream."""
+    input and output pointers, the constants, the batch, [d: the wide
+    forms], [max_attempts], the functor's parameters, the device index, the
+    stream."""
     args = [ctypes.c_int] * (1 + _num_flags(kernel, functor))
     args += [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+    if kernel.startswith("step_hi_wide"):
+        args.append(ctypes.c_int)
     if kernel.endswith("interval"):
         args.append(ctypes.c_int)
     return (args + [ctypes.c_float] * _num_params(kernel, functor)
@@ -532,7 +587,7 @@ def attempt_plain(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_sca
 
 
 step_ll_attempt_plain = step_hi_attempt_plain = step_dense_attempt_plain = attempt_plain
-step_bd_attempt_plain = step_everystep_attempt_plain = attempt_plain
+step_bd_attempt_plain = step_everystep_attempt_plain = step_hi_wide_attempt_plain = attempt_plain
 
 
 def attempt_loop(attempt, active, step, state, t_next, *, max_attempts, **inputs):
@@ -564,6 +619,9 @@ def step_hi_interval_plain(step, state, t_next, *, max_attempts, **inputs):
     short of the checkpoint by the pair-aware predicate ``active_hi``."""
     return attempt_loop(attempt_plain, active_hi, step, state, t_next,
                         max_attempts=max_attempts, **inputs)
+
+
+step_hi_wide_interval_plain = step_hi_interval_plain  # K2 wide: the same loop of the twin
 
 
 def pit_combine_plain(e_i, e_j):
@@ -676,15 +734,7 @@ def _launch(kernel, step, state, t_next, inputs, max_attempts=None):
     if device.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA tensors (or its plain version on CPU), got {device}")
     functor = step.device_functor
-    if (kernel, functor) not in _FUNCTORS:
-        have = sorted(f for k, f in _FUNCTORS if k == kernel)
-        raise NotImplementedError(
-            f"{kernel}: the vector field has no device functor for this kernel (got "
-            f"{functor!r}; have {have}): ROADMAP queue 1 item 5"
-        )
-    symbol, dim = _FUNCTORS[(kernel, functor)]
-    if step.d != dim:
-        raise ValueError(f"device functor {functor!r} has d={dim}, the step has d={step.d}")
+    symbol, dim = _functor_entry(kernel, step)
     flags = _variant_flags(kernel, functor, step)
     batch = state[0].shape[-1]
     extra = (t_next, inputs["atol"], inputs["rtol"], inputs["dt_max"], inputs["dt_floor"],
@@ -710,6 +760,8 @@ def _launch(kernel, step, state, t_next, inputs, max_attempts=None):
     index = device.index if device.index is not None else torch.cuda.current_device()
     head = (step.nu, *flags, ctypes.addressof(ins_ptr), ctypes.addressof(outs_ptr),
             consts.ctypes.data, batch)
+    if dim == HI_WIDE_D:
+        head = head + (step.d,)
     if max_attempts is not None:
         if not 0 <= int(max_attempts) < 2**31:
             raise ValueError(f"max_attempts must fit an int32, got {max_attempts}")
@@ -721,10 +773,45 @@ def _launch(kernel, step, state, t_next, inputs, max_attempts=None):
     return outs
 
 
+def _functor_entry(kernel, step):
+    """(C symbol, ODE dimension) of ``kernel``'s entry for the step's device
+    functor; raises ``NotImplementedError`` where the kernel has none and
+    ``ValueError`` where the step's d is not the entry's (a wide entry: any
+    even d up to ``HI_WIDE_MAX_D``)."""
+    functor = step.device_functor
+    if (kernel, functor) not in _FUNCTORS:
+        have = sorted(f for k, f in _FUNCTORS if k == kernel)
+        raise NotImplementedError(
+            f"{kernel}: the vector field has no device functor for this kernel (got "
+            f"{functor!r}; have {have}): ROADMAP queue 1 item 5"
+        )
+    symbol, dim = _FUNCTORS[(kernel, functor)]
+    if dim == HI_WIDE_D:
+        if step.d % 2 or not 2 <= step.d <= HI_WIDE_MAX_D:
+            raise ValueError(f"device functor {functor!r} takes an even d <= {HI_WIDE_MAX_D}, "
+                             f"the step has d={step.d}")
+    elif step.d != dim:
+        raise ValueError(f"device functor {functor!r} has d={dim}, the step has d={step.d}")
+    return symbol, dim
+
+
 def _variant_flags(kernel, functor, step):
     """The flag ints of ``kernel``'s entry for the step's configuration;
     raises ``ValueError`` where the functor's order is not the step's and
-    ``NotImplementedError`` where no instantiation runs the configuration."""
+    ``NotImplementedError`` where no instantiation runs the configuration
+    (the wide forms: nu 4 or 5, fixedpoint, TS0, ode_order 1)."""
+    if kernel.startswith("step_hi_wide"):
+        from . import batched_hi
+
+        strategy = getattr(step, "strategy", "fixedpoint")
+        order = getattr(step, "ode_order", 1)
+        if (step.nu not in batched_hi.SUPPORTED_NU or strategy != "fixedpoint" or step.ts1
+                or order != 1):
+            raise NotImplementedError(
+                f"{kernel} on {functor!r} is built for nu in {batched_hi.SUPPORTED_NU}, the "
+                f"fixedpoint strategy, TS0 and ode_order=1; got nu={step.nu}, {strategy!r}, "
+                f"{'ts1' if step.ts1 else 'ts0'}, ode_order={order}: ROADMAP queue 1 item 5")
+        return ()
     order = _VARIANTS[functor][0] if functor in _VARIANTS else 1
     if getattr(step, "ode_order", 1) != order:
         raise ValueError(f"device functor {functor!r} has ode_order={order}, the step has "
@@ -793,6 +880,26 @@ def step_hi_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_s
     return _launch("step_hi_attempt", step, state, t_next, inputs)
 
 
+def step_hi_wide_interval(step, state, t_next, *, atol, rtol, dt_max, dt_floor,
+                          tiny_scale, max_attempts):
+    """K2 wide: K2 (``step_hi_interval``) for a step whose device functor
+    is a row functor of the wide forms (``hi_wide``), one block per lane and
+    one thread per component, any even d up to ``HI_WIDE_MAX_D``."""
+    inputs = dict(atol=atol, rtol=rtol, dt_max=dt_max, dt_floor=dt_floor, tiny_scale=tiny_scale)
+    if state[0].device.type == "cpu":
+        return step_hi_wide_interval_plain(step, state, t_next, max_attempts=max_attempts,
+                                           **inputs)
+    return _launch("step_hi_wide_interval", step, state, t_next, inputs, max_attempts)
+
+
+def step_hi_wide_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, tiny_scale):
+    """K4 wide: one attempt of K2 wide's step on every lane."""
+    inputs = dict(atol=atol, rtol=rtol, dt_max=dt_max, dt_floor=dt_floor, tiny_scale=tiny_scale)
+    if state[0].device.type == "cpu":
+        return step_hi_wide_attempt_plain(step, state, t_next, **inputs)
+    return _launch("step_hi_wide_attempt", step, state, t_next, inputs)
+
+
 _GEOMETRY_KEYS = ("threads_per_lane", "lanes_per_block", "threads_per_block", "smem_bytes",
                   "blocks_per_sm", "registers", "local_bytes")
 _PIT_GEOMETRY_KEYS = ("threads_per_pair", "pairs_per_block") + _GEOMETRY_KEYS[2:]
@@ -816,6 +923,19 @@ def step_hi_geometry(kernel, nu=4):
     if kernel not in ("step_hi_interval", "step_hi_attempt"):
         raise ValueError(f"{kernel} is not K2 or K4")
     return _geometry_entry(f"odeckpt_{kernel}_geometry", nu)
+
+
+def step_hi_wide_geometry(kernel, nu=4, d=64):
+    """K2 wide's or K4 wide's launch geometry on the current CUDA device for
+    nu and ODE dimension ``d``, as the C launch function of ``kernel``
+    ("step_hi_wide_interval" or "step_hi_wide_attempt") has it:
+    ``hi_wide_geometry``'s keys, ``blocks_per_sm`` (resident blocks, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), ``registers`` and
+    ``local_bytes`` per thread."""
+    if kernel not in ("step_hi_wide_interval", "step_hi_wide_attempt"):
+        raise ValueError(f"{kernel} is not a wide form of K2 or K4")
+    hi_wide_geometry(nu, d)
+    return _geometry_entry(f"odeckpt_{kernel}_geometry", nu, d)
 
 
 def step_ll_geometry(kernel, nu=4):

@@ -107,10 +107,14 @@ def brusselator(N, t0=0.0, tmax=10.0, laplacian="slices"):
 
     Only the ``laplacian="slices"`` form is ported: the band of the
     Laplacian by axis-0 slices, which broadcasts over a trailing lane axis,
-    so ``vf`` takes (2N,) states and (2N, B) ensembles alike.  The kernels'
-    functor ``"brusselator"`` is instantiated for N = 2 and takes the
-    diffusion constant ``c = (N + 1)^2 / 50`` as its kernel argument
-    (``vf.device_params``).
+    so ``vf`` takes (2N,) states and (2N, B) ensembles alike.  The device
+    functor ``"brusselator"`` takes the diffusion constant
+    ``c = (N + 1)^2 / 50``, formed in Python double and rounded once to f32,
+    as its kernel argument (``vf.device_params``).  K5, the dense TS1 / TS0
+    engine, runs it at N = 2 (``csrc/step_dense.cuh``); the df32 engine
+    (``batched_hi.make_hi_solver``, ``vf_df=None``) runs its hi-channel form
+    ``"brusselator_hi"`` at every N up to 512 on the wide forms of K2 and K4
+    (a block per IVP, ``csrc/step_hi_wide.cuh``).
     """
     if laplacian != "slices":
         raise NotImplementedError(

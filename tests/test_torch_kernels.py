@@ -431,6 +431,125 @@ def test_df32_kernels_k2_k4_match_twin_on_the_card(cuda_device, nu, kernel):
         assert float(steps.min()) < 40 and float(steps.max()) == 40
 
 
+def _start_hi_wide(N, nu=4, *, batch=1001, device="cpu", tol_lo=1e-9, **step_kw):
+    """Experiment 4's kind of Brusselator ensemble (d = 2N components, u0
+    (1 + 0.01 N(0, 1)) of ``problems.brusselator(N)``'s profile) after the
+    f64 Taylor init, tolerances geometric from 1e-5 to ``tol_lo`` across the
+    lanes, toward t = 2.5: (step, state, t_next, inputs) of the wide forms
+    of K2 and K4."""
+    vf, (y0,), _, _ = problems.brusselator(N)
+    rng = np.random.default_rng(7)
+    y0s = (y0.numpy()[None] * (1.0 + 0.01 * rng.standard_normal((batch, 2 * N))))
+    tols = torch.tensor(np.geomspace(1e-5, tol_lo, batch), dtype=torch.float32, device=device)
+    save_at = np.linspace(0.0, 10.0, 5).astype(np.float32)
+    state, inputs = batched_hi.initial_state(
+        vf, torch.tensor(y0s.astype(np.float32), device=device), (), save_at=save_at, dt0=1e-5,
+        tols=tols, num_derivatives=nu)
+    step = batched_hi.make_step_hi(batched_hi.wrap_vf_plain(vf, ()), nu=nu, d=2 * N, **step_kw)
+    return step, state, torch.full((1, batch), float(save_at[1]), device=device), inputs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["step_hi_wide_interval-1", "step_hi_wide_interval-40",
+                                    "step_hi_wide_attempt"])
+@pytest.mark.parametrize("nu", [4, 5])
+def test_hi_wide_kernels_match_plain_on_the_card(cuda_device, nu, kernel):
+    """K2 wide and K4 wide on 1,001 lanes of N = 32 (d = 64) whose
+    tolerances span 1e-5 to 1e-9: equal to the plain version (the twin's
+    loop, or its attempt) bit for bit, and two launches on one input equal
+    to each other (a race between a block's threads would show as a
+    run-to-run difference)."""
+    step, state, t_next, inputs = _start_hi_wide(32, nu, device=cuda_device)
+    name, _, cap = kernel.partition("-")
+    kw = dict(max_attempts=int(cap)) if cap else {}
+    want = getattr(kernels, name + "_plain")(step, state, t_next, **inputs, **kw)
+    before = kernels.LAUNCHES[name]
+    first = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+    second = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+    assert kernels.LAUNCHES[name] == before + 2
+    torch.cuda.synchronize()
+    _assert_same_bits(first, second, want)
+    steps = (want[11] - state[11])[0]
+    if cap == "40":  # lanes that rejected attempts beside lanes that accepted all
+        assert float(steps.min()) < 40 and float(steps.max()) == 40
+
+
+@pytest.mark.cuda
+def test_hi_wide_interval_is_repeatable_over_a_whole_interval_on_the_card(cuda_device):
+    """K2 wide over the whole first interval of 1,001 lanes (N = 32, tol
+    1e-5..1e-8): every lane on the checkpoint, lanes of one launch ending
+    thousands of attempts apart, and two launches equal bit for bit."""
+    step, state, t_next, inputs = _start_hi_wide(32, device=cuda_device, tol_lo=1e-8)
+    first, second = (kernels.step_hi_wide_interval(step, state, t_next, max_attempts=100_000,
+                                                   **inputs) for _ in range(2))
+    torch.cuda.synchronize()
+    _assert_same_bits(first, second, first)
+    assert bool(torch.all(first[0] == t_next)) and bool(torch.all(first[1] == 0))
+    steps = (first[11] - state[11])[0]
+    assert float(steps.max()) > 2 * float(steps.min())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 4, 512])
+def test_hi_wide_kernels_at_other_widths_and_the_residual_unit_on_the_card(cuda_device, N):
+    """The wide forms at d = 2 (no neighbours: both boundaries), 8 and 1,024
+    (a block of 1,024 threads; the geometry entry's report equals
+    ``kernels.hi_wide_geometry``'s and a block fits an SM), and with the
+    residual error unit at d = 8: 40 attempts of K2 wide and one of K4 wide
+    equal to their plain versions bit for bit."""
+    d = 2 * N
+    for name in ("step_hi_wide_interval", "step_hi_wide_attempt"):
+        geometry = kernels.step_hi_wide_geometry(name, 4, d)
+        assert {k: geometry[k] for k in kernels.hi_wide_geometry(4, d)} == \
+            kernels.hi_wide_geometry(4, d)
+        assert geometry["blocks_per_sm"] >= 1
+    units = ("qoi", "residual") if N == 4 else ("qoi",)
+    for unit in units:
+        step, state, t_next, inputs = _start_hi_wide(N, batch=37, device=cuda_device,
+                                                     error_unit=unit)
+        for name, kw in (("step_hi_wide_interval", dict(max_attempts=40)),
+                         ("step_hi_wide_attempt", {})):
+            want = getattr(kernels, name + "_plain")(step, state, t_next, **inputs, **kw)
+            first = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+            second = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+            torch.cuda.synchronize()
+            _assert_same_bits(first, second, want)
+
+
+@pytest.mark.cuda
+def test_hi_wide_engines_agree_with_the_twin_on_the_card(cuda_device):
+    """``make_hi_solver`` on ``problems.brusselator(32)``: K2 wide
+    (``"cuda-loop"``, one launch an interval), K4 wide (``"cuda"``) and the
+    twin on the card (``"torch"``) give the same outputs bit for bit; the
+    filter strategy on a wide functor is refused at the launch."""
+    vf = problems.brusselator(32)[0]
+    rng = np.random.default_rng(3)
+    y0 = problems.brusselator(32)[1][0].numpy()
+    u0s = torch.tensor((y0[None] * (1.0 + 0.01 * rng.standard_normal((16, 64))))
+                       .astype(np.float32), device=cuda_device)
+    tols = torch.full((16,), 1e-6, device=cuda_device)
+    save_at = np.linspace(0.0, 0.1, 3)
+    outs = {}
+    for engine in ("cuda-loop", "cuda", "torch"):
+        before = dict(kernels.LAUNCHES)
+        us, uf, n = batched_hi.make_hi_solver(vf, (), save_at=save_at, dt0=1e-5,
+                                              engine=engine)(u0s, tols)
+        outs[engine] = (*us, *uf, n)
+        launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+        want = {"cuda-loop": {"step_hi_wide_interval": 2}, "torch": {}}
+        if engine == "cuda":
+            assert set(launched) == {"step_hi_wide_attempt"}
+        else:
+            assert launched == want[engine]
+    for a, b, c in zip(outs["cuda-loop"], outs["cuda"], outs["torch"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+    step, state, t_next, inputs = _start_hi_wide(4, batch=8, device=cuda_device,
+                                                 strategy="filter")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+        kernels.step_hi_wide_interval(step, state, t_next, max_attempts=1, **inputs)
+
+
 def _random_backward(state, rng, device):
     """``state`` with random backward conditionals of the state's own shapes
     (isotropic (n, n, B) or blockdiag (n, n, d, B) factors): within the first
