@@ -23,8 +23,9 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
    BD_MAX_STACK bytes of stack; for every K2 and K4 entry (nu = 4, 5) the
    same report against ``kernels.hi_geometry`` (a thread per lane: their
    spills are reported, not gated); for K2 wide and K4 wide (nu = 4, 5, at
-   d = 64 and 128) against ``kernels.hi_wide_geometry`` (a block per lane,
-   a thread per component; spills reported, not gated); for every K1 and K3 entry (nu = 2, 3, 4)
+   d = 64, 128, 130 and 1,024: both instantiations, launch bounds 128 and
+   1,024) against ``kernels.hi_wide_geometry`` (a block per lane, a thread
+   per component; spills reported, not gated); for every K1 and K3 entry (nu = 2, 3, 4)
    the same report against ``kernels.ll_geometry`` and for every K7 entry
    (both strategies) against ``kernels.everystep_geometry``, K7 with no
    spills; for every K8 entry (float32 and float64, every built m and c)
@@ -321,7 +322,8 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
     launches of K2 wide in the timed solve, and at tol 1e-7 RMSE < 3 tol
     (at 1e-8 the hi channel's floor, about rtol 1e-7, applies: RMSE / tol is
     reported).  Printed: seconds, solves/s, mean and max steps, K2 wide's
-    CUDA-event time of each launch in one more solve and their share of the
+    CUDA-event time of each launch in one more solve, each launch's bound
+    (its interval's accepted attempts' operations) and their share of the
     solve, and the committed TPU row's mean steps (not a gate).  (c)
     ``engine="cuda"`` (K4 wide) at (32, 1e-7) on 64 lanes equals
     ``"cuda-loop"`` on the same lanes bit for bit.
@@ -599,7 +601,8 @@ def phase_build():
     everystep = tuple(f"{nu}/{s}" for s in ("smoother", "filter") for nu in (2, 3, 4))
     want = {"step_ll_interval": (2, 3, 4), "step_ll_attempt": (2, 3, 4),
             "step_hi_interval": (4, 5), "step_hi_attempt": (4, 5),
-            "step_hi_wide_interval": (4, 5), "step_hi_wide_attempt": (4, 5),
+            "step_hi_wide_interval": WIDE_INSTANTIATIONS,
+            "step_hi_wide_attempt": WIDE_INSTANTIATIONS,
             "step_dense_interval": dense, "step_dense_attempt": dense,
             "step_bd_interval": bd, "step_bd_attempt": bd,
             "step_everystep_attempt": everystep,
@@ -743,19 +746,21 @@ def phase_build_hi(ptxas, sass):
 def phase_build_hi_wide(ptxas, sass):
     """K2 wide's and K4 wide's ptxas counts (registers, spills, stack) and
     machine instructions beside the launch geometry their C launch functions
-    report, for nu = 4, 5 at d = 64 and 128; fails if that geometry is not
-    ``kernels.hi_wide_geometry``'s or if no block fits on an SM (their
-    spills are reported, not gated).  Returns the geometry of each form at
-    nu = 4, d = 64 (phase 34's launches)."""
+    report, for nu = 4, 5 at d in WIDE_GEOMETRY_D: both instantiations (the
+    launch bound of 128 threads for d <= 128, of 1,024 above); fails if that
+    geometry is not ``kernels.hi_wide_geometry``'s or if no block fits on an
+    SM (their spills are reported, not gated).  Returns the geometry of each
+    form at nu = 4, d = 64 (phase 34's launches)."""
     from odecheckpts_torch import kernels
 
     main, bad = {}, []
     for name in ("step_hi_wide_interval", "step_hi_wide_attempt"):
         for nu in (4, 5):
-            for d in (64, 128):
+            for d in WIDE_GEOMETRY_D:
                 geometry = kernels.step_hi_wide_geometry(name, nu, d)
-                info = {**ptxas[name][nu], **geometry,
-                        "sass_instructions": sass.get(name, {}).get(nu)}
+                key = f"{nu}/{geometry['max_threads']}"
+                info = {"instantiation": key, **ptxas[name][key], **geometry,
+                        "sass_instructions": sass.get(name, {}).get(key)}
                 emit({"phase": "build_hi_wide", "kernel": KERNELS[name][0], "form": name,
                       "nu": nu, "d": d, **info})
                 want = kernels.hi_wide_geometry(nu, d)
@@ -3662,6 +3667,10 @@ def phase_vdp_ensemble(device, o2):
 # (experiments/4_brusselator/batched_tpu.py:77-92, its torch runner
 # batched_torch.py): (N, tol) of the committed TPU rows, 256 lanes
 WIDE_ROWS = ((32, 1e-7), (32, 1e-8), (64, 1e-7))
+# the wide forms' instantiations (ptxas keys "<nu>/<launch bound>") and the
+# widths at which phase 2 reads their geometry: both sides of the bound
+WIDE_INSTANTIATIONS = ("4/128", "4/1024", "5/128", "5/1024")
+WIDE_GEOMETRY_D = (64, 128, 130, 1024)
 WIDE_NS = (32, 64)  # phase 34(a)
 WIDE_BATCH = 256
 WIDE_ODD = 257  # phase 34(a): an odd batch
@@ -3800,8 +3809,14 @@ def phase_brusselator_wide(device):
         u0s = torch.tensor(y0s, device=device)
         tols = torch.full((WIDE_BATCH,), tol, dtype=torch.float32, device=device)
         # the solver binds its kernel wrappers when it is made: make it in the window
-        per_launch = _kernel_share(lambda: runner.make_solver(N, "cuda-loop")(u0s, tols),
-                                   "step_hi_wide_interval")
+        solved = []
+        per_launch = _kernel_share(
+            lambda: solved.append(runner.make_solver(N, "cuda-loop")(u0s, tols)),
+            "step_hi_wide_interval")
+        # each launch's bound: the accepted attempts of its interval
+        accepted = np.diff(solved[0][2].cpu().numpy().astype(np.int64), axis=1).sum(axis=0)
+        bound_ms = [float(a) * _attempt_flops("step_hi_wide_interval", 4, 2 * N)
+                    / PEAK_F32_FLOPS * 1e3 for a in accepted]
         tight = tol > 5e-8  # at 1e-8 the hi-channel vector field's floor (about rtol 1e-7)
         ok = (row["gate_ok"] and row["finite"] and row["capped_lanes"] == 0
               and row["launches"] == {"step_hi_wide_interval": NUM_SAVE - 1}
@@ -3811,6 +3826,7 @@ def phase_brusselator_wide(device):
               "gate": f"rmse < {runner.GATE:g} tol" + (f" and < {WIDE_TIGHT:g} tol" if tight
                                                        else ""),
               "k2_wide_ms_per_launch": per_launch,
+              "k2_wide_bound_ms_per_launch": bound_ms,
               "k2_wide_share": sum(per_launch) / 1e3 / row["seconds"],
               "tpu_row_mean_steps": tpu.get((N, tol), {}).get("mean_steps"), "ok": ok})
         if not ok:

@@ -10,8 +10,9 @@
 
 namespace {
 
-template <int NU, class VF>
-__global__ void __launch_bounds__(WIDE_MAX_THREADS)
+// MAXT and the launch bound as in step_hi_wide.cu.
+template <int NU, int MAXT, class VF>
+__global__ void __launch_bounds__(MAXT, 1)
     step_hi_wide_attempt(ArgsHi args, ConstsHi c, VF vf, int64_t B, int d) {
   constexpr int N = NU + 1;
   extern __shared__ float smem[];
@@ -19,16 +20,34 @@ __global__ void __launch_bounds__(WIDE_MAX_THREADS)
   float* rows = smem + WIDE_LANE_FLOATS;
   const int64_t b = blockIdx.x;
   ColumnHi<N> s;
-  const LaneInputsHi in = load_lane_wide(L, s, args, b, B, d);
+  const LaneInputsHi in = load_lane_wide(L, s, args, c, b, B, d);
   int cur = 0;
   attempt_wide<NU, VF>(L, rows, s, c, vf, in, d, cur);
   store_lane_wide(L, s, args, b, B, d, cur);
 }
 
+// The instantiation that runs nu and d (launch bound wide_bound(d)), or
+// nullptr where nu is not built.
+template <class VF>
+auto instantiation(int nu, int d) -> decltype(&step_hi_wide_attempt<4, WIDE_SMALL_THREADS, VF>) {
+  const bool small = wide_bound(d) == WIDE_SMALL_THREADS;
+  switch (nu) {
+    case 4:
+      return small ? step_hi_wide_attempt<4, WIDE_SMALL_THREADS, VF>
+                   : step_hi_wide_attempt<4, WIDE_MAX_THREADS, VF>;
+    case 5:
+      return small ? step_hi_wide_attempt<5, WIDE_SMALL_THREADS, VF>
+                   : step_hi_wide_attempt<5, WIDE_MAX_THREADS, VF>;
+    default: return nullptr;
+  }
+}
+
 template <class VF>
 int launch(int nu, const void* in_ptrs, const void* out_ptrs, const void* consts,
            long long batch, int d, VF vf, int device, void* stream) {
-  if (d < 1 || d > WIDE_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = instantiation<VF>(nu, d);
+  if (d < 1 || d > WIDE_MAX_THREADS || kernel == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   ArgsHi args;
   ConstsHi c;
   unpack_hi(args, c, in_ptrs, out_ptrs, consts);
@@ -38,21 +57,15 @@ int launch(int nu, const void* in_ptrs, const void* out_ptrs, const void* consts
   const int smem = wide_smem_bytes(d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t B = batch;
-  switch (nu) {
-    case 4: step_hi_wide_attempt<4, VF><<<grid, block, smem, st>>>(args, c, vf, B, d); break;
-    case 5: step_hi_wide_attempt<5, VF><<<grid, block, smem, st>>>(args, c, vf, B, d); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  kernel<<<grid, block, smem, st>>>(args, c, vf, B, d);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class VF>
 int report(int nu, int d, int* out) {
-  switch (nu) {
-    case 4: return wide_report(step_hi_wide_attempt<4, VF>, d, out);
-    case 5: return wide_report(step_hi_wide_attempt<5, VF>, d, out);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const auto kernel = instantiation<VF>(nu, d);
+  return kernel == nullptr ? static_cast<int>(cudaErrorInvalidValue)
+                           : wide_report(kernel, d, out);
 }
 
 }  // namespace

@@ -250,24 +250,30 @@ def hi_geometry(nu):
 
 # K2 and K4 wide (step_hi_wide.cuh): one block per lane, a thread per
 # component in whole warps, the lane's LaneWide (HI_WIDE_LANE_FLOATS floats)
-# and three rows of d floats in dynamic shared memory
-HI_WIDE_LANE_FLOATS, _WARP = 158, 32
+# and three rows of d floats in dynamic shared memory; blocks of at most
+# HI_WIDE_SMALL_THREADS threads run the instantiation of that launch bound,
+# wider ones the one bounded at HI_WIDE_MAX_D threads
+HI_WIDE_LANE_FLOATS, HI_WIDE_SMALL_THREADS, _WARP = 363, 128, 32
 
 
 def hi_wide_geometry(nu, d):
     """The launch geometry of K2 and K4 wide (both forms, nu = 4 or 5) for
     ODE dimension ``d`` (at most ``HI_WIDE_MAX_D``), as their C launch
     functions compute it: threads per lane (d), lanes per block (1),
-    threads per block (d in whole warps) and shared-memory bytes per block
-    (the lane's scalars, decisions and (n, n) arrays, and three rows of d
-    floats)."""
+    threads per block (d in whole warps), shared-memory bytes per block
+    (the lane's scalars, decisions, (n, n) arrays, constants and warp 0's
+    scratch, and three rows of d floats) and ``max_threads``, the launch
+    bound of the instantiation that runs it (``HI_WIDE_SMALL_THREADS`` for
+    blocks up to that size, else ``HI_WIDE_MAX_D``)."""
     hi_geometry(nu)
     if not 1 <= int(d) <= HI_WIDE_MAX_D:
         raise ValueError(f"K2 and K4 wide take 1 <= d <= {HI_WIDE_MAX_D} (a thread a "
                          f"component, one block a lane), got d={d}")
-    return {"threads_per_lane": d, "lanes_per_block": 1,
-            "threads_per_block": (d + _WARP - 1) // _WARP * _WARP,
-            "smem_bytes": 4 * (HI_WIDE_LANE_FLOATS + 3 * d)}
+    threads = (d + _WARP - 1) // _WARP * _WARP
+    return {"threads_per_lane": d, "lanes_per_block": 1, "threads_per_block": threads,
+            "smem_bytes": 4 * (HI_WIDE_LANE_FLOATS + 3 * d),
+            "max_threads": (HI_WIDE_SMALL_THREADS if threads <= HI_WIDE_SMALL_THREADS
+                            else HI_WIDE_MAX_D)}
 
 
 def ll_geometry(nu, d=3):
@@ -349,8 +355,8 @@ def _ptxas_key(symbol):
     """(kernel, template key) of a mangled step-kernel symbol: nu for K1-K4
     (``"<nu>/<functor>"`` for K1 and K3 on a functor other than the rigid
     body; ``"<nu>/<functor>/<strategy>/<ts0 or ts1>"`` on a functor of order
-    2, ``HiChannel<...>`` for K2 and K4),
-    ``"<nu>/<ts1 or ts0>/<functor>"`` for K5, ``"<nu>/<functor>"`` for K6,
+    2, ``HiChannel<...>`` for K2 and K4), ``"<nu>/<launch bound>"`` for K2
+    wide and K4 wide, ``"<nu>/<ts1 or ts0>/<functor>"`` for K5, ``"<nu>/<functor>"`` for K6,
     ``"<nu>/<strategy>"`` for K7; ``"<f32 or f64>/<m>/<c>"`` for K8 and
     ``"<m>/<n>"`` for K9-K11, under their wrappers' names; None for other
     symbols."""
@@ -386,8 +392,9 @@ def _ptxas_key(symbol):
             names = {code: name for name, code in STRATEGY_CODES.items()}
             return kernel, _variant_key(nu, functor, names[int(vm.group(1))], vm.group(2))
         return kernel, nu if functor == "RigidBody" else f"{nu}/{functor}"
-    if kernel.startswith("step_hi_wide"):
-        return kernel, nu
+    if kernel.startswith("step_hi_wide"):  # "<nu>/<launch bound>"
+        fm = re.match(r"Li(\d+)E", rest)
+        return (kernel, f"{nu}/{fm.group(1)}") if fm else None
     if kernel.startswith("step_hi"):
         fm = re.match(r"NS_9HiChannelINS_(\d+)", rest)
         if fm is not None:
@@ -417,7 +424,8 @@ def parse_ptxas(log):
     from ``ptxas -v`` output: ``{kernel: {key: {"registers": r,
     "spill_stores": s, "spill_loads": l, "stack": f}}}`` (and ``"smem": b``
     where ptxas prints ``b bytes smem``: K6's static shared memory; K5's is
-    dynamic, see ``dense_geometry``), keyed by nu for K1-K4 and by
+    dynamic, see ``dense_geometry``), keyed by nu for K1-K4, by
+    ``"<nu>/<launch bound>"`` for K2 wide and K4 wide (``"4/128"``) and by
     ``"<nu>/<ts1 or ts0>/<functor>"`` for K5 (``"4/ts1/Brusselator"``),
     ``"<nu>/<functor>"`` for K6, ``"<nu>/<strategy>"`` for K7,
     ``"<f32 or f64>/<m>/<c>"`` for K8 (``"f32/4/3"``) and ``"<m>/<n>"`` for
@@ -903,6 +911,7 @@ def step_hi_wide_attempt(step, state, t_next, *, atol, rtol, dt_max, dt_floor, t
 _GEOMETRY_KEYS = ("threads_per_lane", "lanes_per_block", "threads_per_block", "smem_bytes",
                   "blocks_per_sm", "registers", "local_bytes")
 _PIT_GEOMETRY_KEYS = ("threads_per_pair", "pairs_per_block") + _GEOMETRY_KEYS[2:]
+_WIDE_GEOMETRY_KEYS = _GEOMETRY_KEYS + ("max_threads",)
 
 
 def _geometry_entry(symbol, *args, keys=_GEOMETRY_KEYS):
@@ -929,13 +938,14 @@ def step_hi_wide_geometry(kernel, nu=4, d=64):
     """K2 wide's or K4 wide's launch geometry on the current CUDA device for
     nu and ODE dimension ``d``, as the C launch function of ``kernel``
     ("step_hi_wide_interval" or "step_hi_wide_attempt") has it:
-    ``hi_wide_geometry``'s keys, ``blocks_per_sm`` (resident blocks, from
+    ``hi_wide_geometry``'s keys (``max_threads``: the launch bound of the
+    instantiation that d takes), ``blocks_per_sm`` (resident blocks, from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), ``registers`` and
-    ``local_bytes`` per thread."""
+    ``local_bytes`` per thread of that instantiation."""
     if kernel not in ("step_hi_wide_interval", "step_hi_wide_attempt"):
         raise ValueError(f"{kernel} is not a wide form of K2 or K4")
     hi_wide_geometry(nu, d)
-    return _geometry_entry(f"odeckpt_{kernel}_geometry", nu, d)
+    return _geometry_entry(f"odeckpt_{kernel}_geometry", nu, d, keys=_WIDE_GEOMETRY_KEYS)
 
 
 def step_ll_geometry(kernel, nu=4):

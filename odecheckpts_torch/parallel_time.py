@@ -34,7 +34,7 @@ the reference's ``"pallas"``).
 The isotropic, dense (TS0 and TS1) and blockdiag backends with
 ``ode_order=1``.  Blockdiag's elements carry a block axis, one independent
 chain per ODE dimension; with a combine engine its lanes-last prefix runs on
-(m, m, d, P) operands.  Not ported: ``time_shard`` (ROADMAP queue 1 item 8).
+(m, m, d, P) operands.
 """
 
 from __future__ import annotations

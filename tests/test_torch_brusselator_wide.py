@@ -260,18 +260,22 @@ def test_wide_wrappers_refuse_other_devices_and_odd_or_wide_dimensions():
         kernels._functor_entry("step_hi_interval", rigid)
 
 
-@pytest.mark.parametrize(("d", "threads", "smem"), [(64, 64, 1400), (128, 128, 2168),
-                                                    (48, 64, 1208), (1024, 1024, 12920)])
-def test_hi_wide_geometry_is_a_block_per_lane(d, threads, smem):
+@pytest.mark.parametrize(("d", "threads", "smem", "bound"), [
+    (64, 64, 2220, 128), (128, 128, 2988, 128), (48, 64, 2028, 128), (130, 160, 3012, 1024),
+    (1024, 1024, 13740, 1024)])
+def test_hi_wide_geometry_is_a_block_per_lane(d, threads, smem, bound):
     """K2 wide's and K4 wide's launch geometry: one block per lane, a thread
-    per component in whole warps, and the lane's 158 floats (scalars,
-    decisions, chol, G_acc twice, the gain, g_corr) and three rows of d
-    floats in shared memory; d at most 1,024."""
+    per component in whole warps, and the lane's 363 floats (scalars,
+    decisions, chol and G_acc twice each, the gain, g_corr, the constants A
+    and Lq, warp 0's scratch, the next attempt's step scalars) and three
+    rows of d floats in shared memory;
+    d at most 1,024; blocks of up to 128 threads on the instantiation
+    bounded at 128 threads, wider ones on the one bounded at 1,024."""
     for nu in (4, 5):
         assert kernels.hi_wide_geometry(nu, d) == {
             "threads_per_lane": d, "lanes_per_block": 1, "threads_per_block": threads,
-            "smem_bytes": smem}
-    assert smem == 4 * (158 + 3 * d)
+            "smem_bytes": smem, "max_threads": bound}
+    assert smem == 4 * (363 + 3 * d)
 
 
 def test_hi_wide_geometry_refuses_what_is_not_built():

@@ -431,6 +431,32 @@ def test_df32_kernels_k2_k4_match_twin_on_the_card(cuda_device, nu, kernel):
         assert float(steps.min()) < 40 and float(steps.max()) == 40
 
 
+def test_parse_ptxas_reads_the_wide_entries_by_launch_bound():
+    """K2 wide's and K4 wide's instantiations are keyed "<nu>/<launch
+    bound>": the bound of 128 threads (d <= 128) and of 1,024."""
+    def entry(name, regs, spills, stack):
+        return [
+            f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {name}",
+            f"    {stack} bytes stack frame, {spills[0]} bytes spill stores, "
+            f"{spills[1]} bytes spill loads",
+            f"ptxas info    : Used {regs} registers, 920 bytes cmem[0]",
+        ]
+
+    log = "\n".join(
+        entry("_ZN12_GLOBAL__N_121step_hi_wide_intervalILi4ELi128ENS_14BrusselatorRowEEEvNS_6"
+              "ArgsHiENS_8ConstsHiET1_lii", 120, (0, 0), 0)
+        + entry("_ZN12_GLOBAL__N_120step_hi_wide_attemptILi5ELi1024ENS_14BrusselatorRowEEEvNS_6"
+                "ArgsHiENS_8ConstsHiET1_li", 64, (40, 40), 48)
+    )
+    assert kernels.parse_ptxas(log) == {
+        "step_hi_wide_interval": {"4/128": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                                            "registers": 120}},
+        "step_hi_wide_attempt": {"5/1024": {"stack": 48, "spill_stores": 40, "spill_loads": 40,
+                                            "registers": 64}},
+    }
+
+
 def _start_hi_wide(N, nu=4, *, batch=1001, device="cpu", tol_lo=1e-9, **step_kw):
     """Experiment 4's kind of Brusselator ensemble (d = 2N components, u0
     (1 + 0.01 N(0, 1)) of ``problems.brusselator(N)``'s profile) after the
@@ -514,6 +540,31 @@ def test_hi_wide_kernels_at_other_widths_and_the_residual_unit_on_the_card(cuda_
             second = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
             torch.cuda.synchronize()
             _assert_same_bits(first, second, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nu", [4, 5])
+@pytest.mark.parametrize("N", [64, 65])
+def test_hi_wide_kernels_on_both_sides_of_the_launch_bound_on_the_card(cuda_device, N, nu):
+    """d = 128 (blocks of 128 threads: the instantiation bounded at 128) and
+    d = 130 (blocks of 160: the one bounded at 1,024), 257 lanes: 40
+    attempts of K2 wide and one of K4 wide equal to their plain versions
+    bit for bit, each launched twice; the geometry entry names the
+    instantiation that d takes."""
+    d = 2 * N
+    for name in ("step_hi_wide_interval", "step_hi_wide_attempt"):
+        geometry = kernels.step_hi_wide_geometry(name, nu, d)
+        assert geometry["max_threads"] == (128 if d <= 128 else 1024)
+        assert {k: geometry[k] for k in kernels.hi_wide_geometry(nu, d)} == \
+            kernels.hi_wide_geometry(nu, d)
+    step, state, t_next, inputs = _start_hi_wide(N, nu, batch=257, device=cuda_device)
+    for name, kw in (("step_hi_wide_interval", dict(max_attempts=40)),
+                     ("step_hi_wide_attempt", {})):
+        want = getattr(kernels, name + "_plain")(step, state, t_next, **inputs, **kw)
+        first = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+        second = getattr(kernels, name)(step, state, t_next, **inputs, **kw)
+        torch.cuda.synchronize()
+        _assert_same_bits(first, second, want)
 
 
 @pytest.mark.cuda
