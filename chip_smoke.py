@@ -177,10 +177,14 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
     times of K9, of the plain version and of ``torch.linalg.qr(mode="r")`` with
     the diagonal's sign fixed (the library call; the port never uses it).
 25. qr_packing: K10 and K11 (``qr_packing.bench_kernel``) against their plain
-    versions at iters 1 and 3 and m = n in {10, 8, 6} (equal), against each
-    other on the upper triangle (rtol 2e-4, atol 2e-5), then timed at
+    versions at iters 1 and 3 and m = n in {10, 8, 6} (equal) on 1,024 lanes
+    (a team of ``kernels.QR_PACKING_TEAM`` threads a lane) and on one lane
+    more than the last batch that takes a team (a thread a lane); against
+    each other on the upper triangle (rtol 2e-4, atol 2e-5); then timed at
     m = n = 10, iters 200, B = 8192 (the reference's size), 32,768 and
-    262,144: millions of QRs per second and ``packed_over_cols``.
+    262,144: millions of QRs per second and ``packed_over_cols``; the timed
+    outputs at 8,192 (a team) and 32,768 (a thread a lane) equal to their
+    plain versions on the same inputs.
 26. adaptive_iso: the generic adaptive save_at (``ivpsolve.solve_adaptive_save_at``,
     plain PyTorch, no kernel) on phase 4's lanes and inputs at rtol 1e-3 with
     the parity schedule's (nu, kappa) = (4, 3), batched init and tolerances,
@@ -599,6 +603,8 @@ def phase_build():
     dense = tuple(f"4/{c}/{f}" for f in ("Brusselator", "RigidBody") for c in ("ts1", "ts0"))
     bd = tuple(f"{nu}/{f}" for f in ("RigidBodyAniso", "RigidBody") for nu in (2, 3, 4))
     everystep = tuple(f"{nu}/{s}" for s in ("smoother", "filter") for nu in (2, 3, 4))
+    packing = tuple(f"{m}/{n}/{t}" for m, n in kernels.QR_PACKING_SHAPES
+                    for t in (kernels.QR_PACKING_TEAM, 1))  # K10 / K11: a team, a thread a lane
     want = {"step_ll_interval": (2, 3, 4), "step_ll_attempt": (2, 3, 4),
             "step_hi_interval": (4, 5), "step_hi_attempt": (4, 5),
             "step_hi_wide_interval": WIDE_INSTANTIATIONS,
@@ -609,8 +615,7 @@ def phase_build():
             "pit_combine": tuple(f"{t}/{m}/{c}" for t in ("f32", "f64") for m in kernels.PIT_COMBINE_M
                                  for c in kernels.PIT_COMBINE_C),
             "batched_qr_r": tuple(f"{m}/{n}" for m, n in kernels.BATCHED_QR_SHAPES),
-            "qr_packing_cols": tuple(f"{m}/{n}" for m, n in kernels.QR_PACKING_SHAPES),
-            "qr_packing_masked": tuple(f"{m}/{n}" for m, n in kernels.QR_PACKING_SHAPES)}
+            "qr_packing_cols": packing, "qr_packing_masked": packing}
     missing = [(k, nu) for k, nus in want.items() for nu in nus
                if "registers" not in ptxas.get(k, {}).get(nu, {})]
     if missing:
@@ -3049,28 +3054,35 @@ def phase_qr_packing(device):
     rng = np.random.default_rng(SEED)
     worst = {"qr_packing_cols": 0.0, "qr_packing_masked": 0.0}
     failed = []
+    # a team's batch and a thread a lane's: 1,024 lanes, and one lane past the
+    # last batch that takes a team
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    teams = {batch: kernels.qr_packing_team(batch, sms) for batch in
+             (1024, kernels.QR_PACKING_TEAM_LANES_PER_SM * sms + 1, *PACKING_BATCHES)}
     for size in (10, 8, 6):
-        x = torch.tensor(rng.standard_normal((size, size, 1024)), dtype=torch.float32,
-                         device=device)
-        outs = {}
-        for iters in (1, 3):
-            for variant in ("cols", "masked"):
-                name = f"qr_packing_{variant}"
-                got = qr_packing.bench_kernel(variant, size, size, iters)(x)
-                want = getattr(kernels, name + "_plain")(x, iters)
-                torch.cuda.synchronize()
-                dev = float(torch.max(torch.abs(got - want)))
-                worst[name] = max(worst[name], dev)
-                outs[(variant, iters)] = got
-                if dev != 0.0:
-                    failed.append((name, size, iters, dev))
-        tri_c = torch.triu(torch.movedim(outs[("cols", 1)], -1, 0))
-        tri_m = torch.triu(torch.movedim(outs[("masked", 1)], -1, 0))
-        close = bool(torch.all(torch.abs(tri_m - tri_c) <= 2e-5 + 2e-4 * torch.abs(tri_c)))
-        emit({"phase": "qr_packing", "m": size, "n": size, "max_abs_dev": dict(worst),
-              "variants_agree_on_upper_triangle": close})
-        if not close:
-            failed.append(("cols vs masked", size))
+        for batch in list(teams)[:2]:
+            x = torch.tensor(rng.standard_normal((size, size, batch)), dtype=torch.float32,
+                             device=device)
+            outs = {}
+            for iters in (1, 3):
+                for variant in ("cols", "masked"):
+                    name = f"qr_packing_{variant}"
+                    got = qr_packing.bench_kernel(variant, size, size, iters)(x)
+                    want = getattr(kernels, name + "_plain")(x, iters)
+                    torch.cuda.synchronize()
+                    dev = float(torch.max(torch.abs(got - want)))
+                    worst[name] = max(worst[name], dev)
+                    outs[(variant, iters)] = got
+                    if dev != 0.0:
+                        failed.append((name, size, batch, iters, dev))
+            tri_c = torch.triu(torch.movedim(outs[("cols", 1)], -1, 0))
+            tri_m = torch.triu(torch.movedim(outs[("masked", 1)], -1, 0))
+            close = bool(torch.all(torch.abs(tri_m - tri_c) <= 2e-5 + 2e-4 * torch.abs(tri_c)))
+            emit({"phase": "qr_packing", "m": size, "n": size, "batch": batch,
+                  "threads_a_lane": teams[batch], "max_abs_dev": dict(worst),
+                  "variants_agree_on_upper_triangle": close})
+            if not close:
+                failed.append(("cols vs masked", size, batch))
     if failed:
         raise AssertionError(f"K10 / K11 failed: {failed}")
 
@@ -3085,14 +3097,26 @@ def phase_qr_packing(device):
         ms_c = min(times["cols"][0], times["cols2"][0])
         ms_m = min(times["masked"][0], times["masked2"][0])
         emit({"phase": "qr_packing", "timed": True, "m": 10, "n": 10, "iters": PACKING_ITERS,
-              "batch": batch, "cols_ms": ms_c, "masked_ms": ms_m,
+              "batch": batch, "threads_a_lane": teams[batch], "cols_ms": ms_c, "masked_ms": ms_m,
               "cols_qr_per_sec_millions": batch * PACKING_ITERS / ms_c / 1e3,
               "masked_qr_per_sec_millions": batch * PACKING_ITERS / ms_m / 1e3,
               "packed_over_cols": ms_m / ms_c})
-        if batch == PACKING_BATCHES[0]:  # the reference's size: the kernel table's row
+        if batch in PACKING_BATCHES[:2]:  # the timed outputs, a team's and a thread a lane's
             plain = _time_pair((
                 ("cols", lambda: kernels.qr_packing_cols_plain(x, PACKING_ITERS)),
                 ("masked", lambda: kernels.qr_packing_masked_plain(x, PACKING_ITERS))))
+            for variant in ("cols", "masked"):
+                name = f"qr_packing_{variant}"
+                dev = max(float(torch.max(torch.abs(times[key][1] - plain[variant][1])))
+                          for key in (variant, variant + "2"))
+                worst[name] = max(worst[name], dev)
+                emit({"phase": "qr_packing", "timed_against_plain": True, "variant": variant,
+                      "iters": PACKING_ITERS, "batch": batch,
+                      "threads_a_lane": teams[batch], "max_abs_dev": dev})
+                if dev != 0.0:
+                    raise AssertionError(f"{name} at {batch} lanes, {PACKING_ITERS} QRs: "
+                                         f"{dev} off its plain version")
+        if batch == PACKING_BATCHES[0]:  # the reference's size: the kernel table's row
             nbytes = 2 * x.numel() * 4
             flops = batch * PACKING_ITERS * _qr_flops(10, 10, 10)
             # the library's R factors of the same batch, one call a QR: the

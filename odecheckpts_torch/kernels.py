@@ -67,6 +67,8 @@ from pathlib import Path
 
 import torch
 
+from . import rounded
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -146,13 +148,18 @@ _VARIANTS = {
 PIT_COMBINE_M, PIT_COMBINE_C = (3, 4, 5), (1, 2, 3)
 BATCHED_QR_SHAPES = ((10, 5), (6, 6), (4, 2), (6, 3), (8, 4), (12, 6))
 QR_PACKING_SHAPES = ((10, 10), (8, 8), (6, 6))
+# K10 / K11's team: QR_PACKING_TEAM threads a lane for a batch of at most
+# QR_PACKING_TEAM_LANES_PER_SM lanes an SM (4 blocks of 32 lanes), else one
+# (qr_packing_team; csrc/qr_packing.cu builds both)
+QR_PACKING_TEAM, QR_PACKING_TEAM_LANES_PER_SM = 4, 128
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C symbol -> argument types of the entries that take no step functor
 _ENTRIES = {
     "odeckpt_pit_combine": [_INT, _INT, _INT, _PTR, _PTR, ctypes.c_longlong, _INT, _PTR],
     "odeckpt_batched_qr": [_INT, _INT, _PTR, _PTR, ctypes.c_longlong, _INT, _PTR],
-    "odeckpt_qr_packing_cols": [_INT, _INT, _INT, _PTR, _PTR, ctypes.c_longlong, _INT, _PTR],
-    "odeckpt_qr_packing_masked": [_INT, _INT, _INT, _PTR, _PTR, ctypes.c_longlong, _INT, _PTR],
+    "odeckpt_qr_packing_cols": [_INT, _INT, _INT, _INT, _PTR, _PTR, ctypes.c_longlong, _INT, _PTR],
+    "odeckpt_qr_packing_masked": [_INT, _INT, _INT, _INT, _PTR, _PTR, ctypes.c_longlong, _INT,
+                                  _PTR],
     "odeckpt_step_dense_interval_geometry": [_INT, _INT, _INT, _PTR],
     "odeckpt_step_dense_attempt_geometry": [_INT, _INT, _INT, _PTR],
     "odeckpt_step_bd_interval_geometry": [_INT, _INT, _PTR],
@@ -358,15 +365,17 @@ def _ptxas_key(symbol):
     2, ``HiChannel<...>`` for K2 and K4), ``"<nu>/<launch bound>"`` for K2
     wide and K4 wide, ``"<nu>/<ts1 or ts0>/<functor>"`` for K5, ``"<nu>/<functor>"`` for K6,
     ``"<nu>/<strategy>"`` for K7; ``"<f32 or f64>/<m>/<c>"`` for K8 and
-    ``"<m>/<n>"`` for K9-K11, under their wrappers' names; None for other
-    symbols."""
+    ``"<m>/<n>"`` for K9 and ``"<m>/<n>/<threads a lane>"`` for K10 and K11,
+    under their wrappers' names; None for other symbols."""
     m = re.search(r"pit_combineI([fd])Li(\d+)ELi(\d+)E", symbol)
     if m is not None:
         return "pit_combine", f"{'f32' if m.group(1) == 'f' else 'f64'}/{m.group(2)}/{m.group(3)}"
-    m = re.search(r"(batched_qr|qr_packing_cols|qr_packing_masked)ILi(\d+)ELi(\d+)E", symbol)
+    m = re.search(r"(batched_qr|qr_packing_cols|qr_packing_masked)ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?",
+                  symbol)
     if m is not None:
         name = "batched_qr_r" if m.group(1) == "batched_qr" else m.group(1)
-        return name, f"{m.group(2)}/{m.group(3)}"
+        team = f"/{m.group(4)}" if m.group(4) else ""
+        return name, f"{m.group(2)}/{m.group(3)}{team}"
     m = re.search(r"(step_(?:ll|hi_wide|hi|dense|bd|everystep)_(?:interval|attempt))ILi(\d+)E",
                   symbol)
     if m is None:
@@ -428,8 +437,8 @@ def parse_ptxas(log):
     ``"<nu>/<launch bound>"`` for K2 wide and K4 wide (``"4/128"``) and by
     ``"<nu>/<ts1 or ts0>/<functor>"`` for K5 (``"4/ts1/Brusselator"``),
     ``"<nu>/<functor>"`` for K6, ``"<nu>/<strategy>"`` for K7,
-    ``"<f32 or f64>/<m>/<c>"`` for K8 (``"f32/4/3"``) and ``"<m>/<n>"`` for
-    K9-K11."""
+    ``"<f32 or f64>/<m>/<c>"`` for K8 (``"f32/4/3"``), ``"<m>/<n>"`` for K9
+    and ``"<m>/<n>/<threads a lane>"`` for K10 and K11 (``"10/10/4"``)."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)", line)
@@ -651,7 +660,8 @@ def householder_masked_ll(x, *, mask_eliminated):
     """Masked full-matrix Householder on one lanes-last (m, n, B) stack: the
     reflections j < min(n, m - 1), each a zero-masked full column applied to
     all n columns; ``sqrt(norm2 + tiny)``, no rescaling, no sign
-    normalization.  With ``mask_eliminated`` the coefficient of column c is
+    normalization; the IEEE root on every device (``rounded.sqrt``).  With
+    ``mask_eliminated`` the coefficient of column c is
     multiplied by ``c >= j`` (K11,
     ``experiments/6_tpu_batched_sweep/qr_packing_bench.py:42-70``); without it
     the eliminated columns take their (rounding-level) update too (K9,
@@ -665,7 +675,7 @@ def householder_masked_ll(x, *, mask_eliminated):
         is_j = (rows == j).to(x.dtype)
         colm = x[:, j : j + 1] * below  # (m, 1, B)
         norm2 = _sum_rows(colm * colm)
-        norm = torch.sqrt(norm2 + eps)
+        norm = rounded.sqrt(norm2 + eps)
         head = _sum_rows(colm * is_j)
         one = torch.ones_like(head)
         alpha = -torch.where(head >= 0, one, -one) * norm
@@ -1187,10 +1197,28 @@ def _qr_packing(kernel, plain, x, iters):
     out = torch.empty_like(x)
     if batch:
         lib = library()
-        rc = getattr(lib.lib, f"odeckpt_{kernel}")(m, n, int(iters), x.data_ptr(), out.data_ptr(),
-                                                  batch, *_stream_args(x.device))
+        index, stream = _stream_args(x.device)
+        rc = getattr(lib.lib, f"odeckpt_{kernel}")(m, n, int(iters),
+                                                  qr_packing_team(batch, _sm_count(index)),
+                                                  x.data_ptr(), out.data_ptr(), batch, index,
+                                                  stream)
         _check_rc(kernel, lib, rc)
     return out
+
+
+def qr_packing_team(batch, sm_count):
+    """Threads a lane of a K10 / K11 launch of ``batch`` lanes on a device of
+    ``sm_count`` SMs: a team of ``QR_PACKING_TEAM`` up to 4 of its blocks (32
+    lanes each) an SM, else one thread a lane.  A team's time grows with its
+    blocks an SM; on an H100 K10's fifth block costs more than a thread a
+    lane takes (``qr_packing_trial.py``)."""
+    return QR_PACKING_TEAM if batch <= QR_PACKING_TEAM_LANES_PER_SM * sm_count else 1
+
+
+@functools.cache
+def _sm_count(index):
+    """The SMs of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def qr_packing_cols(x, iters):

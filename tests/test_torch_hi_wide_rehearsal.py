@@ -5,17 +5,11 @@ bit.
 The two sources of the wide forms (``step_hi_wide.cu``,
 ``step_hi_wide_attempt.cu``) are compiled with ``g++ -O1
 -ffp-contract=off`` (every operation rounded on its own, as nvcc's
-``-fmad=false``) against ``_SHIM``, a stand-in for ``cuda_runtime.h``: a
-launch runs its blocks one after the other, each block's threads as
-``std::thread``s; ``threadIdx`` / ``blockIdx`` / ``blockDim`` are
-thread-locals; ``__syncthreads`` is a ``std::barrier`` of the block,
-``__syncwarp`` one of the warp, and ``__shfl_sync`` a slot per lane between
-two waits at the warp's barrier; dynamic shared memory is a buffer per
-block; ``expf`` and ``logf`` are taken in float64 and rounded once, as
-``odecheckpts_torch.rounded`` gives the CPU twin.  The triple-chevron
-launches are rewritten to the shim's launch; the sources are otherwise as
-built for the card (the shim is included first: nvcc knows ``__device__``
-and the rest without a header).
+``-fmad=false``) against ``torch_cuda_shim.SHIM``, a stand-in for
+``cuda_runtime.h`` (blocks in turn, a block's threads as ``std::thread``s,
+barriers and shuffles through ``std::barrier``s, dynamic shared memory a
+buffer per block).  The triple-chevron launches are rewritten to the shim's
+launch; the sources are otherwise as built for the card.
 
 Each case runs the C entries through ctypes on a few lanes of experiment
 4's kind of ensemble (``problems.brusselator(N)`` after the f64 Taylor
@@ -27,14 +21,12 @@ for bit.  d = 8 is a block of one warp (the controller shares warp 0), d =
 """
 
 import ctypes
-import re
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+import torch_cuda_shim as shim
 
 from odecheckpts_torch import batched_hi, kernels, problems
 
@@ -43,135 +35,19 @@ SOURCES = ("step_hi_wide.cu", "step_hi_wide_attempt.cu")
 LANES = 3
 ATTEMPTS = 40
 
-_SHIM = r"""
-#pragma once
-#include <math.h>
 
-#include <barrier>
-#include <cfloat>
-#include <cmath>
-#include <cstdint>
-#include <cstring>
-#include <memory>
-#include <thread>
-#include <vector>
-
-#define __device__
-#define __global__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-
-inline float shim_expf(float x) { return static_cast<float>(std::exp(static_cast<double>(x))); }
-inline float shim_logf(float x) { return static_cast<float>(std::log(static_cast<double>(x))); }
-#define expf(x) shim_expf(x)
-#define logf(x) shim_logf(x)
-
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-typedef void* cudaStream_t;
-struct cudaFuncAttributes {
-  size_t sharedSizeBytes, localSizeBytes;
-  int numRegs;
-};
-inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-template <class K>
-cudaError_t cudaFuncGetAttributes(cudaFuncAttributes*, K) { return cudaErrorInvalidValue; }
-template <class K>
-cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaErrorInvalidValue; }
-template <class K>
-cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, K, int, size_t) {
-  return cudaErrorInvalidValue;
-}
-
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
-};
-
-namespace shim {
-struct Warp {
-  std::barrier<> sync{32};
-  float slot[32];
-};
-struct Block {
-  std::barrier<> sync;
-  std::vector<std::unique_ptr<Warp>> warps;
-  std::vector<float> smem;
-  Block(unsigned threads, int smem_bytes) : sync(threads), smem(smem_bytes / sizeof(float) + 1) {
-    for (unsigned w = 0; w < threads / 32; ++w) warps.push_back(std::make_unique<Warp>());
-  }
-};
-inline thread_local Block* block = nullptr;
-}  // namespace shim
-
-inline thread_local dim3 threadIdx, blockIdx, blockDim;
-
-inline void __syncthreads() { shim::block->sync.arrive_and_wait(); }
-inline shim::Warp& shim_warp() { return *shim::block->warps[threadIdx.x / 32]; }
-inline void __syncwarp(unsigned = 0xffffffffu) { shim_warp().sync.arrive_and_wait(); }
-inline float __shfl_sync(unsigned, float v, int src) {
-  shim::Warp& w = shim_warp();
-  w.slot[threadIdx.x % 32] = v;
-  w.sync.arrive_and_wait();
-  const float out = w.slot[src];
-  w.sync.arrive_and_wait();
-  return out;
-}
-inline float* shim_smem() { return shim::block->smem.data(); }
-
-template <class Kernel, class... Args>
-void shim_launch(dim3 grid, dim3 block, int smem_bytes, cudaStream_t, Kernel kernel,
-                 Args... args) {
-  for (unsigned b = 0; b < grid.x; ++b) {
-    shim::Block blk(block.x, smem_bytes);
-    std::vector<std::thread> threads;
-    for (unsigned t = 0; t < block.x; ++t)
-      threads.emplace_back([&, t] {
-        shim::block = &blk;
-        threadIdx = dim3(t);
-        blockIdx = dim3(b);
-        blockDim = block;
-        kernel(args...);
-      });
-    for (auto& th : threads) th.join();
-  }
-}
-"""
-
-
-def _rewrite(source):
-    """A .cu source for the shim: launches to ``shim_launch``, the dynamic
-    shared memory to the block's buffer."""
-    out, n = re.subn(r"(\w+(?:<[^;<>]*>)?)\s*<<<([^>]*)>>>\(", r"shim_launch(\2, \1, ", source)
-    assert n > 0, "no launch found"
-    out, n = re.subn(r"extern __shared__ float smem\[\];", "float* smem = shim_smem();", out)
-    assert n > 0, "no dynamic shared memory found"
-    return out
+def _with_dynamic_smem(source):
+    assert "extern __shared__ float smem[];" in source, "no dynamic shared memory found"
+    return source
 
 
 @pytest.fixture(scope="module")
 def rehearsal(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
+    lib = shim.build(CSRC, SOURCES, tmp_path_factory.mktemp("hi_wide_rehearsal"),
+                     "hi_wide_rehearsal", edit=_with_dynamic_smem)
+    if lib is None:
         pytest.skip("g++ is not on PATH: the CPU rehearsal of the wide block body needs it")
-    tmp = tmp_path_factory.mktemp("hi_wide_rehearsal")
-    for header in CSRC.glob("*.cuh"):
-        shutil.copy(header, tmp / header.name)
-    (tmp / "cuda_runtime.h").write_text(_SHIM)
-    objs = []
-    for name in SOURCES:
-        src = tmp / (name + ".cpp")
-        src.write_text(_rewrite((CSRC / name).read_text()))
-        objs.append(src)
-    lib = tmp / "libhi_wide_rehearsal.so"
-    proc = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
-         "-I", str(tmp), "-include", "cuda_runtime.h", *map(str, objs), "-o", str(lib)],
-        capture_output=True, text=True, timeout=600, check=False)
-    assert proc.returncode == 0, proc.stderr[-6000:]
-    return ctypes.CDLL(str(lib))
+    return lib
 
 
 def _start(N, nu, batch=LANES):

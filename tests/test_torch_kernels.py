@@ -1231,15 +1231,26 @@ def test_batched_qr_k9_matches_its_plain_version_on_the_card(cuda_device, shape)
         batched_qr.batched_qr_r(x[:, :3, :2])
 
 
+def _packing_batch(batch, device):
+    """A batch of K10 / K11 lanes: an int, or "thread_a_lane", one lane more
+    than the last batch that takes a team on ``device``."""
+    if batch != "thread_a_lane":
+        return batch
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return kernels.QR_PACKING_TEAM_LANES_PER_SM * sms + 1
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1000, 8192, 4099, "thread_a_lane"])
 @pytest.mark.parametrize("iters", [1, 3])
 @pytest.mark.parametrize("size", [10, 8, 6])
 @pytest.mark.parametrize("variant", ["cols", "masked"])
 def test_qr_packing_k10_k11_match_their_plain_versions_on_the_card(cuda_device, variant, size,
-                                                                   iters):
+                                                                   iters, batch):
     from odecheckpts_torch import qr_packing
 
-    x = torch.tensor(np.random.default_rng(74).standard_normal((size, size, 1000)),
+    batch = _packing_batch(batch, cuda_device)
+    x = torch.tensor(np.random.default_rng(74).standard_normal((size, size, batch)),
                      dtype=torch.float32, device=cuda_device)
     name = f"qr_packing_{variant}"
     before = kernels.LAUNCHES[name]
@@ -1248,6 +1259,26 @@ def test_qr_packing_k10_k11_match_their_plain_versions_on_the_card(cuda_device, 
     want = getattr(kernels, name + "_plain")(x, iters)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=0)  # bit for bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [8192, 4099, "thread_a_lane"])
+@pytest.mark.parametrize("size", [10, 8, 6])
+@pytest.mark.parametrize("variant", ["cols", "masked"])
+def test_qr_packing_k10_k11_are_identical_run_to_run_on_the_card(cuda_device, variant, size,
+                                                                 batch):
+    """The race check (compute-sanitizer does not run on the card's
+    machine): two launches of 200 QRs on the same input give the same bits."""
+    from odecheckpts_torch import qr_packing
+
+    batch = _packing_batch(batch, cuda_device)
+    x = torch.tensor(np.random.default_rng(76).standard_normal((size, size, batch)),
+                     dtype=torch.float32, device=cuda_device)
+    run = qr_packing.bench_kernel(variant, size, size, 200)
+    first, second = run(x), run(x)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    assert bool(torch.isfinite(first).all())
 
 
 @pytest.mark.cuda

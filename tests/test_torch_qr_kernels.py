@@ -108,6 +108,18 @@ def test_the_launchers_raise_without_a_card_and_the_wrappers_count_no_launch():
         kernels.batched_qr_r(torch.zeros((4, 4)))
 
 
+def test_k10_k11_take_a_team_a_lane_until_the_card_is_full():
+    """``kernels.qr_packing_team`` (the team the wrappers pass): 4 threads a lane up
+    to 128 lanes an SM (the reference's 8,192 lanes on 132 SMs), then one."""
+    team, per_sm = kernels.QR_PACKING_TEAM, kernels.QR_PACKING_TEAM_LANES_PER_SM
+    assert (team, per_sm) == (4, 128)
+    assert kernels.qr_packing_team(8192, 132) == team
+    assert kernels.qr_packing_team(per_sm * 132, 132) == team
+    assert kernels.qr_packing_team(per_sm * 132 + 1, 132) == 1
+    assert kernels.qr_packing_team(32_768, 132) == kernels.qr_packing_team(262_144, 132) == 1
+    assert kernels.qr_packing_team(1, 0) == 1
+
+
 def test_parse_ptxas_reads_the_new_kernels():
     log = "\n".join([
         "ptxas info    : Compiling entry function "
@@ -126,6 +138,10 @@ def test_parse_ptxas_reads_the_new_kernels():
         "'_ZN12_GLOBAL__N_117qr_packing_maskedILi10ELi10EEEvPKfPfil' for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 168 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_115qr_packing_colsILi10ELi10ELi4EEEvPKfPfil' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 70 registers, used 0 barriers",
     ])
     got = kernels.parse_ptxas(log)
     assert got["pit_combine"]["f32/4/3"] == {
@@ -133,3 +149,4 @@ def test_parse_ptxas_reads_the_new_kernels():
     assert got["pit_combine"]["f64/5/1"]["registers"] == 200
     assert got["batched_qr_r"]["10/5"]["registers"] == 80
     assert got["qr_packing_masked"]["10/10"]["registers"] == 168
+    assert got["qr_packing_cols"]["10/10/4"]["registers"] == 70  # a team of 4 threads a lane
