@@ -20,8 +20,8 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
    (``cuobjdump -sass``) and launch geometry (threads per lane, lanes per
    block, static and dynamic shared memory per block, blocks per SM), which
    must equal ``kernels.bd_geometry``'s, with no spills and at most
-   BD_MAX_STACK bytes of stack; for every K2 and K4 entry (nu = 4, 5) the
-   same report against ``kernels.hi_geometry`` (a thread per lane: their
+   BD_MAX_STACK bytes of stack; for every K2 and K4 entry (nu = 4, 5, 6)
+   the same report against ``kernels.hi_geometry`` (a thread per lane: their
    spills are reported, not gated); for K2 wide and K4 wide (nu = 4, 5, at
    d = 64, 128, 130 and 1,024: both instantiations, launch bounds 128 and
    1,024) against ``kernels.hi_wide_geometry`` (a block per lane, a thread
@@ -34,7 +34,7 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
    fixed-grid path's m = 4, c = 3.
 3. one attempt, kernel against twin, 4,096 lanes, from the Taylor-initialized
    and a mid-solve state: K1 and K3 at nu = 2, 3, 4 (17 arrays), K2 and K4
-   at nu = 4, 5 (12 arrays): every array equal, and two launches on one
+   at nu = 4, 5, 6 (12 arrays): every array equal, and two launches on one
    input equal to each other.
 4. f32 main path (K1): ``batched.solve_save_at_batched(engine="cuda-loop")``
    at rtol 1e-1..1e-4, parity and tuned (nu, kappa) schedules; exactly 4
@@ -331,7 +331,26 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
     solve, and the committed TPU row's mean steps (not a gate).  (c)
     ``engine="cuda"`` (K4 wide) at (32, 1e-7) on 64 lanes equals
     ``"cuda-loop"`` on the same lanes bit for bit.
-35. the kernel table line and the result line.  K1-K4's rows carry their
+35. order_sweep (experiment 6's prior-order sweep,
+    ``experiments/6_tpu_batched_sweep/order_sweep.py:73-80``, through its
+    torch runner ``order_sweep_torch.py``, loaded by path): the bench
+    workload (phase 4's 32,768 lanes and truth; the runner's ensemble is
+    checked to be those lanes) in df32 at nu = SWEEP_NU = 6, the default
+    error calibration, on K2.  (a) The rows at rtol 1e-6 and 1e-9 through
+    the runner's ``run_row`` (a warm-up and one timed solve): its gates
+    (RMSE < 3 rtol, worst lane < 6 rtol, finite, no lane at the attempt cap)
+    and exactly 4 launches of K2 in the timed solve; printed: seconds, mean
+    steps beside the committed TPU row's (``data_order_sweep.json``, the
+    reference's: not a gate), K2's CUDA-event time of each launch in one
+    more solve, each launch's bound and their share of the solve.  (b)
+    ``engine="cuda"`` (K4) at rtol 1e-6 gives the outputs and step counts of
+    (a) bit for bit.  (c) For the kernel line, from the rtol 1e-6 row's
+    Taylor init: K2 at SWEEP_CAP = 100 attempts and one K4 attempt against
+    their plain versions in turns (plain, kernel, kernel, plain), every
+    array equal, timed; K2's whole first interval twice, equal run to run
+    and on the checkpoint, and its device time and bound
+    (``interval_ms``, ``interval_bound_ms``).
+36. the kernel table line and the result line.  K1-K4's rows carry their
     instantiations of order 2 (``instantiations``: ptxas registers and
     spills, launches in phases 31 and 32, the full-width launch's deviation
     from its plain version, its device and plain times and bound (the
@@ -340,7 +359,7 @@ RMSE < 3 rtol, worst lane < 6 rtol, no lane at the attempt cap.  Phases:
 
 Phases 26-30 run beside the rows whose lanes they reuse: 26 after 9,
 adaptive_dense after 13, adaptive_bd after 18, 28 and 29 after 22; 30 after
-29.  31, 32 and 34 run before 29; 33 after 30.
+29.  31, 32, 34 and 35 run before 29; 33 after 30.
 
 Every kernel's ``ms`` is its device time (``_device_time``: DEVICE_LAUNCHES
 launches back to back behind a sleep of the stream, so the wrapper's host
@@ -349,7 +368,7 @@ time overlaps the card's busy wait), with the wrapper's host time per call
 which holds the wrapper's host time) and torch.profiler's device time in a
 ``device_time`` line each.
 
-Each path of phases 4, 6, 8, 9, 11, 13, 15, 18, 20, 22, 28, 31-34 runs with
+Each path of phases 4, 6, 8, 9, 11, 13, 15, 18, 20, 22, 28, 31-35 runs with
 the launch counts set to 0 just before it and read just after; a kernel of the
 path that did not launch fails the run.  Kernel-against-plain comparisons run outside those
 windows.  Each kernel's ``bound_ms`` is the larger of its state's bytes
@@ -357,8 +376,9 @@ windows.  Each kernel's ``bound_ms`` is the larger of its state's bytes
 operations of the accepted attempts of the timed launch over 67 TFLOP/s
 (the QRs, triangular solves and products of an attempt, counted from the
 shapes in ``_attempt_flops``; rejected attempts are not counted, so the bound
-is a lower one; K2 wide and K4 wide: their launch of phase 34 at d = 64).  K8-K11: each input read once and each output written once,
-against the operations of the algorithm (``_combine_flops``; ``_qr_flops``
+is a lower one; K2 wide and K4 wide: their launch of phase 34 at d = 64;
+K2 and K4 at nu = 6: their launches of phase 35(c)).  K8-K11: each input
+read once and each output written once, against the operations of the algorithm (``_combine_flops``; ``_qr_flops``
 per QR, the same count for K10 and K11); K9-K11 are on no solve path, their
 ``launches`` are those of their phases.  ``library_ms``: K9's and K10 / K11's
 ``torch.linalg.qr(mode="r")`` on the same batch (for K10 / K11 one call a QR,
@@ -427,6 +447,12 @@ KERNELS = {  # wrapper -> (id, source, the TPU kernel it replaces)
                         "odecheckpts_tpu/batched.py:897"),
     "step_hi_attempt": ("K4", "odecheckpts_torch/csrc/step_hi_attempt.cu",
                         "odecheckpts_tpu/batched_hi.py:547"),
+    # K2 and K4 at nu = 6 (experiment 6's prior-order sweep, phase 35): rows of
+    # their own beside the bench's nu = 4 rows
+    "step_hi_interval_nu6": ("K2 nu=6", "odecheckpts_torch/csrc/step_hi.cu",
+                             "odecheckpts_tpu/batched_hi.py:539"),
+    "step_hi_attempt_nu6": ("K4 nu=6", "odecheckpts_torch/csrc/step_hi_attempt.cu",
+                            "odecheckpts_tpu/batched_hi.py:547"),
     "step_hi_wide_interval": ("K2 wide", "odecheckpts_torch/csrc/step_hi_wide.cu",
                               "odecheckpts_tpu/batched_hi.py:539"),
     "step_hi_wide_attempt": ("K4 wide", "odecheckpts_torch/csrc/step_hi_wide_attempt.cu",
@@ -606,7 +632,7 @@ def phase_build():
     packing = tuple(f"{m}/{n}/{t}" for m, n in kernels.QR_PACKING_SHAPES
                     for t in (kernels.QR_PACKING_TEAM, 1))  # K10 / K11: a team, a thread a lane
     want = {"step_ll_interval": (2, 3, 4), "step_ll_attempt": (2, 3, 4),
-            "step_hi_interval": (4, 5), "step_hi_attempt": (4, 5),
+            "step_hi_interval": (4, 5, 6), "step_hi_attempt": (4, 5, 6),
             "step_hi_wide_interval": WIDE_INSTANTIATIONS,
             "step_hi_wide_attempt": WIDE_INSTANTIATIONS,
             "step_dense_interval": dense, "step_dense_attempt": dense,
@@ -727,16 +753,18 @@ def phase_build_bd(ptxas, sass):
 
 def phase_build_hi(ptxas, sass):
     """K2's and K4's ptxas counts and machine instructions beside the launch
-    geometry their C launch functions report, for nu = 4 and 5; fails if
+    geometry their C launch functions report, for nu = 4, 5 and 6; fails if
     that geometry is not ``kernels.hi_geometry``'s or if no block fits on an
     SM.  Returns the geometry of each form at nu = 4 (the rows of phases
-    6-8)."""
+    6-8) and at nu = 6 (phase 35's rows)."""
     from odecheckpts_torch import kernels
 
     main, bad = {}, []
     for name in ("step_hi_interval", "step_hi_attempt"):
-        for nu in (4, 5):
+        for nu in (4, 5, 6):
             geometry = kernels.step_hi_geometry(name, nu)
+            if nu == 6:
+                main[name + "_nu6"] = geometry
             info = {**ptxas[name][nu], **geometry, "sass_instructions": sass.get(name, {}).get(nu)}
             emit({"phase": "build_hi", "kernel": KERNELS[name][0], "form": name, "nu": nu, **info})
             want = kernels.hi_geometry(nu)
@@ -929,15 +957,17 @@ def _hi_state(u0s, tols, nu, torch):
 
 def phase_attempt_hi(device):
     """One attempt of K2 (max_attempts=1) and of K4 against one step of the
-    df32 twin; returns the largest deviation of each."""
+    df32 twin at nu = 4, 5 and 6; returns the largest deviation of each
+    (nu = 6 under the ``_nu6`` rows' names)."""
     import torch
 
     from odecheckpts_torch import batched_hi, kernels, problems
 
     u0s = _ensemble(ATTEMPT_LANES, torch, device)
     tols = torch.full((ATTEMPT_LANES,), ATTEMPT_RTOL_HI, dtype=torch.float32, device=device)
-    worst = {"step_hi_interval": 0.0, "step_hi_attempt": 0.0}
-    for nu in (4, 5):
+    worst = {name + suffix: 0.0 for name in ("step_hi_interval", "step_hi_attempt")
+             for suffix in ("", "_nu6")}
+    for nu in (4, 5, 6):
         state, inputs, t_next = _hi_state(u0s, tols, nu, torch)
         step = batched_hi.make_step_hi(problems.rigid_body_df(), nu=nu, d=3, error_calibration=2.0)
         mid = state
@@ -954,7 +984,8 @@ def phase_attempt_hi(device):
                 got, again = run(), run()
                 torch.cuda.synchronize()
                 devs, bad, w = _deviations(STATE_NAMES_HI, got, want, torch, pairs=(0, 2, 7))
-                worst[name] = max(worst[name], w)
+                row = name + ("_nu6" if nu == 6 else "")
+                worst[row] = max(worst[row], w)
                 unequal = [n for n, g, x in zip(STATE_NAMES_HI, got, want)
                            if not _same_bits(g, x, torch)]
                 repeat = all(_same_bits(a, b, torch) for a, b in zip(got, again))
@@ -3706,16 +3737,21 @@ WIDE_ENGINE_LANES = 64  # phase 34(c)
 WIDE_TPU_ROWS = "experiments/4_brusselator/data_batched_tpu.json"
 
 
-def _wide_runner():
-    """``experiments/4_brusselator/batched_torch.py``, loaded by path."""
+def _runner(folder, name):
+    """The torch runner ``experiments/<folder>/<name>.py``, loaded by path."""
     import importlib.util
     from pathlib import Path
 
-    path = Path(__file__).resolve().parent / "experiments" / "4_brusselator" / "batched_torch.py"
-    spec = importlib.util.spec_from_file_location("batched_torch", path)
+    path = Path(__file__).resolve().parent / "experiments" / folder / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def _wide_runner():
+    """``experiments/4_brusselator/batched_torch.py``, loaded by path."""
+    return _runner("4_brusselator", "batched_torch")
 
 
 def _wide_start(runner, N, batch, tol, device):
@@ -3877,6 +3913,130 @@ def phase_brusselator_wide(device):
         raise AssertionError(f"brusselator_wide failed: {failed}")
     launches = {"step_hi_wide_interval": counts[WIDE_ROWS[0]],
                 "step_hi_wide_attempt": counts["attempt"]}
+    return timing, worst, launches
+
+
+# phase 35: experiment 6's prior-order sweep (order_sweep.py) through its
+# torch runner, the df32 rows at nu = 6 on K2 (the committed TPU rows' mean
+# steps printed beside them, not a gate)
+SWEEP_NU = 6
+SWEEP_RTOLS = (1e-6, 1e-9)
+SWEEP_CAP = 100  # attempts of K2's launch against its plain version
+SWEEP_TPU_ROWS = "experiments/6_tpu_batched_sweep/data_order_sweep.json"
+
+
+def phase_order_sweep(device, truth, u0s):
+    """Phase 35: the df32 rows of experiment 6's prior-order sweep at nu = 6
+    on K2 and K4 (module docstring).  Returns (the kernel line's timings of
+    both at nu = 6, their largest deviations from the plain versions (0.0),
+    their launches on the phase's paths)."""
+    import torch
+
+    from odecheckpts_torch import batched_hi, kernels, problems
+
+    runner = _runner("6_tpu_batched_sweep", "order_sweep_torch")
+    t_phase, failed, worst = time.perf_counter(), [], {}
+    _, params, _, u0_rows = runner.workload(BATCH)
+    if not torch.equal(torch.tensor(u0_rows, device=device), u0s):
+        raise AssertionError("the runner's ensemble is not the bench rows' (the truth's lanes)")
+    from pathlib import Path
+
+    tpu = {(r["dtype"], r["nu"], r["rtol"]): r for r in json.loads(
+        (Path(__file__).resolve().parent / SWEEP_TPU_ROWS).read_text())["results"]}
+
+    # (a) the rows through the runner, warm-up and timed solve each
+    rows, outs = {}, {}
+
+    def sweep_rows():
+        solve = runner.make_solve("df32", SWEEP_NU, "cuda-loop")
+        for rtol in SWEEP_RTOLS:
+            rows[rtol], outs[rtol] = runner.run_row("df32", SWEEP_NU, rtol, u0s=u0s, truth=truth,
+                                                    engine="cuda-loop", solve=solve)
+
+    _, counts = _path(["step_hi_interval"], sweep_rows)
+    for rtol in SWEEP_RTOLS:
+        row = rows[rtol]
+        tols = torch.full((BATCH,), rtol, dtype=torch.float32, device=device)
+        # the solver binds its kernel wrappers when it is made: make it in the window
+        solved = []
+        per_launch = _kernel_share(lambda tols=tols: solved.append(runner.make_solve(
+            "df32", SWEEP_NU, "cuda-loop")(u0s, tols)), "step_hi_interval")
+        accepted = np.diff(solved[0][1].cpu().numpy().astype(np.int64), axis=1).sum(axis=0)
+        bound_ms = [float(a) * _attempt_flops("step_hi_interval", SWEEP_NU, 3)
+                    / PEAK_F32_FLOPS * 1e3 for a in accepted]
+        ref = tpu.get(("df32", SWEEP_NU, rtol), {}).get("mean_steps")
+        ok = row["gate_ok"] and row["launches"] == {"step_hi_interval": NUM_SAVE - 1}
+        emit({"phase": "order_sweep", "part": "a", **row, "rmse_over_rtol": row["rmse"] / rtol,
+              "worst_lane_over_rtol": row["rmse_max_lane"] / rtol,
+              "k2_ms_per_launch": per_launch, "k2_bound_ms_per_launch": bound_ms,
+              "k2_share": sum(per_launch) / 1e3 / row["seconds"],
+              "tpu_row_mean_steps": ref,
+              "mean_steps_over_tpu": row["mean_steps"] / ref if ref else None, "ok": ok})
+        if not ok:
+            failed.append(("row", rtol))
+
+    # (b) the attempt engine (K4) against the interval engine, the first row
+    rtol0 = SWEEP_RTOLS[0]
+    (row4, out4), c4 = _path(["step_hi_attempt"], lambda: runner.run_row(
+        "df32", SWEEP_NU, rtol0, u0s=u0s, truth=truth, engine="cuda",
+        solve=runner.make_solve("df32", SWEEP_NU, "cuda")))
+    equal = all(_same_bits(a, b, torch) for a, b in zip(out4, outs[rtol0]))
+    emit({"phase": "order_sweep", "part": "b", "kernel": "K4", "nu": SWEEP_NU, "rtol": rtol0,
+          "batch": BATCH, "seconds": row4["seconds"], "gate_ok": row4["gate_ok"],
+          "launches": c4["step_hi_attempt"], "outputs_equal_loop_engine": equal})
+    if not (equal and row4["gate_ok"]):
+        failed.append(("K4 engine", equal, row4["gate_ok"]))
+
+    # (c) the kernel line: K2 at SWEEP_CAP attempts and one K4 attempt from the
+    # first row's Taylor init against their plain versions, in turns; K2's
+    # whole first interval twice (the race check) and its device time
+    tols = torch.full((BATCH,), rtol0, dtype=torch.float32, device=device)
+    state, inputs, t_next = _hi_state(u0s, tols, SWEEP_NU, torch)
+    step = batched_hi.make_step_hi(problems.rigid_body_df(params), nu=SWEEP_NU, d=3)
+    timing = {}
+    for name, cap in (("step_hi_interval", dict(max_attempts=SWEEP_CAP)),
+                      ("step_hi_attempt", {})):
+        kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+
+        def run(fn, cap=cap):
+            return lambda: fn(step, state, t_next, **inputs, **cap)
+
+        times = _time_pair((("plain", run(plain)), ("kernel", run(kernel)),
+                            ("kernel2", run(kernel)), ("plain2", run(plain))))
+        equal = not _unequal(times["kernel"][1], times["plain"][1], torch, worst, name + "_nu6")
+        repeat = _runs_equal(times, times["kernel"][1], torch)
+        timing[name + "_nu6"] = _timing(name, times, state, 11, nu=SWEEP_NU, d=3, run=run(kernel))
+        emit({"phase": "order_sweep", "part": "launch", "kernel": KERNELS[name + "_nu6"][0],
+              "nu": SWEEP_NU, "rtol": rtol0, "batch": BATCH, **cap, "arrays_equal": equal,
+              "kernel_runs_equal": repeat,
+              **{k: timing[name + "_nu6"][k] for k in ("ms", "host_ms", "event_ms", "plain_ms",
+                                                       "accepted")}})
+        if not (equal and repeat):
+            failed.append((name, "launch", equal, repeat))
+
+    def interval():
+        return kernels.step_hi_interval(step, state, t_next, max_attempts=MAX_ATTEMPTS, **inputs)
+
+    full = [interval(), interval()]
+    torch.cuda.synchronize()
+    repeat = not _unequal(*full, torch)
+    at_checkpoint = bool(torch.all(full[0][0] == t_next)) and bool(torch.all(full[0][1] == 0))
+    accepted = float(torch.sum(full[0][11] - state[11]))
+    dev = _device_time("step_hi_interval", interval, n=5)
+    whole = {"interval_ms": dev["device_ms"], "interval_accepted": accepted,
+             "interval_bound_ms": accepted * _attempt_flops("step_hi_interval", SWEEP_NU, 3)
+             / PEAK_F32_FLOPS * 1e3}
+    timing["step_hi_interval_nu6"].update(whole)
+    emit({"phase": "order_sweep", "part": "interval", "kernel": "K2 nu=6", "rtol": rtol0,
+          "batch": BATCH, "kernel_runs_equal": repeat, "at_checkpoint": at_checkpoint, **whole,
+          "max_attempts_of_a_lane": float(torch.max(full[0][11] - state[11]))})
+    if not (repeat and at_checkpoint):
+        failed.append(("K2 whole interval", repeat, at_checkpoint))
+    emit({"phase": "order_sweep", "seconds": time.perf_counter() - t_phase, "failed": failed})
+    if failed:
+        raise AssertionError(f"order_sweep failed: {failed}")
+    launches = {"step_hi_interval_nu6": counts["step_hi_interval"],
+                "step_hi_attempt_nu6": c4["step_hi_attempt"]}
     return timing, worst, launches
 
 
@@ -4237,6 +4397,10 @@ def main():
     wide_timing, wide_worst, wide_launches = phase_brusselator_wide(device)
     timing.update(wide_timing)
     worst.update(wide_worst)
+    sweep_timing, sweep_worst, sweep_launches = phase_order_sweep(device, truth, u0s)
+    timing.update(sweep_timing)
+    for name, w in sweep_worst.items():
+        worst[name] = max(worst[name], w)
     phase_logistic(device)
     phase_train(device)
     phase_multidevice(device, u0s, loop_ll, outs_hi[("parity", MD_RTOL_HI)], pit_refs)
@@ -4252,7 +4416,7 @@ def main():
                 "step_hi_interval": counts_hi["step_hi_interval"],
                 "step_ll_attempt": counts_attempt["step_ll_attempt"]["step_ll_attempt"],
                 "step_hi_attempt": counts_attempt["step_hi_attempt"]["step_hi_attempt"],
-                **wide_launches,
+                **wide_launches, **sweep_launches,
                 "step_dense_interval": counts_dense["step_dense_interval"],
                 "step_dense_attempt": counts_attempt_dense["step_dense_attempt"],
                 "step_bd_interval": counts_bd["step_bd_interval"],
@@ -4280,6 +4444,9 @@ def main():
                                       "threads_per_block")})
         if "f64" in timing[name]:
             rows[-1]["f64"] = timing[name]["f64"]
+        if name.endswith("_nu6"):  # K2: its whole first interval beside the capped launch
+            rows[-1].update({"nu": SWEEP_NU, **{k: v for k, v in timing[name].items()
+                                               if k.startswith("interval_")}})
         if name in O2_KERNELS:  # the instantiations of order 2 (phases 31 and 32)
             rows[-1]["instantiations"] = _o2_rows(o2, name)
         if "blocked" in timing[name]:  # K8 on the blockdiag adaptive parallel-in-time path

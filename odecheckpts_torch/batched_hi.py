@@ -23,11 +23,12 @@ the f32 engine of ``batched`` and tight lanes here.
 Ported configuration: isotropic backend, ``ode_order`` 1 or 2, TS0 at any
 d and TS1 at d = 1 (f32 Jacobians from the hi channel), the fixedpoint and
 the filter strategy, dynamic calibration, ``error_unit`` "qoi" or
-"residual", any error calibration (kappa), ``num_derivatives`` in {4, 5},
+"residual", any error calibration (kappa), ``num_derivatives`` in {4, 5, 6},
 f32 pairs (``dtype=torch.float32``) and the f64-pair ("double-double")
 oracle mode (``dtype=torch.float64``, plain versions only); on the wide
-forms TS0 and the fixedpoint strategy at ``ode_order`` 1.  Everything else
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+forms ``num_derivatives`` in {4, 5} (``kernels.HI_WIDE_NU``), TS0 and the
+fixedpoint strategy at ``ode_order`` 1.  Everything else raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ from .batched import _const_matmul, _matmul_ll, _tri_solve_upper_ll
 #   6 G_acc (n,n,B)    7 msp_hi (n,d,B)   8 msp_lo (n,d,B)
 #   9 dt (1,B)        10 errn_prev (1,B) 11 nsteps (1,B)
 NUM_STATE_HI = 12
-SUPPORTED_NU = (4, 5)
+SUPPORTED_NU = (4, 5, 6)
 
 # df32 pair precision (the stall floor on the compensated time axis)
 _EPS_DF32 = 2.0**-45
@@ -105,13 +106,13 @@ class StepHi(batched._StepConstants):
         if nu not in SUPPORTED_NU:
             raise NotImplementedError(
                 f"num_derivatives={nu} is not ported to the df32 engine yet (the "
-                f"kernel is instantiated for {SUPPORTED_NU}): ROADMAP queue 1 item 5"
+                f"kernel is instantiated for {SUPPORTED_NU}): ROADMAP queue 1 item 2"
             )
         if strategy not in ("fixedpoint", "filter"):
             raise ValueError(f"the df32 step runs 'fixedpoint' or 'filter', got {strategy!r}")
         if ts1 and d != 1:
             raise NotImplementedError(
-                "ts1 in the df32 engine covers d=1: ROADMAP queue 1 item 5")
+                "ts1 in the df32 engine covers d=1: ROADMAP queue 1 item 2")
         super().__init__(nu=nu, d=d, error_calibration=error_calibration,
                          control=control, dtype=dtype)
         self.vf_df = vf_df
@@ -135,8 +136,11 @@ class StepHi(batched._StepConstants):
         return out
 
     def packed_constants(self):
-        """The kernel's constant buffer (layout of ``ConstsHi`` in step_hi.cuh)."""
-        return self._pack(max(SUPPORTED_NU) + 1, [
+        """The kernel's constant buffer (layout of ``ConstsHiN`` in
+        step_hi.cuh): the arrays padded to K2's and K4's order bound, or to
+        the wide forms' (``kernels.HI_WIDE_NU``) for a row functor."""
+        wide = kernels.hi_wide(self.device_functor)
+        return self._pack(max(kernels.HI_WIDE_NU if wide else SUPPORTED_NU) + 1, [
             self.max_lq, self.a_inf_norm, self.sqrt_d, self.kappa, self.neg_n1,
             self.n2, self.safety, self.factor_min, self.factor_max, self.big,
             self.clip, self.tiny_frac, self.stall, self.ts1_floor, float(self.residual),

@@ -51,6 +51,7 @@ int launch(int nu, const void* in_ptrs, const void* out_ptrs, const void* consts
   switch (nu) {
     case 4: step_hi_interval<4, VF><<<grid, block, 0, st>>>(args, c, vf, B, max_attempts); break;
     case 5: step_hi_interval<5, VF><<<grid, block, 0, st>>>(args, c, vf, B, max_attempts); break;
+    case 6: step_hi_interval<6, VF><<<grid, block, 0, st>>>(args, c, vf, B, max_attempts); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -61,6 +62,7 @@ int report(int nu, int* out) {
   switch (nu) {
     case 4: return lane_report(step_hi_interval<4, VF>, out);
     case 5: return lane_report(step_hi_interval<5, VF>, out);
+    case 6: return lane_report(step_hi_interval<6, VF>, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -10,11 +10,11 @@
 // plain PyTorch twin is odecheckpts_torch/batched_hi.py:StepHi.
 //
 // What bounds it: per-thread registers and latency, not bytes.  A lane holds
-// 2 + 4*n*d + 2*n*n + 4 state floats (150 at nu = 5, d = 3), the
-// (2n) x (2n) = 144-float column list of the revert QR at nu = 5, the
-// extrapolated mean pair and the step's temporaries.  The pair arithmetic
-// multiplies the mean's operation count (an error-free product is 17
-// flops), but the covariance QR, in plain f32, is still most of an attempt.
+// 2 + 4*n*d + 2*n*n + 4 state floats (150 at nu = 5, 188 at nu = 6, d = 3),
+// the (2n) x (2n) column list of the revert QR (144 floats at nu = 5, 196 at
+// nu = 6), the extrapolated mean pair and the step's temporaries.  The pair
+// arithmetic multiplies the mean's operation count (an error-free product is
+// 17 flops), but the covariance QR, in plain f32, is still most of an attempt.
 // This first version accepts register spills (ptxas -v counts per nu are in
 // PERF.md).
 //
@@ -53,21 +53,25 @@
 
 namespace {
 
-constexpr int NMAX_HI = 6;  // n = nu + 1 for nu <= 5
+constexpr int NMAX_HI = 7;  // n = nu + 1 for nu <= 6 (batched_hi.SUPPORTED_NU)
 constexpr int NUM_STATE_HI = 12;
 constexpr int NUM_IN_HI = NUM_STATE_HI + 6;  // + t_next, atol, rtol, dt_max, dt_floor, tiny_scale
 
-// Rounded f32 constants, in the order of StepHi.packed_constants().
-struct ConstsHi {
-  float a[NMAX_HI * NMAX_HI];   // Pascal transition A, row-major, stride NMAX_HI
-  float lq[NMAX_HI * NMAX_HI];  // chol(Qbar), row-major, stride NMAX_HI
-  float lq_norm[NMAX_HI];       // ||Lq[k, :]||
-  float inv_fact[NMAX_HI];      // 1 / (nu - i)!
+// Rounded f32 constants, in the order of StepHi.packed_constants(), the
+// arrays padded to NMAX: K2's and K4's at NMAX_HI, the wide forms' at their
+// own bound (ConstsWide, step_hi_wide.cuh).
+template <int NMAX>
+struct ConstsHiN {
+  float a[NMAX * NMAX];   // Pascal transition A, row-major, stride NMAX
+  float lq[NMAX * NMAX];  // chol(Qbar), row-major, stride NMAX
+  float lq_norm[NMAX];    // ||Lq[k, :]||
+  float inv_fact[NMAX];   // 1 / (nu - i)!
   float max_lq, a_inf_norm, sqrt_d, kappa, neg_n1, n2, safety, factor_min,
       factor_max, big, clip, tiny_frac, stall, ts1_floor;
   float residual;  // 1: error unit "residual", 0: "qoi"
 };
-static_assert(sizeof(ConstsHi) == 99 * sizeof(float), "layout of StepHi.packed_constants");
+using ConstsHi = ConstsHiN<NMAX_HI>;
+static_assert(sizeof(ConstsHi) == 127 * sizeof(float), "layout of StepHi.packed_constants");
 
 struct ArgsHi {
   const float* in[NUM_IN_HI];
@@ -477,11 +481,12 @@ __device__ __forceinline__ void store_lane_hi(const LaneHi<N, D>& s, const ArgsH
   args.out[11][b] = s.nsteps;
 }
 
-inline void unpack_hi(ArgsHi& args, ConstsHi& c, const void* in_ptrs, const void* out_ptrs,
+template <class C>
+inline void unpack_hi(ArgsHi& args, C& c, const void* in_ptrs, const void* out_ptrs,
                       const void* consts) {
   std::memcpy(args.in, in_ptrs, sizeof(args.in));
   std::memcpy(args.out, out_ptrs, sizeof(args.out));
-  std::memcpy(&c, consts, sizeof(ConstsHi));
+  std::memcpy(&c, consts, sizeof(C));
 }
 
 }  // namespace

@@ -84,7 +84,14 @@ constexpr int WIDE_MAX_THREADS = 1024;
 constexpr int WIDE_SMALL_THREADS = 128;
 constexpr int WIDE_WARP = 32;
 constexpr unsigned WIDE_FULL_MASK = 0xffffffffu;
-constexpr int NN_HI = NMAX_HI * NMAX_HI;
+// The wide body's own order bound: its lane (LaneWide, StepWide) holds n <=
+// NMAX_WIDE, so nu <= 5 (kernels.HI_WIDE_NU), whatever orders K2 and K4 take;
+// its constants come padded to the same bound (StepHi.packed_constants() of
+// a row functor).
+constexpr int NMAX_WIDE = 6;
+constexpr int NN_WIDE = NMAX_WIDE * NMAX_WIDE;
+using ConstsWide = ConstsHiN<NMAX_WIDE>;
+static_assert(sizeof(ConstsWide) == 99 * sizeof(float), "layout of StepHi.packed_constants");
 
 // The step scalars of the lane's next attempt (make_step_hi's head: the
 // remainder's flags, the clamped dt, the preconditioner, t_new and the
@@ -93,20 +100,20 @@ constexpr int NN_HI = NMAX_HI * NMAX_HI;
 struct StepWide {
   int frozen, clamped, tiny;
   float dt_mean, dt, t_new_hi, t_new_lo;
-  float p[NMAX_HI], ck_hi[NMAX_HI], ck_lo[NMAX_HI];
+  float p[NMAX_WIDE], ck_hi[NMAX_WIDE], ck_lo[NMAX_WIDE];
 };
 
 // The lane's part of the block's shared memory (dynamic, at its start).
-// (n, n) arrays are row-major at stride n; a and lq at stride NMAX_HI.
+// (n, n) arrays are row-major at stride n; a and lq at stride NMAX_WIDE.
 struct LaneWide {
   float t_hi, t_lo, scale, dt, errn_prev, nsteps;
   int accept, tiny;         // the controller's decisions of the attempt
-  float chol[2][NN_HI];     // the current and the next chol
-  float g_acc[2][NN_HI];    // the current and the next G_acc
-  float gain[NN_HI];        // warp 0 also stages X^T there
-  float g_corr[NMAX_HI];
-  float a[NN_HI], lq[NN_HI];  // the constants A and Lq (ConstsHi's)
-  float work[2 * NN_HI];    // warp 0: l_bar, then l_bar_n, then rows < n of the QR's columns
+  float chol[2][NN_WIDE];   // the current and the next chol
+  float g_acc[2][NN_WIDE];  // the current and the next G_acc
+  float gain[NN_WIDE];      // warp 0 also stages X^T there
+  float g_corr[NMAX_WIDE];
+  float a[NN_WIDE], lq[NN_WIDE];  // the constants A and Lq (ConstsWide's)
+  float work[2 * NN_WIDE];  // warp 0: l_bar, then l_bar_n, then rows < n of the QR's columns
   StepWide st;              // the next attempt's step scalars
 };
 constexpr int WIDE_LANE_FLOATS = 363;  // kernels.HI_WIDE_LANE_FLOATS
@@ -139,7 +146,7 @@ __device__ __forceinline__ float pick(const float (&x)[N], int i) {
 // The step scalars of the attempt that starts from L's time axis and dt
 // into L.st (attempt_hi's head, operation by operation).
 template <int NU>
-__device__ __forceinline__ void step_scalars(LaneWide& L, const ConstsHi& c,
+__device__ __forceinline__ void step_scalars(LaneWide& L, const ConstsWide& c,
                                              const LaneInputsHi& in) {
   constexpr int N = NU + 1;
   StepWide& st = L.st;
@@ -184,7 +191,7 @@ __device__ __forceinline__ void step_scalars(LaneWide& L, const ConstsHi& c,
 // gain into L.g_acc[cur ^ 1], attempt_hi's arithmetic output by output.  w
 // is the thread's lane in warp 0; every lane of the warp calls it.
 template <int NU>
-__device__ __forceinline__ void cov_warp(LaneWide& L, const ConstsHi& c, const float (&p)[NU + 1],
+__device__ __forceinline__ void cov_warp(LaneWide& L, const ConstsWide& c, const float (&p)[NU + 1],
                                          float new_scale, float tiny_scale, int cur, int w) {
   constexpr int N = NU + 1;
   constexpr int O = 1;
@@ -230,11 +237,11 @@ __device__ __forceinline__ void cov_warp(LaneWide& L, const ConstsHi& c, const f
       float acc = -0.0f;  // the exact identity of +; zero entries of A skipped
 #pragma unroll
       for (int j = 0; j < N; ++j) {
-        const float a = L.a[w * NMAX_HI + j];
+        const float a = L.a[w * NMAX_WIDE + j];
         if (a != 0.0f) acc = acc + a * work[j * N + k];
       }
       col[k] = acc;
-      col[N + k] = lq_s * L.lq[w * NMAX_HI + k];
+      col[N + k] = lq_s * L.lq[w * NMAX_WIDE + k];
     }
   } else if (w < M) {
 #pragma unroll
@@ -354,7 +361,7 @@ __device__ __forceinline__ void cov_warp(LaneWide& L, const ConstsHi& c, const f
 // the decisions into L (accept, tiny, dt, the time axis and errn memory; on
 // a full accept scale and nsteps).
 template <int NU>
-__device__ __forceinline__ void control_wide(LaneWide& L, const ConstsHi& c,
+__device__ __forceinline__ void control_wide(LaneWide& L, const ConstsWide& c,
                                              const LaneInputsHi& in, int d,
                                              const float (&p)[NU + 1], F2 t_new, float dt,
                                              bool frozen, bool clamped, bool tiny, float sigma,
@@ -395,11 +402,12 @@ __device__ __forceinline__ void control_wide(LaneWide& L, const ConstsHi& c,
 // barriers.
 template <int NU, class VF>
 __device__ __forceinline__ void attempt_wide(LaneWide& L, float* sh, ColumnHi<NU + 1>& s,
-                                             const ConstsHi& c, const VF& vf,
+                                             const ConstsWide& c, const VF& vf,
                                              const LaneInputsHi& in, int d, int& cur) {
   constexpr int N = NU + 1;
   constexpr int O = VF::O;
   static_assert(O == 1, "the wide df32 step runs vector fields of order 1");
+  static_assert(N <= NMAX_WIDE, "the wide lane is built for nu <= 5");
   const int q = static_cast<int>(threadIdx.x);
   const int warp = q / WIDE_WARP, w = q % WIDE_WARP;
   const int control_warp = blockDim.x > WIDE_WARP ? 1 : 0;
@@ -509,7 +517,7 @@ __device__ __forceinline__ void attempt_wide(LaneWide& L, float* sh, ColumnHi<NU
 // Ends with a barrier.
 template <int N>
 __device__ __forceinline__ LaneInputsHi load_lane_wide(LaneWide& L, ColumnHi<N>& s,
-                                                       const ArgsHi& args, const ConstsHi& c,
+                                                       const ArgsHi& args, const ConstsWide& c,
                                                        int64_t b, int64_t B, int d) {
   const int q = static_cast<int>(threadIdx.x);
   const LaneInputsHi in{args.in[12][b], args.in[13][b], args.in[14][b],
@@ -530,7 +538,7 @@ __device__ __forceinline__ LaneInputsHi load_lane_wide(LaneWide& L, ColumnHi<N>&
   }
   if (q == 0) {
 #pragma unroll
-    for (int k = 0; k < NN_HI; ++k) {  // unrolled: no run-time index into the parameters
+    for (int k = 0; k < NN_WIDE; ++k) {  // unrolled: no run-time index into the parameters
       L.a[k] = c.a[k];
       L.lq[k] = c.lq[k];
     }

@@ -13,7 +13,7 @@ namespace {
 // MAXT and the launch bound as in step_hi_wide.cu.
 template <int NU, int MAXT, class VF>
 __global__ void __launch_bounds__(MAXT, 1)
-    step_hi_wide_attempt(ArgsHi args, ConstsHi c, VF vf, int64_t B, int d) {
+    step_hi_wide_attempt(ArgsHi args, ConstsWide c, VF vf, int64_t B, int d) {
   constexpr int N = NU + 1;
   extern __shared__ float smem[];
   LaneWide& L = *reinterpret_cast<LaneWide*>(smem);
@@ -49,7 +49,7 @@ int launch(int nu, const void* in_ptrs, const void* out_ptrs, const void* consts
   if (d < 1 || d > WIDE_MAX_THREADS || kernel == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   ArgsHi args;
-  ConstsHi c;
+  ConstsWide c;
   unpack_hi(args, c, in_ptrs, out_ptrs, consts);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -130,8 +130,12 @@ _FUNCTORS = {
         ("odeckpt_step_hi_wide_attempt_brusselator_hi", HI_WIDE_D),
 }
 # the row functors of K2 and K4 wide (csrc/functors.cuh) -> float parameters;
-# each is of order 1, built for nu = 4 and 5, fixedpoint and TS0
+# each is of order 1, built for the nu of HI_WIDE_NU, fixedpoint and TS0
 _WIDE_FUNCTORS = {"brusselator_hi": 1}
+# the orders K2 wide and K4 wide are built for: their lane (LaneWide in
+# csrc/step_hi_wide.cuh) holds n <= 6, while K2 and K4 take every nu of
+# batched_hi.SUPPORTED_NU
+HI_WIDE_NU = (4, 5)
 # The functors of order 2 on K1-K4 (csrc/functors.cuh; step_ll_o2*.cu,
 # step_hi_o2*.cu): functor -> (ODE order, float parameters, the nu it is
 # built for, the strategies, the corrections).  Their entries take the
@@ -247,11 +251,14 @@ def _thread_per_lane():
 
 
 def hi_geometry(nu):
-    """The launch geometry of K2 and K4 (both forms, nu = 4 or 5), as their C
-    launch functions compute it: threads per lane, lanes and threads per
-    block, and shared-memory bytes per block."""
-    if nu not in (4, 5):
-        raise ValueError(f"K2 and K4 are built for nu = 4 and 5, not {nu}")
+    """The launch geometry of K2 and K4 (both forms, every nu of
+    ``batched_hi.SUPPORTED_NU``), as their C launch functions compute it:
+    threads per lane, lanes and threads per block, and shared-memory bytes
+    per block."""
+    from . import batched_hi
+
+    if nu not in batched_hi.SUPPORTED_NU:
+        raise ValueError(f"K2 and K4 are built for nu in {batched_hi.SUPPORTED_NU}, not {nu}")
     return _thread_per_lane()
 
 
@@ -264,15 +271,16 @@ HI_WIDE_LANE_FLOATS, HI_WIDE_SMALL_THREADS, _WARP = 363, 128, 32
 
 
 def hi_wide_geometry(nu, d):
-    """The launch geometry of K2 and K4 wide (both forms, nu = 4 or 5) for
-    ODE dimension ``d`` (at most ``HI_WIDE_MAX_D``), as their C launch
-    functions compute it: threads per lane (d), lanes per block (1),
-    threads per block (d in whole warps), shared-memory bytes per block
+    """The launch geometry of K2 and K4 wide (both forms, nu in
+    ``HI_WIDE_NU``) for ODE dimension ``d`` (at most ``HI_WIDE_MAX_D``), as
+    their C launch functions compute it: threads per lane (d), lanes per
+    block (1), threads per block (d in whole warps), shared-memory bytes per block
     (the lane's scalars, decisions, (n, n) arrays, constants and warp 0's
     scratch, and three rows of d floats) and ``max_threads``, the launch
     bound of the instantiation that runs it (``HI_WIDE_SMALL_THREADS`` for
     blocks up to that size, else ``HI_WIDE_MAX_D``)."""
-    hi_geometry(nu)
+    if nu not in HI_WIDE_NU:
+        raise ValueError(f"K2 and K4 wide are built for nu = 4 and 5 (HI_WIDE_NU), not {nu}")
     if not 1 <= int(d) <= HI_WIDE_MAX_D:
         raise ValueError(f"K2 and K4 wide take 1 <= d <= {HI_WIDE_MAX_D} (a thread a "
                          f"component, one block a lane), got d={d}")
@@ -817,18 +825,15 @@ def _variant_flags(kernel, functor, step):
     """The flag ints of ``kernel``'s entry for the step's configuration;
     raises ``ValueError`` where the functor's order is not the step's and
     ``NotImplementedError`` where no instantiation runs the configuration
-    (the wide forms: nu 4 or 5, fixedpoint, TS0, ode_order 1)."""
+    (the wide forms: nu in ``HI_WIDE_NU``, fixedpoint, TS0, ode_order 1)."""
     if kernel.startswith("step_hi_wide"):
-        from . import batched_hi
-
         strategy = getattr(step, "strategy", "fixedpoint")
         order = getattr(step, "ode_order", 1)
-        if (step.nu not in batched_hi.SUPPORTED_NU or strategy != "fixedpoint" or step.ts1
-                or order != 1):
+        if step.nu not in HI_WIDE_NU or strategy != "fixedpoint" or step.ts1 or order != 1:
             raise NotImplementedError(
-                f"{kernel} on {functor!r} is built for nu in {batched_hi.SUPPORTED_NU}, the "
+                f"{kernel} on {functor!r} is built for nu in {HI_WIDE_NU}, the "
                 f"fixedpoint strategy, TS0 and ode_order=1; got nu={step.nu}, {strategy!r}, "
-                f"{'ts1' if step.ts1 else 'ts0'}, ode_order={order}: ROADMAP queue 1 item 5")
+                f"{'ts1' if step.ts1 else 'ts0'}, ode_order={order}: ROADMAP queue 1 item 2")
         return ()
     order = _VARIANTS[functor][0] if functor in _VARIANTS else 1
     if getattr(step, "ode_order", 1) != order:

@@ -156,14 +156,14 @@ def test_plain_hi_interval_lands_every_lane_on_the_checkpoint():
 def test_packed_constants_of_the_df32_step_match_the_kernel_layout():
     step = batched_hi.make_step_hi(problems.rigid_body_df(), nu=4, d=3, error_calibration=2.0)
     c = step.packed_constants()
-    assert c.dtype == np.float32 and c.shape == (99,)  # sizeof(ConstsHi) / 4
-    assert c[97] == np.float32(1.2e-7) and c[98] == 0.0  # ts1_floor, residual
-    a, lq = c[:36].reshape(6, 6), c[36:72].reshape(6, 6)
+    assert c.dtype == np.float32 and c.shape == (127,)  # sizeof(ConstsHi) / 4, NMAX_HI = 7
+    assert c[125] == np.float32(1.2e-7) and c[126] == 0.0  # ts1_floor, residual
+    a, lq = c[:49].reshape(7, 7), c[49:98].reshape(7, 7)
     np.testing.assert_array_equal(a[:5, :5], np.float32(step.a_rows))
     np.testing.assert_array_equal(lq[:5, :5], np.float32(step.lq_rows))
-    assert np.all(a[5] == 0) and np.all(lq[:, 5] == 0)
-    assert c[87] == np.float32(2.0)  # kappa
-    assert c[95] == np.float32(1e-5) and c[96] == np.float32(2.0**-43)  # tiny_frac, stall
+    assert np.all(a[5:] == 0) and np.all(lq[:, 5:] == 0)
+    assert c[115] == np.float32(2.0)  # kappa
+    assert c[123] == np.float32(1e-5) and c[124] == np.float32(2.0**-43)  # tiny_frac, stall
 
 
 @pytest.fixture
@@ -307,7 +307,7 @@ def test_df32_kernels_refuse_a_vector_field_without_device_functor(cuda_device):
                                 **{k: v.double() for k, v in inputs.items()})
 
 
-@pytest.mark.parametrize("nu", [4, 5])
+@pytest.mark.parametrize("nu", [4, 5, 6])
 def test_hi_geometry_is_a_thread_per_lane(nu):
     """K2's and K4's launch geometry, the same in both forms: one thread per
     IVP lane, blocks of 128 lanes (lanes.cuh), no shared memory."""
@@ -316,7 +316,7 @@ def test_hi_geometry_is_a_thread_per_lane(nu):
 
 
 def test_hi_geometry_refuses_an_nu_that_is_not_built():
-    with pytest.raises(ValueError, match="nu = 4 and 5"):
+    with pytest.raises(ValueError, match=r"nu in \(4, 5, 6\)"):
         kernels.hi_geometry(3)
     with pytest.raises(ValueError, match="not K2 or K4"):
         kernels.step_hi_geometry("step_bd_interval")
@@ -597,7 +597,7 @@ def test_hi_wide_engines_agree_with_the_twin_on_the_card(cuda_device):
         torch.testing.assert_close(a, c, rtol=0, atol=0)
     step, state, t_next, inputs = _start_hi_wide(4, batch=8, device=cuda_device,
                                                  strategy="filter")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
         kernels.step_hi_wide_interval(step, state, t_next, max_attempts=1, **inputs)
 
 
